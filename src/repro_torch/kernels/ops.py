@@ -1,0 +1,157 @@
+"""Public wrappers of the four main-path kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then dispatches
+on the device of its tensors: a CPU tensor goes to the kernel's plain
+PyTorch version, a CUDA tensor to the CUDA kernel, and anything else
+raises. There is no flag and no fallback — a CUDA tensor never reaches a
+plain version here, and a kernel that fails to build or launch raises.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do
+not count), so a run can show that its main path went through the
+kernels; ``reset_launches`` zeroes the counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import haar2d as _haar
+from repro_torch.kernels import jaccard_popcount as _jac
+from repro_torch.kernels import minmax_hash as _mm
+from repro_torch.kernels import stft_mag as _stft
+from repro_torch.kernels.ref import haar_matrix
+
+LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_sig_buckets": 0,
+            "jaccard_popcount": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    kind = next(iter(devs)).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {kind}")
+    return kind == "cuda"
+
+
+def _require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def _typed(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           label: str) -> None:
+    _require(t.dtype == dtype, name, f"{label} must be {dtype}, got {t.dtype}")
+    _require(t.dim() == ndim, name, f"{label} must be {ndim}-D, got "
+             f"{tuple(t.shape)}")
+    _require(t.is_contiguous(), name, f"{label} must be contiguous")
+
+
+def stft_mag(wave: torch.Tensor, window: torch.Tensor, dft_r: torch.Tensor,
+             dft_i: torch.Tensor, hop: int) -> torch.Tensor:
+    """(R, T) waveforms → (R, n_frames, K) power spectrogram of the
+    ``hop``-spaced, ``window``-weighted frames over the DFT columns."""
+    name = "stft_mag"
+    for t, label, nd in ((wave, "wave", 2), (window, "window", 1),
+                         (dft_r, "dft_r", 2), (dft_i, "dft_i", 2)):
+        _typed(name, t, torch.float32, nd, label)
+    frame_len = window.shape[0]
+    _require(dft_r.shape == dft_i.shape and dft_r.shape[0] == frame_len,
+             name, "dft_r/dft_i must both be (frame_len, K)")
+    _require(hop > 0 and wave.shape[1] >= frame_len, name,
+             "need hop > 0 and at least one frame")
+    if not _on_cuda(name, wave, window, dft_r, dft_i):
+        return _stft.plain(wave, window, dft_r, dft_i, hop)
+    nf = _stft.n_frames(wave.shape[1], frame_len, hop)
+    out = torch.empty((wave.shape[0], nf, dft_r.shape[1]),
+                      dtype=torch.float32, device=wave.device)
+    _stft.launch(wave, window, dft_r, dft_i, hop, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+_HAAR_MATS: dict = {}
+
+
+def haar_mats(h: int, w: int, device) -> tuple[torch.Tensor, ...]:
+    """(T_H, T_W, T_Wᵀ) as fp32 tensors on ``device`` (cached)."""
+    key = (h, w, str(device))
+    mats = _HAAR_MATS.get(key)
+    if mats is None:
+        th = torch.as_tensor(haar_matrix(h), device=device)
+        tw = torch.as_tensor(haar_matrix(w), device=device)
+        mats = _HAAR_MATS[key] = (th, tw, tw.T.contiguous())
+    return mats
+
+
+def haar2d(imgs: torch.Tensor) -> torch.Tensor:
+    """Standard-decomposition 2-D Haar transform of (N, H, W) images."""
+    name = "haar2d"
+    _typed(name, imgs, torch.float32, 3, "imgs")
+    n, h, w = imgs.shape
+    th, tw, tw_t = haar_mats(h, w, imgs.device)
+    if not _on_cuda(name, imgs):
+        return _haar.plain(imgs, th, tw)
+    out = torch.empty_like(imgs)
+    _haar.launch(imgs, th, tw_t, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def minmax_sig_buckets(packed: torch.Tensor, mappings: torch.Tensor,
+                       salts: torch.Tensor, *, use_minmax: bool,
+                       n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed (N, D/32) fingerprints × (D, T·f) mappings → (signatures
+    (N, T) int32 holding uint32 patterns, bucket ids (N, T) int32).
+
+    ``salts`` is the (T,) per-table bucket salt (int32 bit patterns);
+    the T·f mapping columns are function-fastest, as ``hash_mappings``
+    lays them out.
+    """
+    name = "minmax_sig_buckets"
+    _typed(name, packed, torch.int32, 2, "packed")
+    _typed(name, mappings, torch.int32, 2, "mappings")
+    _typed(name, salts, torch.int32, 1, "salts")
+    t = salts.shape[0]
+    _require(mappings.shape[0] == 32 * packed.shape[1], name,
+             "mappings rows must equal 32 * packed words")
+    _require(t > 0 and mappings.shape[1] % t == 0, name,
+             "mapping columns must be n_tables * funcs_per_table")
+    _require(n_buckets > 0 and n_buckets & (n_buckets - 1) == 0, name,
+             "n_buckets must be a power of two")
+    f = mappings.shape[1] // t
+    if not _on_cuda(name, packed, mappings, salts):
+        return _mm.plain(packed, mappings, salts, f, use_minmax, n_buckets)
+    n = packed.shape[0]
+    sig = torch.empty((n, t), dtype=torch.int32, device=packed.device)
+    bkt = torch.empty((n, t), dtype=torch.int32, device=packed.device)
+    _mm.launch(packed, mappings, salts, f, use_minmax, n_buckets, sig, bkt)
+    LAUNCHES[name] += 1
+    return sig, bkt
+
+
+def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor,
+                     i2: torch.Tensor) -> torch.Tensor:
+    """Exact Jaccard of ring rows ``pk[s, i1[s, m]]`` and ``pk[s, i2[s, m]]``.
+
+    pk (S, P, W) int32 packed words; i1/i2 (S, M) integer ring slots, each
+    in [0, P) (callers reduce ids modulo the ring) → (S, M) fp32.
+    """
+    name = "jaccard_popcount"
+    _typed(name, pk, torch.int32, 3, "pk")
+    _require(i1.shape == i2.shape and i1.dim() == 2
+             and i1.shape[0] == pk.shape[0], name,
+             "i1/i2 must both be (S, M) with S = pk.shape[0]")
+    if not _on_cuda(name, pk, i1, i2):
+        return _jac.plain(pk, i1, i2)
+    i1 = i1.to(torch.int32).contiguous()
+    i2 = i2.to(torch.int32).contiguous()
+    out = torch.empty(i1.shape, dtype=torch.float32, device=pk.device)
+    _jac.launch(pk, i1, i2, out)
+    LAUNCHES[name] += 1
+    return out
