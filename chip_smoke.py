@@ -15,15 +15,18 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    Times kernel, plain version and, where one PyTorch call computes the
    same function, that call (CUDA events, median of 30 launches).
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
-   from the seed in ``tests/golden/batch_detect.json``): 9 detections and
-   recall 1.0, and the per-station pair-set overlap with the golden.
-4. The paper configuration (``fast_seismic.config()`` widths) on 4
+   from the seed in ``tests/golden/batch_detect.json``): the golden's
+   stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
+4. The paper widths on a 20-minute trace, on the card and on the CPU: the
+   stats and pair triplets must be equal (the CPU path is held to the JAX
+   package on this trace by ``tests/test_torch_paper_widths.py``).
+5. The paper configuration (``fast_seismic.config()`` widths) on 4
    stations × 24 h of synthetic 100 Hz data, with launch counters zeroed
    just before and read just after: stage wall times, fingerprints per
    second, detections, recall, peak memory and each kernel's launches
    (each must be at least the number of blocks).
 
-``--profile`` adds a fifth phase: the first 2 h of the paper-scale replay
+``--profile`` adds a sixth phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
 device's busy and idle shares (``chiprun_out/profile.txt``).
 
@@ -47,6 +50,11 @@ FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
 RTOL = 1e-5
 N_STATIONS = 4
 PAPER_HOURS = 24.0
+# a short trace whose events the paper's 32 s fingerprints see; the same
+# as tests/test_torch_paper_widths.py
+PARITY_SYNTH = dict(duration_s=1200.0, n_stations=3, n_sources=2,
+                    events_per_source=4, repeating_noise_stations=(0,),
+                    event_snr=6.0, seed=5)
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -195,18 +203,23 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
                     *mm_args, f, lcfg.use_minmax, n_buckets), iters=20),
                 "bound_ms": bound, "bound_by": by, "library_ms": None})
 
-    # --- jaccard_popcount (bit-exact, including empty unions)
+    # --- jaccard_popcount (bit-exact, including empty unions). As in
+    # verify_pairs on the paper replay: the packed ring covers the whole
+    # trace, idx2 is a row of the current block and idx1 any row the ring
+    # has filled so far, so the gathers reach across all of it.
     ring, m = n_fp, 4096
     words = packed.shape[1]
-    pk = torch.zeros((N_STATIONS, ring, words), dtype=torch.int32, device=dev)
     per = n // N_STATIONS
-    pk[:, :per] = packed.reshape(N_STATIONS, per, words)
+    blk = packed.reshape(N_STATIONS, per, words)
+    pk = blk.repeat(1, -(-ring // per), 1)[:, :ring].contiguous()
+    pk[:, ring - 2:] = 0                          # two empty rows
+    first = start // fcfg.lag_samples             # the block's first id
     g = torch.Generator(device="cpu").manual_seed(0)
-    i1 = torch.randint(0, per, (N_STATIONS, m), generator=g)
-    i2 = (i1 + torch.randint(1, 9, (N_STATIONS, m), generator=g)) % per
-    i2[:, :64] = i1[:, :64]                       # identical rows
-    i1[:, 64:96] = per + 5                        # empty unions
-    i2[:, 64:96] = per + 6
+    i2 = first + torch.randint(0, per, (N_STATIONS, m), generator=g)
+    i1 = torch.randint(0, first + per, (N_STATIONS, m), generator=g)
+    i1[:, :64] = i2[:, :64]                       # identical rows
+    i1[:, 64:96] = ring - 1                       # empty unions
+    i2[:, 64:96] = ring - 2
     i1, i2 = i1.to(dev), i2.to(dev)
     got = ops.jaccard_popcount(pk, i1, i2)
     want = jac_k.plain(pk, i1, i2)
@@ -270,6 +283,48 @@ def golden_phase(dev) -> dict:
     _need(stats["detections"] == gold["stats"]["detections"] == 9,
           f"golden detections {stats['detections']} != 9")
     _need(rec["recall"] == 1.0, f"golden recall {rec['recall']} != 1.0")
+    _need(out["stats_equal_golden"], "golden stats differ on the card")
+    _need(all(o == 1.0 for o in overlap),
+          f"golden pair sets differ on the card: overlap {overlap}")
+    return out
+
+
+def _triplets(p) -> list:
+    v = p.valid.cpu().numpy()
+    return sorted(zip(p.idx1.cpu().numpy()[v].tolist(),
+                      p.idx2.cpu().numpy()[v].tolist(),
+                      p.sim.cpu().numpy()[v].tolist()))
+
+
+def paper_parity_phase(dev) -> dict:
+    """The paper widths on a short trace, card against the port's CPU path.
+
+    ``tests/test_torch_paper_widths.py`` holds the CPU path to the JAX
+    package on this trace and configuration (pair triplets, stats and
+    detections equal), so equality here ties the card to the reference
+    at the paper's widths."""
+    import dataclasses
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core.detect import detect_events
+    ds = make_dataset(SynthConfig(**PARITY_SYNTH))
+    cfg = fast_seismic.config()
+    cfg = dataclasses.replace(cfg, fingerprint=dataclasses.replace(
+        cfg.fingerprint, mad_sample_rate=1.0))
+    scfg = fast_seismic.batch_replay_config(
+        cfg.fingerprint.n_fingerprints(ds.waveforms.shape[1]))
+    runs = [detect_events(ds.waveforms, cfg, scfg=scfg, keep_pairs=True,
+                          device=d)[3] for d in (dev, "cpu")]
+    pairs = [r.pop("_station_pairs") for r in runs]
+    same = [_triplets(a) == _triplets(b) for a, b in zip(*pairs)]
+    out = {"synth": PARITY_SYNTH, "detections": runs[0]["detections"],
+           "pairs_emitted": runs[0]["drops"]["pairs_emitted"],
+           "stats_equal_cpu": runs[0] == runs[1], "pair_sets_equal": same}
+    print("paper_parity", json.dumps(out), flush=True)
+    _need(runs[0]["drops"]["pairs_emitted"] > 0,
+          "the paper-width parity trace emitted no pairs")
+    _need(out["stats_equal_cpu"] and all(same),
+          "paper widths: the card's result differs from the CPU path's")
     return out
 
 
@@ -408,6 +463,7 @@ def main() -> int:
 
     kernels = kernel_phase(ds, n_fp, dev)
     report["golden"] = golden_phase(dev)
+    report["paper_parity"] = paper_parity_phase(dev)
     report["paper"] = paper_phase(ds, n_fp, dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)

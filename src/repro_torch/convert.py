@@ -7,8 +7,9 @@ the reference's state as numpy arrays (``jax.device_get`` of an
 ``IndexState`` / ``FusedState`` / ``Pairs`` turned into a dict of leaves)
 and return the port's tensors, and back. uint32 arrays (signatures,
 packed words) become int32 tensors with the same bit pattern, and return
-as uint32. A state without a station axis (the reference's solo form)
-gains a leading axis of 1.
+as uint32. Like every constructor of the package, each function puts
+its tensors on ``cuda`` unless ``device`` names another. A state without
+a station axis (the reference's solo form) gains a leading axis of 1.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import utils
 from repro_torch.core.lsh import Pairs, VerifiedPairs
 from repro_torch.stream.fused import FusedState
 from repro_torch.stream.index import IndexState
@@ -25,6 +27,7 @@ _U32_LEAVES = ("sig", "pk")
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
+    device = utils.resolve_device(device)
     a = np.array(a)              # an owned, writable copy
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -32,7 +35,7 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def index_state(leaves: dict, device="cpu") -> IndexState:
+def index_state(leaves: dict, device=None) -> IndexState:
     """Reference ``IndexState`` leaves → the port's (station-stacked)."""
     solo = np.asarray(leaves["sig"]).ndim == 3
     out = {}
@@ -51,7 +54,7 @@ def index_state_to_numpy(state: IndexState) -> dict:
     return out
 
 
-def fused_state(leaves: dict, device="cpu") -> FusedState:
+def fused_state(leaves: dict, device=None) -> FusedState:
     """Reference ``FusedState`` leaves ({"index": {...}, "halo", "med",
     "mad"}) → the port's."""
     solo = np.asarray(leaves["halo"]).ndim == 1
@@ -65,12 +68,12 @@ def fused_state(leaves: dict, device="cpu") -> FusedState:
                       mad=vec(leaves["mad"]))
 
 
-def med_mad(med, mad, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def med_mad(med, mad, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     return (_tensor(np.asarray(med, np.float32), device),
             _tensor(np.asarray(mad, np.float32), device))
 
 
-def pairs(leaves: dict, device="cpu") -> Pairs:
+def pairs(leaves: dict, device=None) -> Pairs:
     """Reference ``Pairs`` / ``VerifiedPairs`` leaves → the port's."""
     t = {k: _tensor(v, device) for k, v in leaves.items()}
     return VerifiedPairs(**t) if "jac" in t else Pairs(**t)

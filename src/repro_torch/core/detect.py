@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import utils
 from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import lsh as lsh_mod
@@ -62,11 +63,6 @@ class StageTimes:
     fused_step_s: float = 0.0    # block replay: all per-block device work
     align_s: float = 0.0         # §6.5 filter + clustering + association
 
-    @property
-    def search_s(self) -> float:
-        """Legacy name for the block replay stage."""
-        return self.fused_step_s
-
     def total(self) -> float:
         return (self.fingerprint_s + self.hashgen_s + self.fused_step_s
                 + self.align_s)
@@ -77,15 +73,6 @@ class StageTimes:
                    hashgen_s=tracer.total_s("hashgen"),
                    fused_step_s=tracer.total_s("fused_step"),
                    align_s=tracer.total_s("host_tail"))
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; never a silent CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "repro_torch on the CPU")
-    return dev
 
 
 def _sync(dev: torch.device) -> None:
@@ -121,7 +108,7 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     reference's ``jax.random.choice`` draw cannot be reproduced in torch,
     so sampled statistics differ from the reference's (exact at rate 1).
     """
-    dev = resolve_device(device)
+    dev = utils.resolve_device(device)
     waveforms = np.atleast_2d(np.asarray(waveforms, np.float32))
     n_stations = waveforms.shape[0]
     fcfg, lcfg, acfg = cfg.fingerprint, cfg.lsh, cfg.align

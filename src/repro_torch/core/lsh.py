@@ -80,9 +80,10 @@ def _invalid_like(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def hash_mappings(d: int, cfg: LSHConfig, device="cpu") -> torch.Tensor:
+def hash_mappings(d: int, cfg: LSHConfig, device=None) -> torch.Tensor:
     """(d, n_hash_fns) int32 hash values in [0, 2**31), columns
     function-fastest within each table (bit-exact with the reference)."""
+    device = utils.resolve_device(device)
     dims = torch.arange(d, dtype=torch.int64, device=device)[:, None]
     fns = torch.arange(cfg.n_hash_fns, dtype=torch.int64, device=device)
     h = utils.hash_combine(utils.hash_u32(dims, cfg.seed),
@@ -90,9 +91,10 @@ def hash_mappings(d: int, cfg: LSHConfig, device="cpu") -> torch.Tensor:
     return (utils.mix32(h) >> 1).to(torch.int32)
 
 
-def bucket_salts(n_tables: int, seed: int, device="cpu") -> torch.Tensor:
+def bucket_salts(n_tables: int, seed: int, device=None) -> torch.Tensor:
     """(t,) per-table bucket salts as int32 bit patterns."""
-    t = torch.arange(n_tables, dtype=torch.int64, device=device)
+    t = torch.arange(n_tables, dtype=torch.int64,
+                     device=utils.resolve_device(device))
     return utils.to_i32_bits(utils.hash_u32(t, seed ^ 0xB0C4E7))
 
 
@@ -104,8 +106,9 @@ def bucket_ids(sigs: torch.Tensor, n_buckets: int, seed: int) -> torch.Tensor:
 
 
 def _filler_signatures(n: int, t: int, cfg: LSHConfig,
-                       device="cpu") -> torch.Tensor:
+                       device=None) -> torch.Tensor:
     """Unique-ish (N, t) signatures for invalid rows so they never collide."""
+    device = utils.resolve_device(device)
     row = utils.hash_u32(torch.arange(n, dtype=torch.int64, device=device),
                          cfg.seed ^ 0x5EED)
     tbl = utils.hash_u32(torch.arange(t, dtype=torch.int64, device=device),

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.haar2d import plain as haar2d_plain  # noqa: F401
+from repro_torch.kernels.haar2d import plain as haar2d  # noqa: F401
 from repro_torch.kernels.jaccard_popcount import \
     plain as jaccard_popcount  # noqa: F401
 from repro_torch.kernels.minmax_hash import minmax as minmax_hash  # noqa: F401
@@ -44,10 +44,3 @@ def dft_matrices(frame_len: int, n_freq: int) -> tuple[np.ndarray, np.ndarray]:
     ang = -2.0 * np.pi * t * k / frame_len
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
-
-def haar2d(imgs: torch.Tensor) -> torch.Tensor:
-    """Standard-decomposition 2-D Haar transform of (N, H, W) images."""
-    h, w = imgs.shape[-2:]
-    th = torch.as_tensor(haar_matrix(h), device=imgs.device)
-    tw = torch.as_tensor(haar_matrix(w), device=imgs.device)
-    return haar2d_plain(imgs, th, tw)

@@ -10,14 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import utils
 from repro_torch.core import lsh as lsh_mod
 from repro_torch.core.lsh import INVALID, LSHConfig, Pairs
 
 
 def pairs_from_triplets(tri: np.ndarray, pad_to: int = 1024,
-                        device="cpu") -> Pairs:
+                        device=None) -> Pairs:
     """(m, 3) host triplets (idx1, idx2, sim) → masked fixed-size ``Pairs``
-    padded to a multiple of ``pad_to``."""
+    padded to a multiple of ``pad_to``, on ``cuda`` unless ``device``
+    names another."""
+    device = utils.resolve_device(device)
     tri = np.asarray(tri).reshape(-1, 3)
     m = tri.shape[0]
     size = max(pad_to, -(-max(m, 1) // pad_to) * pad_to)

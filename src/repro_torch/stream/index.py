@@ -90,7 +90,10 @@ class IndexState:
 
 
 def init_index(lcfg: LSHConfig, icfg: StreamIndexConfig,
-               n_stations: int = 1, device="cpu") -> IndexState:
+               n_stations: int = 1, device=None) -> IndexState:
+    """An empty index for ``n_stations`` stations, on ``cuda`` unless
+    ``device`` names another (``utils.resolve_device``)."""
+    device = utils.resolve_device(device)
     s, t, b, c = n_stations, lcfg.n_tables, icfg.n_buckets, icfg.bucket_cap
 
     def zeros(*shape):

@@ -185,6 +185,20 @@ def lex_key(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; never a silent CPU.
+
+    Every public constructor of the package resolves its ``device`` here,
+    so state built with the defaults lives on the card (and the kernels
+    run), and a machine without CUDA raises instead of running the plain
+    versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "repro_torch on the CPU")
+    return dev
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

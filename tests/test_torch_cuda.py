@@ -53,7 +53,8 @@ def test_stft_mag_kernel(cuda, rows, n, frame_len, hop, k):
 def test_haar2d_kernel(cuda, n, h, w):
     imgs = torch.randn((n, h, w), generator=torch.Generator().manual_seed(1))
     imgs = imgs.to(cuda)
-    _close(ops.haar2d(imgs), ref.haar2d(imgs))
+    th, tw, _ = ops.haar_mats(h, w, cuda)
+    _close(ops.haar2d(imgs), ref.haar2d(imgs, th, tw))
 
 
 @pytest.mark.parametrize("n,d,t,f,use_minmax", [

@@ -121,7 +121,7 @@ def test_binarize_bit_exact_given_coefficients(wave):
     jbits, jpacked = jfp.binarize_coeffs(jnp.asarray(coeffs), jc,
                                          (jmed, jmad))
     bits, packed = tfp.binarize_coeffs(torch.from_numpy(coeffs), tc,
-                                       convert.med_mad(jmed, jmad))
+                                       convert.med_mad(jmed, jmad, "cpu"))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
     np.testing.assert_array_equal(packed.numpy().view(np.uint32),
                                   np.asarray(jpacked))

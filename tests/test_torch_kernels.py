@@ -51,7 +51,8 @@ def test_stft_mag_plain_matches_pallas(rng, rows, n, frame_len, hop, lo, hi):
 @pytest.mark.parametrize("n,h,w", [(8, 16, 32), (5, 8, 8)])
 def test_haar2d_plain_matches_pallas(rng, n, h, w):
     imgs = rng.standard_normal((n, h, w)).astype(np.float32)
-    _close(ref.haar2d(torch.from_numpy(imgs)),
+    th, tw, _ = ops.haar_mats(h, w, "cpu")
+    _close(ref.haar2d(torch.from_numpy(imgs), th, tw),
            jops.haar2d(jnp.asarray(imgs), use_pallas=True))
 
 
@@ -124,7 +125,8 @@ def _wrapper_inputs(rng):
     return {
         "stft_mag": (lambda: ops.stft_mag(wave, window, dr, di, 5),
                      lambda: ref.stft_mag(wave, window, dr, di, 5)),
-        "haar2d": (lambda: ops.haar2d(imgs), lambda: ref.haar2d(imgs)),
+        "haar2d": (lambda: ops.haar2d(imgs), lambda: ref.haar2d(
+            imgs, *ops.haar_mats(8, 16, "cpu")[:2])),
         "minmax_sig_buckets": (
             lambda: ops.minmax_sig_buckets(tu.pack_bits(bits), mappings,
                                            salts, use_minmax=True,

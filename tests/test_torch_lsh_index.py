@@ -85,16 +85,16 @@ def _packed_t(packed: np.ndarray) -> torch.Tensor:
 def test_hash_mappings_bit_exact(d, n_funcs, use_minmax):
     jl, tl = _lcfgs(n_tables=100 if d == 8192 else 20, n_funcs=n_funcs,
                     use_minmax=use_minmax)
-    _eq(tlsh.hash_mappings(d, tl), jlsh.hash_mappings(d, jl))
+    _eq(tlsh.hash_mappings(d, tl, "cpu"), jlsh.hash_mappings(d, jl))
 
 
 def test_bucket_salts_ids_and_fillers_bit_exact(rng):
-    _eq(tlsh.bucket_salts(100, 1234), jlsh.bucket_salts(100, 1234))
+    _eq(tlsh.bucket_salts(100, 1234, "cpu"), jlsh.bucket_salts(100, 1234))
     sigs = rng.integers(0, 2**32, (37, 100), dtype=np.uint32)
     _eq(tlsh.bucket_ids(_packed_t(sigs), 16384, 1234),
         jlsh.bucket_ids(jnp.asarray(sigs), 16384, 1234))
     jl, tl = _lcfgs()
-    _eq(tlsh._filler_signatures(50, 20, tl),
+    _eq(tlsh._filler_signatures(50, 20, tl, "cpu"),
         jlsh._filler_signatures(50, 20, jl))
 
 
@@ -110,7 +110,7 @@ def test_signatures_and_buckets_bit_exact(data, masked, pallas):
         valid[0, 10:40] = False
         valid[1, -7:] = False
     sig, bkt = tlsh.signatures_and_buckets(
-        _packed_t(data["packed"][:, :n]), tlsh.hash_mappings(d, tl), tl, 256,
+        _packed_t(data["packed"][:, :n]), tlsh.hash_mappings(d, tl, "cpu"), tl, 256,
         torch.from_numpy(valid) if masked else None)
     for st in range(2):
         js, jb = jlsh.signatures_and_buckets(
@@ -119,7 +119,7 @@ def test_signatures_and_buckets_bit_exact(data, masked, pallas):
         _eq(sig[st], js)
         _eq(bkt[st], jb)
     _eq(tlsh.signatures(_packed_t(data["packed"][0, :n]),
-                        tlsh.hash_mappings(d, tl), tl),
+                        tlsh.hash_mappings(d, tl, "cpu"), tl),
         jlsh.signatures(jnp.asarray(data["bits"][0, :n]), mappings,
                         dataclasses.replace(jl, use_pallas=False)))
 
@@ -178,7 +178,7 @@ def test_occurrence_filter_bit_exact(rng, limit):
     want, wex = jlsh.occurrence_filter(jp, 60, 0.05, limit=limit)
     got, ex = tlsh.occurrence_filter(
         convert.pairs({f.name: np.array(getattr(jp, f.name))
-                       for f in dataclasses.fields(jp)}), 60, 0.05,
+                       for f in dataclasses.fields(jp)}, "cpu"), 60, 0.05,
         limit=limit)
     _pairs_eq(got, want)
     _eq(ex, wex)
@@ -199,9 +199,9 @@ def _state_eq(port: tidx.IndexState, refs: list) -> None:
 def test_init_and_convert_round_trip():
     jl, tl = _lcfgs()
     jc, tc = jidx.StreamIndexConfig(**IKW), tidx.StreamIndexConfig(**IKW)
-    port = tidx.init_index(tl, tc, n_stations=2)
+    port = tidx.init_index(tl, tc, n_stations=2, device="cpu")
     _state_eq(port, [jidx.init_index(jl, jc)] * 2)
-    back = convert.index_state(convert.index_state_to_numpy(port))
+    back = convert.index_state(convert.index_state_to_numpy(port), "cpu")
     for f in dataclasses.fields(port):
         assert torch.equal(getattr(back, f.name), getattr(port, f.name))
     assert tc.state_bytes(20) == jc.state_bytes(20)
@@ -215,7 +215,7 @@ def test_expire_with_half_life_bit_exact(rng):
     traffic = rng.integers(0, 1000, ref.traffic.shape).astype(np.int32)
     ref = dataclasses.replace(ref, ids=jnp.asarray(ids),
                               traffic=jnp.asarray(traffic))
-    port = convert.index_state(_leaves(ref))
+    port = convert.index_state(_leaves(ref), "cpu")
     for min_id in (-3, 130, 400):
         ref = jidx.expire(ref, jnp.int32(min_id), half_life=64)
         tidx.expire(port, torch.tensor([min_id]), half_life=64)
@@ -246,7 +246,7 @@ def test_guarded_step_bit_exact_over_blocks(data, knobs):
     jl, tl = _lcfgs()
     jc, tc = jidx.StreamIndexConfig(**IKW), tidx.StreamIndexConfig(**IKW)
     d, n = data["bits"].shape[-1], data["bits"].shape[1]
-    jmap, tmap = jlsh.hash_mappings(d, jl), tlsh.hash_mappings(d, tl)
+    jmap, tmap = jlsh.hash_mappings(d, jl), tlsh.hash_mappings(d, tl, "cpu")
     jstep = jax.jit(functools.partial(jidx.guarded_step, cfg=jl, **knobs))
     refs = [jidx.init_index(jl, jc) for _ in range(2)]
     port = None
@@ -271,7 +271,7 @@ def test_guarded_step_bit_exact_over_blocks(data, knobs):
                                         v, packed=jnp.asarray(packed[st]))
             outs.append((sig, bkt, pairs, qc))
         if port is None:        # carry the reference's first step across
-            port = tidx.stack_states([convert.index_state(_leaves(r))
+            port = tidx.stack_states([convert.index_state(_leaves(r), "cpu")
                                       for r in refs])
             continue
         tv = torch.from_numpy(valid) if use_mask else None
@@ -308,9 +308,9 @@ def test_pool_step_block_bit_exact(data):
         jc_f.halo_samples, data["med"], data["mad"])
     leaves = {"index": _leaves(jstate.index), "halo": np.array(jstate.halo),
               "med": np.array(jstate.med), "mad": np.array(jstate.mad)}
-    tstate = convert.fused_state(leaves)
+    tstate = convert.fused_state(leaves, "cpu")
     jmap = jlsh.hash_mappings(jc_f.fp_dim, jl)
-    tmap = tlsh.hash_mappings(tc_f.fp_dim, tl)
+    tmap = tlsh.hash_mappings(tc_f.fp_dim, tl, "cpu")
     bs = jc_f.block_samples(BLOCK)
     for base in (0, BLOCK, 2 * BLOCK):
         start = base * jc_f.lag_samples
@@ -345,9 +345,9 @@ def test_step_block_bit_exact_for_one_station(data):
         jc_f.halo_samples, data["med"][0], data["mad"][0])
     tstate = convert.fused_state(
         {"index": _leaves(jstate.index), "halo": np.array(jstate.halo),
-         "med": np.array(jstate.med), "mad": np.array(jstate.mad)})
+         "med": np.array(jstate.med), "mad": np.array(jstate.mad)}, "cpu")
     jmap = jlsh.hash_mappings(jc_f.fp_dim, jl)
-    tmap = tlsh.hash_mappings(tc_f.fp_dim, tl)
+    tmap = tlsh.hash_mappings(tc_f.fp_dim, tl, "cpu")
     bs = jc_f.block_samples(BLOCK)
     valid = np.arange(BLOCK) < 50
     for base in (0, BLOCK):
