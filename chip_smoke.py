@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's batch FAST detection on one NVIDIA GPU, end to end.
+"""Run the PyTorch port's batch FAST detection and offline Min-Max LSH search
+on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
 Phases (each fails loudly; the script exits non-zero on any mismatch):
 
-1. Builds the four CUDA kernels from ``src/repro_torch/csrc/`` with
+1. Builds the CUDA kernels from ``src/repro_torch/csrc/`` with
    ``nvcc`` for ``sm_90a`` (one compiler process per source, in parallel)
    and prints the card's name and power limit.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -25,13 +26,32 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    just before and read just after: stage wall times, fingerprints per
    second, detections, recall, peak memory and each kernel's launches
    (each must be at least the number of blocks).
+6. The offline golden: ``core.lsh.search`` on the card reproduces the 17
+   ``offline_pairs`` of ``tests/golden/stream_pairs.json``, and
+   ``data.dedup.find_duplicates`` on the card equals the port's CPU path.
+7. The offline search at the paper widths on the 20-minute trace of phase
+   4, card against the port's CPU path: packed fingerprints, pair arrays,
+   stats and Jaccard values equal.
+8. The offline search on phase 5's 4 stations × 24 h: per station
+   fingerprints, ``search`` and ``verify_jaccard`` of the valid pairs, and
+   ``partitioned_search`` (4 partitions) on station 0, with launch counters
+   zeroed just before and read just after (``minmax_hash`` at least once
+   per search, ``jaccard_popcount`` once per search with pairs): stage wall
+   times, fingerprints per second, pairs before and after the filter,
+   ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
+9. ``minmax_hash`` against its plain version at station 0's shape (N =
+   43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
+   baseline's H = 800, bit-exact, timed and bounded.
 
-``--profile`` adds a sixth phase: the first 2 h of the paper-scale replay
+``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
 device's busy and idle shares (``chiprun_out/profile.txt``).
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
-``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
+``{"ok": true, "device": {...}}``. Every kernel's ``launches`` is read
+from the path that runs it: the paper replay (phase 5) for the four batch
+kernels, the offline search (phase 8) for ``minmax_hash``. Without CUDA
+it exits 2 and prints no
 result. Writes ``chiprun_out/chip_smoke.json`` with everything printed.
 """
 from __future__ import annotations
@@ -55,6 +75,9 @@ PAPER_HOURS = 24.0
 PARITY_SYNTH = dict(duration_s=1200.0, n_stations=3, n_sources=2,
                     events_per_source=4, repeating_noise_stations=(0,),
                     event_snr=6.0, seed=5)
+# the kernels of the batch replay; minmax_hash runs on the offline search
+BATCH_KERNELS = ("stft_mag", "haar2d", "minmax_sig_buckets",
+                 "jaccard_popcount")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -364,7 +387,8 @@ def paper_phase(ds, n_fp: int, dev) -> dict:
         "launches": launches,
     }
     print("paper", json.dumps(out), flush=True)
-    for name, count in launches.items():
+    for name in BATCH_KERNELS:
+        count = launches[name]
         _need(count >= n_blocks,
               f"{name} launched {count} times on the main path, fewer than "
               f"its {n_blocks} blocks")
@@ -375,6 +399,261 @@ def paper_phase(ds, n_fp: int, dev) -> dict:
     _need(sum(stats[f"station{st}_pairs"] for st in range(len(events)))
           <= stats["drops"]["pairs_emitted"],
           "more post-filter pairs than the replay emitted")
+    return out
+
+
+def _lap(acc: dict, key: str, fn, peaks: dict | None = None):
+    """Run ``fn``, synchronise the card, add the wall seconds to
+    ``acc[key]`` and, with ``peaks``, keep in ``peaks[key]`` the most
+    device memory allocated during any call; returns what ``fn``
+    returned."""
+    import torch
+    if peaks is not None:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+    if peaks is not None:
+        peaks[key] = max(peaks.get(key, 0), torch.cuda.max_memory_allocated())
+    return out
+
+
+def _station_packed(wave, fcfg, st: int):
+    """Packed fingerprints of one station's whole trace, with the §5.2
+    statistics drawn as ``detect_events`` draws them."""
+    from repro_torch.core import fingerprint as fp_mod
+    coeffs = fp_mod.coeffs_from_waveform(wave, fcfg)
+    rows = (None if fcfg.mad_sample_rate >= 1.0 else
+            fp_mod.sample_rows(coeffs.shape[0], fcfg.mad_sample_rate,
+                               fcfg.stft_len + st))
+    med_mad = fp_mod.mad_stats(coeffs, fcfg.mad_sample_rate, rows)
+    return fp_mod.binarize_coeffs(coeffs, fcfg, med_mad)[1].contiguous()
+
+
+def _valid_pairs(p) -> list:
+    v = p.valid.cpu().numpy()
+    return sorted(zip(p.idx1.cpu().numpy()[v].tolist(),
+                      p.idx2.cpu().numpy()[v].tolist()))
+
+
+def _same_search(a, b) -> bool:
+    """Two (pairs, stats, jaccard) results equal, array by array."""
+    import torch
+    (pa, sa, ja), (pb, sb, jb) = a, b
+    return (all(torch.equal(getattr(pa, f).cpu(), getattr(pb, f).cpu())
+                for f in ("idx1", "idx2", "sim", "valid"))
+            and {k: v.item() for k, v in sa.items()}
+            == {k: v.item() for k, v in sb.items()}
+            and torch.equal(ja.cpu(), jb.cpu()))
+
+
+def offline_golden_phase(dev) -> dict:
+    """The offline search's golden on the card, and corpus dedup card
+    against CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core import fingerprint as fp_mod
+    from repro_torch.core import lsh
+    from repro_torch.data import dedup
+    gold = json.loads((ROOT / "tests" / "golden" / "stream_pairs.json")
+                      .read_text())
+    cfg = fast_seismic.smoke_config()
+    ds = make_dataset(SynthConfig(**gold["synth"]))
+    _, packed = fp_mod.fingerprints_from_waveform(
+        torch.as_tensor(ds.waveforms[0], device=dev), cfg.fingerprint)
+    pairs, _ = lsh.search(packed, cfg.lsh)
+    got = [list(p) for p in _valid_pairs(pairs)]
+    # tests/test_data.py's input: an exact and a near duplicate
+    docs = np.random.default_rng(0).integers(1, 1000, (24, 128)).astype(
+        np.int32)
+    docs[20] = docs[3]
+    docs[21] = docs[5].copy()
+    docs[21, ::37] = 7
+    keep, dstats = dedup.find_duplicates(docs, device=dev)
+    keep_cpu, dstats_cpu = dedup.find_duplicates(docs, device="cpu")
+    out = {"offline_pairs": len(got),
+           "equal_golden": got == gold["offline_pairs"],
+           "dedup": dstats,
+           "dedup_equal_cpu": bool((keep == keep_cpu).all())
+           and dstats == dstats_cpu}
+    print("offline_golden", json.dumps(out), flush=True)
+    _need(out["equal_golden"] and len(got) == 17,
+          f"offline search gave {len(got)} pairs, not the golden's 17")
+    _need(out["dedup_equal_cpu"] and dstats["dropped"] >= 2,
+          "find_duplicates on the card differs from the CPU path")
+    return out
+
+
+def offline_parity_phase(dev) -> dict:
+    """The offline search at the paper widths on the 20-minute trace, card
+    against the port's CPU path, whole path from the waveform.
+
+    ``tests/test_torch_search.py`` holds the CPU path's search to the JAX
+    package at these widths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core import lsh
+    ds = make_dataset(SynthConfig(**PARITY_SYNTH))
+    cfg = fast_seismic.config()
+    fcfg = dataclasses.replace(cfg.fingerprint, mad_sample_rate=1.0)
+    out = {"synth": PARITY_SYNTH, "stations": []}
+    for st in range(ds.waveforms.shape[0]):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            packed = _station_packed(torch.as_tensor(ds.waveforms[st],
+                                                     device=d), fcfg, st)
+            pairs, stats = lsh.search(packed, cfg.lsh)
+            runs.append((packed.cpu(),
+                         (pairs, stats, lsh.verify_jaccard(packed, pairs))))
+        out["stations"].append({
+            "fingerprints": runs[0][0].shape[0],
+            "pre_filter_pairs": int(runs[0][1][1]["pre_filter_pairs"]),
+            "pairs": int(runs[0][1][1]["pairs"]),
+            "packed_equal": torch.equal(runs[0][0], runs[1][0]),
+            "search_equal": _same_search(runs[0][1], runs[1][1])})
+    print("offline_parity", json.dumps(out), flush=True)
+    _need(sum(s["pairs"] for s in out["stations"]) > 0,
+          "the offline parity trace found no pairs")
+    _need(all(s["packed_equal"] and s["search_equal"]
+              for s in out["stations"]),
+          "offline search: the card's result differs from the CPU path's")
+    return out
+
+
+def offline_paper_phase(ds, n_fp: int, dev) -> tuple[dict, object]:
+    """The paper's offline search on every station of the 24 h dataset,
+    launches counted; returns the report and station 0's packed words."""
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import lsh
+    from repro_torch.kernels import ops
+    cfg = fast_seismic.config()
+    fcfg, lcfg = cfg.fingerprint, cfg.lsh
+    n_parts = 4
+    wave = torch.as_tensor(ds.waveforms, device=dev)
+    stage, peaks, stations, packed0 = {}, {}, [], None
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_all = time.perf_counter()
+    for st in range(wave.shape[0]):
+        packed = _lap(stage, "fingerprint",
+                      lambda: _station_packed(wave[st], fcfg, st), peaks)
+        pairs, stats = _lap(stage, "search", lambda: lsh.search(packed, lcfg),
+                            peaks)
+        jac = _lap(stage, "verify", lambda: lsh.verify_jaccard(packed, pairs),
+                   peaks)
+        v = pairs.valid
+        stations.append({
+            "fingerprints": packed.shape[0],
+            "pre_filter_pairs": int(stats["pre_filter_pairs"]),
+            "pairs": int(stats["pairs"]),
+            "excluded_fingerprints": int(stats["excluded_fingerprints"]),
+            "max_bucket": int(stats["max_bucket"]),
+            "avg_lookups_per_query": float(stats["avg_lookups_per_query"]),
+            "selectivity": float(stats["selectivity"]),
+            "mean_jaccard": float(jac[v].mean()) if bool(v.any()) else None})
+        if st == 0:
+            packed0 = packed
+    wall = time.perf_counter() - t_all
+    blocks, pstats = _lap(stage, "partitioned_search_station0",
+                          lambda: lsh.partitioned_search(packed0, lcfg,
+                                                         n_parts), peaks)
+    launches = dict(ops.LAUNCHES)
+    n_search = wave.shape[0] + 1
+    with_pairs = sum(s["pairs"] > 0 for s in stations)
+
+    # a synced breakdown of station 0's search (after the counts were read)
+    split = {}
+    mp = _lap(split, "hash_mappings",
+              lambda: lsh.hash_mappings(fcfg.fp_dim, lcfg, dev))
+    sigs = _lap(split, "signatures", lambda: lsh.signatures(packed0, mp, lcfg))
+    cand = _lap(split, "candidate_pairs",
+                lambda: lsh.candidate_pairs(sigs, lcfg))
+    _lap(split, "occurrence_filter", lambda: lsh.occurrence_filter(
+        cand, packed0.shape[0], lcfg.occurrence_frac))
+    _lap(split, "bucket_stats", lambda: lsh.bucket_stats(sigs))
+
+    n_total = wave.shape[0] * n_fp
+    out = {
+        "stations": wave.shape[0], "hours": PAPER_HOURS,
+        "fingerprints_per_station": n_fp,
+        "stage_s": stage,
+        "wall_s": wall,
+        "fingerprints_per_s": n_total / wall,
+        "search_fingerprints_per_s": n_total / stage["search"],
+        "per_station": stations,
+        "partitioned": {"n_partitions": n_parts,
+                        "pairs": sum(int(b.count()) for b in blocks),
+                        **pstats},
+        "station0_search_split_s": split,
+        "peak_memory_bytes": max(peaks.values()),
+        "stage_peak_memory_bytes": peaks,
+        "launches": launches,
+    }
+    print("offline_paper", json.dumps(out), flush=True)
+    _need(launches["minmax_hash"] >= n_search,
+          f"minmax_hash launched {launches['minmax_hash']} times for "
+          f"{n_search} searches")
+    _need(with_pairs > 0, "the offline search found no pair at any station")
+    _need(launches["jaccard_popcount"] >= with_pairs,
+          f"jaccard_popcount launched {launches['jaccard_popcount']} times "
+          f"for {with_pairs} searches with pairs")
+    _need(all(s["pairs"] <= s["pre_filter_pairs"] for s in stations),
+          "more pairs after the occurrence filter than before")
+    return out, packed0
+
+
+def minmax_hash_phase(packed0, dev) -> dict:
+    """``minmax_hash`` against its plain version at the offline search's
+    shape (one station-day), bit-exact, and at the MinHash baseline's
+    H = t·k = 800."""
+    import dataclasses
+    import torch
+    from repro_torch import utils
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import lsh
+    from repro_torch.kernels import minmax_hash as mm_k
+    from repro_torch.kernels import ops
+    lcfg = fast_seismic.config().lsh
+    packed = packed0.clone()
+    packed[:: 97] = 0                                  # rows with no set bit
+    n, words = packed.shape
+    nnz = int(utils.popcount(packed).sum())
+    dims = int(utils.unpack_bits(packed, 32 * words).any(dim=0).sum())
+    runs = {}
+    for label, cfg in (("minmax", lcfg),
+                       ("baseline", dataclasses.replace(lcfg,
+                                                        use_minmax=False))):
+        mp = lsh.hash_mappings(32 * words, cfg, dev)
+        got = ops.minmax_hash(packed, mp)
+        want = mm_k.plain_raw(packed, mp)
+        torch.cuda.synchronize()
+        _need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"minmax_hash ({label}) differs from its plain version")
+        del want
+        h = mp.shape[1]
+        bound, by = _bound_ms(4 * (packed.numel() + dims * h + 2 * n * h),
+                              2 * nnz * h)
+        runs[label] = {
+            "shape": [n, words, h], "ms": _time_ms(
+                lambda: ops.minmax_hash(packed, mp), iters=20),
+            "plain_ms": _time_ms(lambda: mm_k.plain_raw(packed, mp),
+                                 iters=3, warmup=1),
+            "bound_ms": bound, "bound_by": by}
+    main = runs["minmax"]
+    out = {"name": "minmax_hash", "route": "cuda",
+           "source": "src/repro_torch/csrc/minmax_hash.cu",
+           "replaces": "src/repro/kernels/minmax_hash.py:71",
+           "shape": main["shape"], "set_bits": nnz, "max_abs_err": 0,
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": None, "baseline_h800": runs["baseline"]}
+    print("minmax_hash", json.dumps(out), flush=True)
     return out
 
 
@@ -465,10 +744,16 @@ def main() -> int:
     report["golden"] = golden_phase(dev)
     report["paper_parity"] = paper_parity_phase(dev)
     report["paper"] = paper_phase(ds, n_fp, dev)
+    report["offline_golden"] = offline_golden_phase(dev)
+    report["offline_parity"] = offline_parity_phase(dev)
+    report["offline_paper"], packed0 = offline_paper_phase(ds, n_fp, dev)
+    kernels.append(minmax_hash_phase(packed0, dev))
+    del packed0
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:
-        k["launches"] = report["paper"]["launches"][k["name"]]
+        path = "paper" if k["name"] in BATCH_KERNELS else "offline_paper"
+        k["launches"] = report[path]["launches"][k["name"]]
     report["kernels"] = kernels
     line = [{key: k[key] for key in KERNEL_KEYS} for k in kernels]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

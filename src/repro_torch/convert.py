@@ -78,3 +78,13 @@ def pairs(leaves: dict, device=None) -> Pairs:
     t = {k: _tensor(v, device) for k, v in leaves.items()}
     return VerifiedPairs(**t) if "jac" in t else Pairs(**t)
 
+
+def pairs_list(blocks: list, device=None) -> list[Pairs]:
+    """A list of reference ``Pairs`` leaves (the blocks of
+    ``partitioned_search``) → the port's, in the same order."""
+    return [pairs(leaves, device) for leaves in blocks]
+
+
+def signatures(sigs, device=None) -> torch.Tensor:
+    """Reference uint32 (N, t) signatures → the port's int32 bit patterns."""
+    return _tensor(np.asarray(sigs, np.uint32), device)

@@ -1,20 +1,29 @@
-"""Min-Max LSH (paper §6): hash mappings, signatures, bucket ids, pair
-thresholding and the §6.5 occurrence filter.
+"""Min-Max LSH (paper §6): hash mappings, signatures, bucket ids, the
+sort-based candidate search, pair thresholding, the §6.5 occurrence
+filter, the §6.4 partitioned search, skew diagnostics and exact verify.
 
-PyTorch counterpart of the parts of ``repro.core.lsh`` that the batch
-detection path runs. Signatures are int32 tensors holding uint32 bit
-patterns (the index only compares them for equality). Fingerprints enter
-as packed int32 words (``fingerprint.binarize_coeffs``), which is what the
-Min-Max kernel reads. Pair reductions work along the last dimension, so a
-leading station axis needs no Python loop.
+PyTorch counterpart of ``repro.core.lsh``. Signatures are int32 tensors
+holding uint32 bit patterns (the search only compares them for equality,
+so the signed order of int32 is harmless: runs of equal keys stay
+contiguous). Fingerprints enter as packed int32 words
+(``fingerprint.binarize_coeffs`` / ``utils.pack_bits``; bit j of word w is
+dimension 32 w + j), which is what the Min-Max kernels read. Pair
+reductions work along the last dimension, so a leading station or table
+axis needs no Python loop.
+
+The offline entry points ``search`` and ``partitioned_search`` run where
+their tensor lies, and put array input on ``cuda`` unless ``device``
+names another (``utils.resolve_device``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import utils
+from repro_torch.kernels import minmax_hash as _mm
 from repro_torch.kernels import ops
 
 INVALID = 2**31 - 1
@@ -142,8 +151,67 @@ def signatures_and_buckets(
 
 def signatures(packed: torch.Tensor, mappings: torch.Tensor, cfg: LSHConfig,
                valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Packed fingerprints (..., N, W) → per-table signatures (..., N, t)."""
-    return signatures_and_buckets(packed, mappings, cfg, 1, valid)[0]
+    """Packed fingerprints (..., N, W) → per-table signatures (..., N, t).
+
+    The raw Min-Max planes come from ``ops.minmax_hash`` and are folded as
+    the reference folds them (``hash_combine(min, max)`` per function, or
+    the min alone for MinHash, then the f-way fold per table). Rows where
+    ``valid`` (..., N) is False get the filler signatures."""
+    lead = packed.shape[:-1]
+    t = cfg.n_tables
+    mins, maxs = ops.minmax_hash(
+        packed.reshape(-1, packed.shape[-1]).contiguous(), mappings)
+    sig = utils.to_i32_bits(
+        _mm.fold(mins, maxs, cfg.funcs_per_table, cfg.use_minmax))
+    sig = sig.reshape(*lead, t)
+    if valid is not None:
+        filler = _filler_signatures(lead[-1], t, cfg, packed.device)
+        sig = torch.where(valid.to(sig.device)[..., None], sig, filler)
+    return sig
+
+
+def minhash_signatures_baseline(packed: torch.Tensor,
+                                cfg: LSHConfig) -> torch.Tensor:
+    """Unoptimized MinHash (the paper's baseline): k hash functions per
+    table, each signature the fold of k minima."""
+    base = dataclasses.replace(cfg, use_minmax=False)
+    mp = hash_mappings(32 * packed.shape[-1], base, packed.device)
+    return signatures(packed, mp, base)
+
+
+# ---------------------------------------------------------------------------
+# sort-based bucket group-by → candidate pairs (§6.1 search)
+# ---------------------------------------------------------------------------
+
+
+def _pairs_one_table(keys: torch.Tensor, cap: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., N) signature keys, one row per table → (..., cap·N) canonical
+    pair endpoints (lo, hi), INVALID in masked slots.
+
+    Pairs join elements at rank distance 1..cap inside runs of equal keys.
+    The sort is stable, as ``lax.sort`` is, so a run lists its ids in
+    increasing order and the rank windows match the reference's."""
+    n = keys.shape[-1]
+    sk, order = torch.sort(keys, dim=-1, stable=True)
+    si = order.to(torch.int32)
+    a = torch.full((*keys.shape[:-1], cap, n), INVALID, dtype=torch.int32,
+                   device=keys.device)
+    b = a.clone()
+    for w in range(1, min(cap, n - 1) + 1):
+        same = sk[..., w:] == sk[..., :-w]
+        a[..., w - 1, :n - w] = torch.where(same, si[..., :-w], INVALID)
+        b[..., w - 1, :n - w] = torch.where(same, si[..., w:], INVALID)
+    a = a.reshape(*keys.shape[:-1], cap * n)
+    b = b.reshape(*keys.shape[:-1], cap * n)
+    return torch.minimum(a, b), torch.maximum(a, b)
+
+
+def candidate_pairs(sigs: torch.Tensor, cfg: LSHConfig) -> Pairs:
+    """(N, t) signatures → Pairs of size t · bucket_cap · N (masked), all
+    tables at once along a leading table axis."""
+    lo, hi = _pairs_one_table(sigs.T, cfg.bucket_cap)     # (t, cap·N) each
+    return finalize_pairs(lo.reshape(-1), hi.reshape(-1), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -211,3 +279,147 @@ def occurrence_filter(pairs: Pairs, n_fp: int, frac: float,
                                 torch.zeros_like(pairs.sim)),
                 valid=new_valid)
     return out, excluded_full
+
+
+# ---------------------------------------------------------------------------
+# whole search (+ partitioned variant, §6.4)
+# ---------------------------------------------------------------------------
+
+
+def search(packed, cfg: LSHConfig, valid=None, device=None
+           ) -> tuple[Pairs, dict]:
+    """Packed fingerprints (N, D/32) → similar pairs + search statistics
+    (0-d tensors, as the reference returns them)."""
+    packed = utils.placed(packed, device)
+    n = packed.shape[0]
+    if valid is not None:
+        valid = utils.placed(valid, packed.device)
+    mp = hash_mappings(32 * packed.shape[1], cfg, packed.device)
+    sigs = signatures(packed, mp, cfg, valid=valid)
+    pairs = candidate_pairs(sigs, cfg)
+    stats = {"pre_filter_pairs": pairs.count()}
+    if cfg.occurrence_frac > 0:
+        pairs, excluded = occurrence_filter(pairs, n, cfg.occurrence_frac)
+        stats["excluded_fingerprints"] = excluded.sum()
+    stats["pairs"] = pairs.count()
+    stats.update(bucket_stats(sigs))
+    return pairs, stats
+
+
+def _partition_block(sigs: torch.Tensor, p: int, q: int, psize: int,
+                     cfg: LSHConfig) -> Pairs:
+    """Candidate pairs of partition block (p, q), in global ids; a cross
+    block (p < q) keeps only pairs with one end in each partition.
+
+    As in the reference, ``candidate_pairs`` applies ``min_dt`` to the
+    block's local ids before the global ``min_dt`` check, so a cross pair
+    whose local distance is below ``min_dt`` is dropped even when its
+    global distance is not (ROADMAP, queue 3)."""
+    ar = torch.arange(psize, dtype=torch.int32, device=sigs.device)
+    sa = sigs[p * psize:(p + 1) * psize]
+    if p == q:
+        sig, gids = sa, p * psize + ar
+    else:
+        sig = torch.cat([sa, sigs[q * psize:(q + 1) * psize]])
+        gids = torch.cat([p * psize + ar, q * psize + ar])
+    pr = candidate_pairs(sig, cfg)
+    v = pr.valid
+    zero = torch.zeros_like(pr.idx1)
+    g1 = torch.where(v, gids[torch.where(v, pr.idx1, zero).long()], INVALID)
+    g2 = torch.where(v, gids[torch.where(v, pr.idx2, zero).long()], INVALID)
+    if p != q:
+        v = v & (pr.idx1 < psize) & (pr.idx2 >= psize)
+    lo = torch.minimum(g1, g2)
+    hi = torch.maximum(g1, g2)
+    if cfg.min_dt > 0:
+        v = v & ((hi - lo) >= cfg.min_dt)
+    return Pairs(idx1=torch.where(v, lo, INVALID),
+                 idx2=torch.where(v, hi, INVALID),
+                 sim=torch.where(v, pr.sim, torch.zeros_like(pr.sim)),
+                 valid=v)
+
+
+def partitioned_search(packed, cfg: LSHConfig, n_partitions: int,
+                       device=None) -> tuple[list[Pairs], dict]:
+    """§6.4: memory-bounded search over partition pair-blocks.
+
+    Signatures are computed once; candidate generation sorts only the keys
+    of one block (p, q), p <= q, at a time, so the working set shrinks by
+    about ``n_partitions``. Blocks come in the reference's order."""
+    packed = utils.placed(packed, device)
+    n = packed.shape[0]
+    if n % n_partitions:
+        raise ValueError(f"{n} fingerprints do not split into "
+                         f"{n_partitions} equal partitions")
+    psize = n // n_partitions
+    mp = hash_mappings(32 * packed.shape[1], cfg, packed.device)
+    sigs = signatures(packed, mp, cfg)
+    out = [_partition_block(sigs, p, q, psize, cfg)
+           for p in range(n_partitions) for q in range(p, n_partitions)]
+    stats = {
+        "blocks": len(out),
+        "block_sort_keys": (2 * psize) * cfg.n_tables,
+        "working_set_bytes": 2 * psize * cfg.n_tables
+        * (4 + 4) * cfg.bucket_cap,
+    }
+    return out, stats
+
+
+# ---------------------------------------------------------------------------
+# diagnostics (§6.3) + exact verification
+# ---------------------------------------------------------------------------
+
+
+def bucket_stats(sigs: torch.Tensor) -> dict:
+    """Skew diagnostics of (N, t) signatures: selectivity, lookups per
+    query, largest bucket.
+
+    The lookup count sum_b s(s - 1) is summed in int64 (the reference sums
+    it in int32, which wraps once the total over tables passes 2**31); the
+    two ratios are float32 divisions, as in the reference."""
+    n, t = sigs.shape
+    sk = torch.sort(sigs.T, dim=-1).values                    # (t, N)
+    seg = utils.segment_ids_from_starts(utils.segment_starts(sk))
+    sizes = utils.segment_sum(torch.ones_like(seg), seg, n)  # int32 (t, N)
+    s64 = sizes.to(torch.int64)
+    lookups = (s64 * (s64 - 1)).sum()
+    avg = lookups.to(torch.float32) / torch.tensor(
+        float(n * t), dtype=torch.float32, device=sigs.device)
+    return {
+        "selectivity": avg / torch.tensor(float(n), dtype=torch.float32,
+                                          device=sigs.device),
+        "avg_lookups_per_query": avg,
+        "max_bucket": sizes.max(),
+    }
+
+
+def verify_jaccard(packed: torch.Tensor, pairs: Pairs) -> torch.Tensor:
+    """Exact Jaccard of each valid pair's packed fingerprints, 0 elsewhere.
+
+    Scores only the valid slots (the reference scores all and masks; the
+    output is the same) through ``ops.jaccard_popcount`` with a station
+    axis of 1."""
+    jac = torch.zeros(pairs.valid.shape, dtype=torch.float32,
+                      device=pairs.valid.device)
+    sel = pairs.valid.nonzero(as_tuple=True)
+    if sel[0].numel():
+        jac[sel] = ops.jaccard_popcount(packed[None].contiguous(),
+                                        pairs.idx1[sel][None],
+                                        pairs.idx2[sel][None])[0]
+    return jac
+
+
+def brute_force_pairs(fp, threshold: float, min_dt: int = 0) -> np.ndarray:
+    """O(N²) exact Jaccard join of (N, D) bool fingerprints, in numpy (the
+    test oracle). Returns (P, 3) rows (idx1, idx2, jaccard)."""
+    if isinstance(fp, torch.Tensor):
+        fp = fp.cpu().numpy()
+    fpb = np.asarray(fp, dtype=bool)
+    inter = (fpb.astype(np.int32) @ fpb.T.astype(np.int32))
+    sizes = fpb.sum(1)
+    union = sizes[:, None] + sizes[None, :] - inter
+    jac = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+    n = fpb.shape[0]
+    iu = np.triu_indices(n, k=max(1, min_dt))
+    mask = jac[iu] >= threshold
+    return np.stack([iu[0][mask], iu[1][mask], jac[iu][mask]], axis=1)

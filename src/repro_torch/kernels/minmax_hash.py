@@ -1,13 +1,19 @@
-"""Min-Max LSH signatures + salted bucket ids (paper §6.2).
+"""Min-Max LSH hashing (paper §6.2): raw min/max planes, and signatures
+with salted bucket ids.
 
-The CUDA kernel (``csrc/minmax_hash.cu``) replaces the Pallas kernel
-``repro/kernels/minmax_hash.py:minmax_sig_buckets``. It reads the packed
-(N, D/32) fingerprint words that ``binarize_coeffs`` produces instead of
-the (N, D) bits, and gathers only the mapping rows of set bits. ``plain``
-computes the same function from the same packed input in PyTorch: the
-masked min/max (the reference's ``ref.minmax_hash``) followed by the
-signature fold and bucket addressing of ``repro/core/lsh.py``.
-Signatures are int32 tensors holding the uint32 bit pattern.
+``csrc/minmax_hash.cu`` holds two CUDA kernels that share their set-bit
+compaction and gather loop. ``minmax_hash`` replaces the Pallas kernel
+``repro/kernels/minmax_hash.py:minmax_hash`` (the raw (N, H) mins and
+maxs, folded by ``core.lsh.signatures`` on the offline search path);
+``minmax_sig_buckets`` replaces ``minmax_sig_buckets`` there (fold and
+bucket epilogue fused, the block replay). Both read the packed (N, D/32)
+fingerprint words that ``binarize_coeffs`` produces instead of the (N, D)
+bits, and gather only the mapping rows of set bits. ``plain_raw`` and
+``plain`` compute the same functions from the same packed input in
+PyTorch: the masked min/max (the reference's ``ref.minmax_hash``),
+followed for ``plain`` by the signature fold and bucket addressing of
+``repro/core/lsh.py``. Signatures are int32 tensors holding the uint32
+bit pattern.
 """
 from __future__ import annotations
 
@@ -51,19 +57,48 @@ def minmax(bits: torch.Tensor, mappings: torch.Tensor
     return mins, maxs
 
 
+def plain_raw(packed: torch.Tensor, mappings: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """packed (N, W) int32, mappings (32 W, H) int32 → (mins, maxs), each
+    (N, H) int32, with no fold."""
+    return minmax(utils.unpack_bits(packed, mappings.shape[0]), mappings)
+
+
+def launch_raw(packed: torch.Tensor, mappings: torch.Tensor,
+               mins: torch.Tensor, maxs: torch.Tensor) -> None:
+    """Launch the raw-plane kernel on the current stream (no
+    synchronisation)."""
+    lib = _build.load("minmax_hash")
+    fn = lib.minmax_hash_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    n, n_words = packed.shape
+    rc = fn(packed.data_ptr(), n, n_words, mappings.data_ptr(),
+            mappings.shape[1], mins.data_ptr(), maxs.data_ptr(),
+            torch.cuda.current_stream(packed.device).cuda_stream)
+    _build.check(rc, "minmax_hash")
+
+
+def fold(mins: torch.Tensor, maxs: torch.Tensor, f: int,
+         use_minmax: bool) -> torch.Tensor:
+    """(..., T·f) min/max planes → (..., T) signatures as uint32 values in
+    int64: per function ``hash_combine(min, max)`` (or the min alone for
+    MinHash), then the f-way fold of each table from 0."""
+    per_fn = utils.to_u32(mins)
+    if use_minmax:
+        per_fn = utils.hash_combine(per_fn, utils.to_u32(maxs))
+    return utils.fold_hashes(
+        per_fn.reshape(*per_fn.shape[:-1], -1, f), dim=-1)
+
+
 def plain(packed: torch.Tensor, mappings: torch.Tensor, salts: torch.Tensor,
           f: int, use_minmax: bool, n_buckets: int
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """packed (N, W) int32, mappings (32 W, T f) int32, salts (T,) int32 →
     (sig (N, T) int32 uint32-pattern, bkt (N, T) int32)."""
-    n = packed.shape[0]
-    t = salts.shape[0]
-    bits = utils.unpack_bits(packed, mappings.shape[0])
-    mins, maxs = minmax(bits, mappings)
-    per_fn = utils.to_u32(mins)
-    if use_minmax:
-        per_fn = utils.hash_combine(per_fn, utils.to_u32(maxs))
-    sig = utils.fold_hashes(per_fn.reshape(n, t, f), dim=-1)
+    sig = fold(*plain_raw(packed, mappings), f, use_minmax)
     bkt = utils.hash_combine(sig, utils.to_u32(salts)[None, :]) \
         & (n_buckets - 1)
     return utils.to_i32_bits(sig), bkt.to(torch.int32)
@@ -72,7 +107,8 @@ def plain(packed: torch.Tensor, mappings: torch.Tensor, salts: torch.Tensor,
 def launch(packed: torch.Tensor, mappings: torch.Tensor, salts: torch.Tensor,
            f: int, use_minmax: bool, n_buckets: int, sig: torch.Tensor,
            bkt: torch.Tensor) -> None:
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
+    """Launch the signature kernel on the current stream (no
+    synchronisation)."""
     lib = _build.load("minmax_hash")
     fn = lib.minmax_sig_buckets_launch
     fn.restype = ctypes.c_int

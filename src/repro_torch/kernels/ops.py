@@ -1,4 +1,4 @@
-"""Public wrappers of the four main-path kernels.
+"""Public wrappers of the port's kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on the device of its tensors: a CPU tensor goes to the kernel's plain
@@ -20,8 +20,8 @@ from repro_torch.kernels import minmax_hash as _mm
 from repro_torch.kernels import stft_mag as _stft
 from repro_torch.kernels.ref import haar_matrix
 
-LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_sig_buckets": 0,
-            "jaccard_popcount": 0}
+LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_hash": 0,
+            "minmax_sig_buckets": 0, "jaccard_popcount": 0}
 
 
 def reset_launches() -> None:
@@ -101,6 +101,27 @@ def haar2d(imgs: torch.Tensor) -> torch.Tensor:
     _haar.launch(imgs, th, tw_t, out)
     LAUNCHES[name] += 1
     return out
+
+
+def minmax_hash(packed: torch.Tensor, mappings: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed (N, D/32) fingerprints × (D, H) mappings → the raw (mins,
+    maxs) planes, each (N, H) int32: the min and max of each mapping
+    column over the row's set bits (2**31 - 1 and 0 for an empty row)."""
+    name = "minmax_hash"
+    _typed(name, packed, torch.int32, 2, "packed")
+    _typed(name, mappings, torch.int32, 2, "mappings")
+    _require(mappings.shape[0] == 32 * packed.shape[1], name,
+             "mappings rows must equal 32 * packed words")
+    if not _on_cuda(name, packed, mappings):
+        return _mm.plain_raw(packed, mappings)
+    shape = (packed.shape[0], mappings.shape[1])
+    mins = torch.empty(shape, dtype=torch.int32, device=packed.device)
+    maxs = torch.empty(shape, dtype=torch.int32, device=packed.device)
+    if mins.numel():
+        _mm.launch_raw(packed, mappings, mins, maxs)
+        LAUNCHES[name] += 1
+    return mins, maxs
 
 
 def minmax_sig_buckets(packed: torch.Tensor, mappings: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the four main-path kernels, plus the fixed
+"""Plain PyTorch versions of the port's kernels, plus the fixed
 DFT and Haar matrices (counterpart of ``repro.kernels.ref``).
 
 The plain versions live beside their kernels (``kernels/<name>.py``);
 this module gathers them under the reference's names so tests and
 ``chip_smoke.py`` can hold each kernel against its plain version.
+``minmax_hash`` keeps the reference's (N, D) bits interface; the kernel's
+own plain version on packed words is ``kernels.minmax_hash.plain_raw``.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ stations or tables needs no Python loop.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -197,6 +198,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "repro_torch on the CPU")
     return dev
+
+
+def placed(x, device=None) -> torch.Tensor:
+    """Entry-point input as a tensor: a tensor stays on its own device
+    unless ``device`` names another; anything else (numpy, with uint32
+    arrays viewed as int32) goes to ``resolve_device(device)``, so cuda by
+    default."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    if isinstance(x, np.ndarray) and x.dtype == np.uint32:
+        x = x.view(np.int32)
+    return torch.as_tensor(x, device=resolve_device(device))
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,5 +1,6 @@
-"""The four CUDA kernels against their plain versions on the card, at small,
-ragged and large-shared-memory shapes, and the batch golden on the card.
+"""The CUDA kernels against their plain versions on the card, at small,
+ragged and large-shared-memory shapes; the batch golden, the offline
+golden and the offline search's card-equals-CPU parity on the card.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch import utils as tu
+from repro_torch.kernels import minmax_hash as mm_k
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
@@ -77,6 +79,28 @@ def test_minmax_sig_buckets_kernel(cuda, n, d, t, f, use_minmax):
     assert torch.equal(sig, want[0]) and torch.equal(bkt, want[1])
 
 
+@pytest.mark.parametrize("n,d,h", [
+    (13, 320, 100), (256, 8192, 400),
+    (9, 8192, 800),                          # MinHash baseline: 2 columns a thread
+    (24, 1024, 64),                          # dedup widths
+    (5, 16384, 400)])                        # 64 KB set-bit list: > 48 KB smem
+def test_minmax_hash_kernel(cuda, n, d, h):
+    rng = np.random.default_rng(4)
+    bits = torch.from_numpy(rng.random((n, d)) < 0.05)
+    bits[0] = False                          # empty row
+    bits[-1] = True                          # every dimension set
+    packed = tu.pack_bits(bits).to(cuda)
+    mappings = torch.from_numpy(rng.integers(0, 2**31 - 1, (d, h),
+                                             dtype=np.int32)).to(cuda)
+    ops.reset_launches()
+    mins, maxs = ops.minmax_hash(packed, mappings)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["minmax_hash"] == 1
+    want = mm_k.plain_raw(packed, mappings)
+    assert torch.equal(mins, want[0]) and torch.equal(maxs, want[1])
+    assert (mins[0] == 2**31 - 1).all() and (maxs[0] == 0).all()
+
+
 @pytest.mark.parametrize("s,ring,words,m", [(1, 17, 3, 29), (4, 500, 256,
                                                              4096)])
 def test_jaccard_popcount_kernel(cuda, s, ring, words, m):
@@ -121,3 +145,57 @@ def test_batch_golden_on_the_card(cuda):
              if k != "drops" and not k.endswith("_qc")}
     assert stats == gold["stats"]
     assert recall_against_truth(det, events, ds, fcfg) == gold["recall"]
+
+
+def test_offline_search_card_equals_cpu(cuda):
+    from repro_torch.core import lsh
+    rng = np.random.default_rng(5)
+    bits = rng.random((96, 512)) < 0.08
+    bits[40:56] = bits[40]                   # a bucket larger than the window
+    for i in range(0, 16, 2):
+        bits[95 - i] = bits[i] ^ (rng.random(512) < 0.01)
+    packed = tu.pack_bits(torch.from_numpy(bits))
+    cfg = lsh.LSHConfig(n_tables=50, n_funcs=4, bucket_cap=4, min_dt=1,
+                        occurrence_frac=0.1)
+    ops.reset_launches()
+    got, gstats = lsh.search(packed.to(cuda), cfg)
+    gjac = lsh.verify_jaccard(packed.to(cuda), got)
+    assert ops.LAUNCHES["minmax_hash"] == 1
+    assert ops.LAUNCHES["jaccard_popcount"] == 1
+    want, wstats = lsh.search(packed, cfg)
+    for f in ("idx1", "idx2", "sim", "valid"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+    assert {k: v.item() for k, v in gstats.items()} == \
+        {k: v.item() for k, v in wstats.items()}
+    assert torch.equal(gjac.cpu(), lsh.verify_jaccard(packed, want))
+    blocks, _ = lsh.partitioned_search(packed.to(cuda), cfg, 4)
+    for g, w in zip(blocks, lsh.partitioned_search(packed, cfg, 4)[0]):
+        assert torch.equal(g.idx1.cpu(), w.idx1)
+        assert torch.equal(g.valid.cpu(), w.valid)
+
+
+def test_offline_golden_and_dedup_on_the_card(cuda):
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core import fingerprint, lsh
+    from repro_torch.data import dedup
+    gold = json.loads((ROOT / "tests" / "golden" / "stream_pairs.json")
+                      .read_text())
+    cfg = fast_seismic.smoke_config()
+    ds = make_dataset(SynthConfig(**gold["synth"]))
+    _, packed = fingerprint.fingerprints_from_waveform(
+        torch.from_numpy(ds.waveforms[0]).to(cuda), cfg.fingerprint)
+    pairs, _ = lsh.search(packed, cfg.lsh)
+    v = pairs.valid.cpu().numpy()
+    got = sorted(zip(pairs.idx1.cpu().numpy()[v].tolist(),
+                     pairs.idx2.cpu().numpy()[v].tolist()))
+    assert [list(p) for p in got] == gold["offline_pairs"]
+    rng = np.random.default_rng(0)
+    docs = rng.integers(1, 1000, (24, 128)).astype(np.int32)
+    docs[20] = docs[3]
+    ops.reset_launches()
+    keep, stats = dedup.find_duplicates(docs)
+    assert ops.LAUNCHES["minmax_hash"] == 1
+    want_keep, want_stats = dedup.find_duplicates(docs, device="cpu")
+    assert (keep == want_keep).all() and stats == want_stats
+    assert not keep[20]

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the four main-path kernels against the JAX
+"""The plain PyTorch versions of the port's kernels against the JAX
 package's Pallas kernels (run in interpret mode on the CPU, as
 tests/test_kernels.py runs them), plus the dispatch rules of
 repro_torch.kernels.ops: a CPU tensor takes the plain version and leaves
@@ -127,6 +127,9 @@ def _wrapper_inputs(rng):
                      lambda: ref.stft_mag(wave, window, dr, di, 5)),
         "haar2d": (lambda: ops.haar2d(imgs), lambda: ref.haar2d(
             imgs, *ops.haar_mats(8, 16, "cpu")[:2])),
+        "minmax_hash": (
+            lambda: ops.minmax_hash(tu.pack_bits(bits), mappings),
+            lambda: ref.minmax_hash(bits, mappings)),
         "minmax_sig_buckets": (
             lambda: ops.minmax_sig_buckets(tu.pack_bits(bits), mappings,
                                            salts, use_minmax=True,
@@ -151,7 +154,7 @@ def test_cpu_tensor_takes_plain_version_without_counting(rng, name):
 
 
 @pytest.mark.parametrize("case", ["dtype", "ndim", "contiguity", "buckets",
-                                  "devices"])
+                                  "devices", "mapping_rows"])
 def test_wrappers_reject_bad_inputs(rng, case):
     imgs = torch.zeros((2, 4, 8))
     with pytest.raises(ValueError):
@@ -166,6 +169,9 @@ def test_wrappers_reject_bad_inputs(rng, case):
                                    torch.zeros((32, 4), dtype=torch.int32),
                                    torch.zeros(2, dtype=torch.int32),
                                    use_minmax=True, n_buckets=12)
+        elif case == "mapping_rows":
+            ops.minmax_hash(torch.zeros((2, 2), dtype=torch.int32),
+                            torch.zeros((32, 4), dtype=torch.int32))
         else:
             ops.stft_mag(torch.zeros((1, 64)), torch.zeros(8),
                          torch.zeros((8, 2)), torch.zeros((8, 2),
