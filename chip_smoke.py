@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's batch FAST detection and offline Min-Max LSH search
-on one NVIDIA GPU, end to end.
+"""Run the PyTorch port's batch FAST detection, offline Min-Max LSH search
+and LM serving on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -43,6 +43,28 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
    baseline's H = 800, bit-exact, timed and bounded.
 
+10. The LM kernels against their plain versions on the card, timed and
+    bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
+    40 / 8 heads, 2048 × 2048, D = 128, bf16, causal), plus Sq < Sk, a
+    ragged 1000 × 1000 and an fp32 case; ``mamba_scan`` at
+    falcon-mamba-7b's (B = 1, S = 2048, Di = 8192, N = 16, fp32).
+    Tolerance max abs err ≤ 5e-5·max|plain| in fp32 (summation order, the
+    online-softmax rescale) and ≤ 2⁻⁷·max|plain| for a bf16 output (one
+    rounding).
+11. LM parity: ``ServeEngine`` on the card against the port's CPU path on
+    the fp32 variants of the default smoke model and the qwen2.5-14b and
+    falcon-mamba-7b smoke configs, same parameters, 4 requests: equal
+    token lists, prefill logits within 1e-4·max|logit|.
+12. LM serving at full width: ``qwen25_14b.config()`` and
+    ``falcon_mamba_7b.config()`` with every width unchanged and
+    ``n_layers`` cut to 4, bf16 parameters made on the card by
+    ``init_params`` (seed 0), ``ServeEngine(n_slots=4, max_len=2560)``
+    answering 8 requests (prompts of 512–2048 tokens, 32 new tokens each)
+    after a warm-up run of the same prompts, launch counters zeroed just
+    before and read just after:
+    ``flash_attention`` (qwen) and ``mamba_scan`` (falcon-mamba) launch
+    exactly once per layer per request.
+
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
 device's busy and idle shares (``chiprun_out/profile.txt``).
@@ -50,7 +72,9 @@ device's busy and idle shares (``chiprun_out/profile.txt``).
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Every kernel's ``launches`` is read
 from the path that runs it: the paper replay (phase 5) for the four batch
-kernels, the offline search (phase 8) for ``minmax_hash``. Without CUDA
+kernels, the offline search (phase 8) for ``minmax_hash``, the LM serve
+runs (phase 12) for ``flash_attention`` (qwen2.5-14b) and ``mamba_scan``
+(falcon-mamba-7b). Without CUDA
 it exits 2 and prints no
 result. Writes ``chiprun_out/chip_smoke.json`` with everything printed.
 """
@@ -67,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 RTOL = 1e-5
 N_STATIONS = 4
 PAPER_HOURS = 24.0
@@ -78,6 +103,15 @@ PARITY_SYNTH = dict(duration_s=1200.0, n_stations=3, n_sources=2,
 # the kernels of the batch replay; minmax_hash runs on the offline search
 BATCH_KERNELS = ("stft_mag", "haar2d", "minmax_sig_buckets",
                  "jaccard_popcount")
+# the path whose launch counts the kernels line reports, per kernel
+KERNEL_PATH = {**{k: ("paper",) for k in BATCH_KERNELS},
+               "minmax_hash": ("offline_paper",),
+               "flash_attention": ("lm_serve", "qwen2.5-14b"),
+               "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
+# kernel tolerance, a share of max|plain|: fp32 summation order and the
+# online-softmax rescale; one rounding of a bf16 output
+LM_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
+LM_SERVE_LAYERS = 4
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -106,9 +140,10 @@ def _time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def _bound_ms(n_bytes: float, n_ops: float,
+              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -657,6 +692,229 @@ def minmax_hash_phase(packed0, dev) -> dict:
     return out
 
 
+def _lm_check(got, want, what: str) -> float:
+    """Max abs error of a kernel's output against its plain version, held
+    to the dtype's share of max|plain|."""
+    import torch
+    _need(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype or shape differs from the plain version")
+    _need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    tol = LM_TOL[str(want.dtype).split(".")[-1]] * float(
+        want.float().abs().max())
+    _need(err <= tol, f"{what} differs from its plain version: max abs err "
+          f"{err} > {tol}")
+    return err
+
+
+def lm_kernel_phase(dev) -> list[dict]:
+    """``flash_attention`` and ``mamba_scan`` against their plain versions
+    at the LM prefill shapes, timed and bounded."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import mamba_scan as ms_k
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+
+    # --- flash_attention: (B, Hq, Hkv, Sq, Sk, D, dtype), the first is
+    # qwen2.5-14b's 2048-token prefill, the one the kernels line reports
+    cases = [(1, 40, 8, 2048, 2048, 128, torch.bfloat16),
+             (1, 40, 8, 512, 2048, 128, torch.bfloat16),
+             (1, 40, 8, 1000, 1000, 128, torch.bfloat16),
+             (1, 40, 8, 2048, 2048, 128, torch.float32)]
+    runs = []
+    for b, hq, hkv, sq, sk, d, dt in cases:
+        q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
+        k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v)
+        want = fa_k.plain(q, k, v)
+        torch.cuda.synchronize()
+        err = _lm_check(got, want, f"flash_attention {[b, hq, sq, sk, d]}")
+        del got, want
+        pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+        n_bytes = q.element_size() * 2 * (q.numel() + k.numel())
+        bound, by = _bound_ms(n_bytes, 4 * b * hq * d * pairs,
+                              BF16_OPS_PER_S if dt == torch.bfloat16
+                              else FP32_OPS_PER_S)
+        runs.append({
+            "shape": [b, hq, hkv, sq, sk, d], "dtype": str(dt)[6:],
+            "causal_pairs": pairs, "max_abs_err": err,
+            "ms": _time_ms(lambda: ops.flash_attention(q, k, v)),
+            "plain_ms": _time_ms(lambda: fa_k.plain(q, k, v), iters=10),
+            "bound_ms": bound, "bound_by": by,
+            # the library's causal mask is not offset for Sq < Sk
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            if sq == sk else None})
+        del q, k, v
+    main = runs[0]
+    out.append({"name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:89",
+                **{k: main[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "cases": runs})
+
+    # --- mamba_scan at falcon-mamba-7b's prefill shape, fp32, with the
+    # model's A = -exp(a_log) = -(1..N) and a softplus-sized dt
+    b, s, di, n = 1, 2048, 8192, 16
+    xdt = torch.randn((b, s, di), generator=g, device=dev)
+    dtv = F.softplus(torch.randn((b, s, di), generator=g, device=dev) - 4.6)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).expand(di, n).contiguous()
+    bm = torch.randn((b, s, n), generator=g, device=dev)
+    cm = torch.randn((b, s, n), generator=g, device=dev)
+    args = (xdt, dtv, a, bm, cm)
+    y, h = ops.mamba_scan(*args)
+    y_p, h_p = ms_k.plain(*args)
+    torch.cuda.synchronize()
+    err = max(_lm_check(y, y_p, "mamba_scan y"),
+              _lm_check(h, h_p, "mamba_scan h_final"))
+    n_bytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + b * di * n)
+    bound, by = _bound_ms(n_bytes, 7 * b * s * di * n)
+    out.append({"name": "mamba_scan", "route": "cuda",
+                "source": "src/repro_torch/csrc/mamba_scan.cu",
+                "replaces": "src/repro/kernels/mamba_scan.py:54",
+                "shape": [b, s, di, n], "dtype": "float32",
+                "max_abs_err": err,
+                "ms": _time_ms(lambda: ops.mamba_scan(*args)),
+                "plain_ms": _time_ms(lambda: ms_k.plain(*args), iters=3,
+                                     warmup=1),
+                "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for k in out:
+        print("lm_kernel", json.dumps(k), flush=True)
+    return out
+
+
+def _lm_smoke_configs():
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import default_smoke_model
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               cache_dtype="float32")
+    return [dataclasses.replace(c, **f32) for c in (
+        default_smoke_model(), get_smoke_config("qwen2.5-14b"),
+        get_smoke_config("falcon-mamba-7b"))]
+
+
+def _tree_to(tree: dict, dev) -> dict:
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def lm_parity_phase(dev) -> dict:
+    """``ServeEngine`` on the card against the port's CPU path (which
+    ``tests/test_torch_serve.py`` holds to the JAX package), fp32 smoke
+    configs, the same parameters and requests."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import init_params, prefill
+    out = {}
+    for cfg in _lm_smoke_configs():
+        params = init_params(cfg, 0, "cpu")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 17)))
+                   .astype(np.int32) for _ in range(4)]
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            p = _tree_to(params, d)
+            reqs = [Request(i, pr, 8) for i, pr in enumerate(prompts)]
+            stats = ServeEngine(cfg, n_slots=2, max_len=64, params=p).run(
+                reqs)
+            logits = torch.stack([prefill(p, {"tokens": torch.as_tensor(
+                pr[None], device=d)}, cfg)[0][0].cpu() for pr in prompts])
+            runs.append(([r.out for r in reqs], stats["ticks"], logits))
+        err = float((runs[0][2] - runs[1][2]).abs().max())
+        out[cfg.name] = {"tokens": runs[0][0], "ticks": runs[0][1],
+                         "tokens_equal_cpu": runs[0][:2] == runs[1][:2],
+                         "prefill_logit_max_abs_err": err,
+                         "max_abs_logit": float(runs[1][2].abs().max())}
+    print("lm_parity", json.dumps(out), flush=True)
+    for name, r in out.items():
+        _need(r["tokens_equal_cpu"],
+              f"LM parity {name}: the card's tokens differ from the CPU's")
+        _need(r["prefill_logit_max_abs_err"] <= 1e-4 * r["max_abs_logit"],
+              f"LM parity {name}: prefill logits differ by "
+              f"{r['prefill_logit_max_abs_err']}")
+    return out
+
+
+def lm_serve_phase(dev) -> dict:
+    """qwen2.5-14b and falcon-mamba-7b at full width (n_layers cut to 4)
+    serving 8 requests each, launches counted around each run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import falcon_mamba_7b, qwen25_14b
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import init_params
+    n_req, max_new = 8, 32
+    out = {}
+    for full, kernel in ((qwen25_14b.config(), "flash_attention"),
+                         (falcon_mamba_7b.config(), "mamba_scan")):
+        cfg = dataclasses.replace(full, n_layers=LM_SERVE_LAYERS)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, 0, dev)
+        torch.cuda.synchronize()
+        lens = np.random.default_rng(0).choice([512, 1024, 1536, 2048],
+                                               n_req)
+        prng = np.random.default_rng(1)
+        reqs = [Request(i, prng.integers(1, cfg.vocab_size, int(n))
+                        .astype(np.int32), max_new)
+                for i, n in enumerate(lens)]
+        # warm-up: every prompt length once, so the timed run below pays
+        # no first-use costs (library handles, per-shape GEMM choices)
+        t0 = time.perf_counter()
+        ServeEngine(cfg, n_slots=4, max_len=2560, params=params).run(
+            [Request(i, q.prompt, 2) for i, q in enumerate(reqs)])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, n_slots=4, max_len=2560, params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+             "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                        "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+                        "d_ff": cfg.d_ff, "d_inner": cfg.d_inner,
+                        "ssm_state": cfg.ssm_state,
+                        "vocab_size": cfg.vocab_size},
+             "prompt_lens": [int(n) for n in lens], "max_new": max_new,
+             "warmup_s": warm_s,
+             "wall_s": stats["wall_s"], "prefill_s": stats["prefill_s"],
+             "decode_s": stats["wall_s"] - stats["prefill_s"],
+             "decode_ticks": stats["ticks"], "generated": stats["generated"],
+             "tokens_per_s": stats["tokens_per_s"],
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "param_bytes": sum(t.numel() * t.element_size()
+                                for t in _leaves(params)),
+             "launches": launches}
+        print("lm_serve", cfg.name, json.dumps(r), flush=True)
+        _need(all(q.done and len(q.out) == max_new + 1 for q in reqs),
+              f"{cfg.name}: a request was not served in full")
+        want = cfg.n_layers * n_req
+        _need(launches[kernel] == want,
+              f"{cfg.name}: {kernel} launched {launches[kernel]} times, not "
+              f"{want} (n_layers x requests)")
+        out[full.name] = r
+        del eng, params
+    return out
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def profile_phase(ds, dev) -> dict:
     """Device time by kernel over 2 h of the paper replay (profiled)."""
     import torch
@@ -749,11 +1007,16 @@ def main() -> int:
     report["offline_paper"], packed0 = offline_paper_phase(ds, n_fp, dev)
     kernels.append(minmax_hash_phase(packed0, dev))
     del packed0
+    kernels += lm_kernel_phase(dev)
+    report["lm_parity"] = lm_parity_phase(dev)
+    report["lm_serve"] = lm_serve_phase(dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:
-        path = "paper" if k["name"] in BATCH_KERNELS else "offline_paper"
-        k["launches"] = report[path]["launches"][k["name"]]
+        node = report
+        for key in KERNEL_PATH[k["name"]]:
+            node = node[key]
+        k["launches"] = node["launches"][k["name"]]
     report["kernels"] = kernels
     line = [{key: k[key] for key in KERNEL_KEYS} for k in kernels]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

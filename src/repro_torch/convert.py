@@ -1,5 +1,10 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
+LM parameters and decode caches (``lm_params``, ``lm_cache``) keep the
+reference's nested keys and layouts; bf16 leaves (``ml_dtypes.bfloat16``
+arrays from ``np.asarray``) travel as their uint16 bit patterns and
+become ``torch.bfloat16`` tensors bit for bit.
+
 The detection system has no learned weights: its parameters are the hash
 mappings (recomputed by ``lsh.hash_mappings``, bit-exact), the §5.2
 median/MAD statistics, and the resident index state. These functions take
@@ -88,3 +93,31 @@ def pairs_list(blocks: list, device=None) -> list[Pairs]:
 def signatures(sigs, device=None) -> torch.Tensor:
     """Reference uint32 (N, t) signatures → the port's int32 bit patterns."""
     return _tensor(np.asarray(sigs, np.uint32), device)
+
+
+def _lm_tree(tree: dict, device) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _lm_tree(v, device)
+            continue
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            bits = np.array(a, order="C").view(np.int16)  # an owned copy
+            t = torch.from_numpy(bits).view(torch.bfloat16)
+            out[k] = t.to(utils.resolve_device(device))
+        else:
+            out[k] = _tensor(a, device)
+    return out
+
+
+def lm_params(tree: dict, device=None) -> dict:
+    """A reference LM parameter tree (nested dict of arrays) → the port's
+    nested dict of tensors, same keys, shapes and dtypes."""
+    return _lm_tree(tree, device)
+
+
+def lm_cache(tree: dict, device=None) -> dict:
+    """A reference decode cache (``pos``, ``k`` / ``v`` or ``conv`` /
+    ``ssm``) → the port's, same keys, shapes and dtypes."""
+    return _lm_tree(tree, device)

@@ -24,7 +24,8 @@ import time
 
 SRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NAMES = ("stft_mag", "haar2d", "minmax_hash", "jaccard_popcount")
+NAMES = ("stft_mag", "haar2d", "minmax_hash", "jaccard_popcount",
+         "flash_attention", "mamba_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

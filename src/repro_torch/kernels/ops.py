@@ -14,14 +14,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import haar2d as _haar
 from repro_torch.kernels import jaccard_popcount as _jac
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import minmax_hash as _mm
 from repro_torch.kernels import stft_mag as _stft
 from repro_torch.kernels.ref import haar_matrix
 
 LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_hash": 0,
-            "minmax_sig_buckets": 0, "jaccard_popcount": 0}
+            "minmax_sig_buckets": 0, "jaccard_popcount": 0,
+            "flash_attention": 0, "mamba_scan": 0}
+_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -176,3 +180,59 @@ def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor,
     _jac.launch(pk, i1, i2, out)
     LAUNCHES[name] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention, query head h reading kv head h // group: q (B, Hq,
+    Sq, D), k / v (B, Hkv, Sk, D) → (B, Hq, Sq, D) in q's dtype; causal
+    with offset Sk − Sq. fp32 or bf16, all one dtype; any strides with the
+    last dim contiguous (the output takes q's layout)."""
+    name = "flash_attention"
+    _require(q.dtype in _FLOATS and k.dtype == v.dtype == q.dtype, name,
+             f"q, k, v must share one of {_FLOATS}")
+    _require(q.dim() == k.dim() == v.dim() == 4, name, "q, k, v must be 4-D")
+    _require(all(t.stride(-1) == 1 for t in (q, k, v)), name,
+             "the last dim of q, k, v must be contiguous")
+    b, hq, sq, d = q.shape
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d
+             and k.shape[1] > 0 and hq % k.shape[1] == 0, name,
+             "k and v must be (B, Hkv, Sk, D) with Hq a multiple of Hkv")
+    if not _on_cuda(name, q, k, v):
+        return _fa.plain(q, k, v, causal)
+    _require(d in _fa.HEAD_DIMS, name,
+             f"the kernel takes head sizes {_fa.HEAD_DIMS}, not {d}")
+    out = torch.empty_like(q)
+    _fa.launch(q, k, v, out, causal)
+    LAUNCHES[name] += 1
+    return out
+
+
+def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1 selective scan from h₀ = 0: xdt / dt (B, S, Di), a (Di, N)
+    fp32, b / c (B, S, N) → (y (B, S, Di) in xdt's dtype, h_final (B, Di,
+    N) fp32). xdt, dt, b, c share fp32 or bf16."""
+    name = "mamba_scan"
+    _require(xdt.dtype in _FLOATS, name, f"xdt must be one of {_FLOATS}")
+    for t, label, nd in ((xdt, "xdt", 3), (dt, "dt", 3), (b, "b", 3),
+                         (c, "c", 3)):
+        _typed(name, t, xdt.dtype, nd, label)
+    _typed(name, a, torch.float32, 2, "a")
+    bsz, s, di = xdt.shape
+    n = a.shape[1]
+    _require(dt.shape == xdt.shape and a.shape[0] == di, name,
+             "dt must match xdt and a must be (Di, N)")
+    _require(b.shape == c.shape == (bsz, s, n), name, "b and c must be "
+             "(B, S, N)")
+    if not _on_cuda(name, xdt, dt, a, b, c):
+        return _ms.plain(xdt, dt, a, b, c)
+    _require(1 <= n <= _ms.MAX_STATE, name,
+             f"the kernel takes 1 <= N <= {_ms.MAX_STATE}, not {n}")
+    y = torch.empty_like(xdt)
+    h_final = torch.empty((bsz, di, n), dtype=torch.float32,
+                          device=xdt.device)
+    _ms.launch(xdt, dt, a, b, c, y, h_final)
+    LAUNCHES[name] += 1
+    return y, h_final

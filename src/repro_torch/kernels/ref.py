@@ -14,12 +14,15 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import \
+    plain as flash_attention  # noqa: F401
 from repro_torch.kernels.haar2d import plain as haar2d  # noqa: F401
 from repro_torch.kernels.jaccard_popcount import \
     plain as jaccard_popcount  # noqa: F401
 from repro_torch.kernels.minmax_hash import minmax as minmax_hash  # noqa: F401
 from repro_torch.kernels.minmax_hash import \
     plain as minmax_sig_buckets  # noqa: F401
+from repro_torch.kernels.mamba_scan import plain as mamba_scan  # noqa: F401
 from repro_torch.kernels.stft_mag import plain as stft_mag  # noqa: F401
 
 

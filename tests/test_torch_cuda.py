@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, at small,
 ragged and large-shared-memory shapes; the batch golden, the offline
-golden and the offline search's card-equals-CPU parity on the card.
+golden and the offline search's card-equals-CPU parity on the card; the
+LM serving engine's tokens on the card equal to its CPU path's.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -199,3 +200,104 @@ def test_offline_golden_and_dedup_on_the_card(cuda):
     want_keep, want_stats = dedup.find_duplicates(docs, device="cpu")
     assert (keep == want_keep).all() and stats == want_stats
     assert not keep[20]
+
+
+# fp32: summation order and the online-softmax rescale; bf16 output: one
+# rounding of the output to bf16.
+LM_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _lm_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= LM_TOL[want.dtype] * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dt,causal", [
+    (2, 4, 2, 128, 128, 64, torch.float32, True),
+    (1, 8, 1, 64, 64, 32, torch.float32, False),
+    (2, 4, 4, 8, 128, 64, torch.float32, True),      # short q, long kv
+    (1, 5, 1, 1000, 1000, 32, torch.float32, True),  # ragged tiles
+    (1, 40, 8, 200, 333, 128, torch.bfloat16, True),  # Sq < Sk, ragged
+    (2, 6, 3, 77, 77, 128, torch.bfloat16, False),
+    (1, 3, 1, 1, 50, 64, torch.bfloat16, True)])     # one query row
+def test_flash_attention_kernel(cuda, b, hq, hkv, sq, sk, d, dt, causal):
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((b, hq, sq, d), generator=g).to(cuda, dt)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    _lm_close(got, ref.flash_attention(q, k, v, causal))
+
+
+def test_flash_attention_kernel_takes_model_layout(cuda):
+    """(B, S, H, D) activations as transposed views: no copy, the output
+    in the same layout."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((2, 90, h, 128), generator=g).to(cuda,
+                                                           torch.bfloat16)
+               for h in (8, 2, 2))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    _lm_close(got, ref.flash_attention(q.transpose(1, 2).contiguous(),
+                                       k.transpose(1, 2).contiguous(),
+                                       v.transpose(1, 2).contiguous()))
+
+
+@pytest.mark.parametrize("b,s,di,n,dt", [
+    (2, 16, 8, 4, torch.float32), (1, 33, 24, 5, torch.float32),
+    (3, 8, 128, 16, torch.float32), (1, 100, 300, 16, torch.bfloat16),
+    (2, 70, 64, 1, torch.float32), (1, 40, 40, 32, torch.float32),
+    (1, 2048, 512, 16, torch.float32)])
+def test_mamba_scan_kernel(cuda, b, s, di, n, dt):
+    g = torch.Generator().manual_seed(8)
+    xdt = torch.randn((b, s, di), generator=g).to(cuda, dt)
+    dtv = (torch.randn((b, s, di), generator=g).abs() * 0.1).to(cuda, dt)
+    a = -torch.randn((di, n), generator=g).abs().to(cuda)
+    bm = torch.randn((b, s, n), generator=g).to(cuda, dt)
+    cm = torch.randn((b, s, n), generator=g).to(cuda, dt)
+    ops.reset_launches()
+    y, h = ops.mamba_scan(xdt, dtv, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == 1
+    y_p, h_p = ref.mamba_scan(xdt, dtv, a, bm, cm)
+    _lm_close(y, y_p)
+    _lm_close(h, h_p)
+
+
+@pytest.mark.parametrize("arch", ["smoke", "qwen2.5-14b", "falcon-mamba-7b"])
+def test_lm_serve_card_equals_cpu(cuda, arch):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import (Request, ServeEngine,
+                                          default_smoke_model)
+    from repro_torch.models import init_params, prefill
+    cfg = default_smoke_model() if arch == "smoke" else get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32", cache_dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 40)))
+               .astype(np.int32) for _ in range(4)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        reqs = [Request(i, pr, 8) for i, pr in enumerate(prompts)]
+        stats = ServeEngine(cfg, n_slots=2, max_len=64, params=p).run(reqs)
+        logits = [prefill(p, {"tokens": torch.as_tensor(pr[None], device=dev)},
+                          cfg)[0].cpu() for pr in prompts]
+        outs.append(([r.out for r in reqs], stats["ticks"], logits))
+    assert outs[0][:2] == outs[1][:2]
+    for got, want in zip(outs[0][2], outs[1][2]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

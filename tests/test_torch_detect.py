@@ -262,7 +262,9 @@ def test_port_imports_nothing_of_jax():
             "import chip_smoke, repro_torch.convert, repro_torch.core,"
             "repro_torch.configs.fast_seismic, repro_torch.stream.fused,"
             "repro_torch.stream.engine, repro_torch.obsv,"
-            "repro_torch.data.dedup, repro_torch.core.theory;"
+            "repro_torch.data.dedup, repro_torch.core.theory,"
+            "repro_torch.launch.serve, repro_torch.configs.qwen25_14b,"
+            "repro_torch.configs.falcon_mamba_7b;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

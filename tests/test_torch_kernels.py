@@ -122,6 +122,12 @@ def _wrapper_inputs(rng):
     salts = torch.from_numpy(np.array(j_bucket_salts(4, 3)).view(np.int32))
     pk = tu.pack_bits(bits)[None]
     idx = torch.from_numpy(rng.integers(0, 6, (1, 10)))
+    q = torch.from_numpy(rng.standard_normal((1, 4, 9, 32))
+                         .astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 2, 9, 32))
+                          .astype(np.float32))
+    scan = [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+            for shp in ((1, 6, 8), (1, 6, 8), (8, 4), (1, 6, 4), (1, 6, 4))]
     return {
         "stft_mag": (lambda: ops.stft_mag(wave, window, dr, di, 5),
                      lambda: ref.stft_mag(wave, window, dr, di, 5)),
@@ -139,6 +145,10 @@ def _wrapper_inputs(rng):
         "jaccard_popcount": (lambda: ops.jaccard_popcount(pk, idx, idx.flip(1)),
                              lambda: ref.jaccard_popcount(pk, idx,
                                                           idx.flip(1))),
+        "flash_attention": (lambda: ops.flash_attention(q, kv, kv),
+                            lambda: ref.flash_attention(q, kv, kv)),
+        "mamba_scan": (lambda: ops.mamba_scan(*scan),
+                       lambda: ref.mamba_scan(*scan)),
     }
 
 
