@@ -14,7 +14,9 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    Min-Max signatures/buckets and Jaccard bit-exact (empty rows and empty
    unions included), STFT and Haar within rtol 1e-5, atol 1e-5·max|x|.
    Times kernel, plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events, median of 30 launches).
+   same function, that call (CUDA events, median of 30 launches, each
+   behind a ~0.1 ms device busy wait so that the events time the device's
+   work and not the host's dispatch).
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
    from the seed in ``tests/golden/batch_detect.json``): the golden's
    stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
@@ -50,7 +52,9 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     falcon-mamba-7b's (B = 1, S = 2048, Di = 8192, N = 16, fp32).
     Tolerance max abs err ≤ 5e-5·max|plain| in fp32 (summation order, the
     online-softmax rescale) and ≤ 2⁻⁷·max|plain| for a bf16 output (one
-    rounding).
+    rounding of the output, P rounded to bf16 before P·V). Prints each
+    case's achieved TFLOP/s (``flash_attention_rate``), as phase 2 prints
+    ``stft_mag``'s GFLOP/s (``stft_mag_rate``).
 11. LM parity: ``ServeEngine`` on the card against the port's CPU path on
     the fp32 variants of the default smoke model and the qwen2.5-14b and
     falcon-mamba-7b smoke configs, same parameters, 4 requests: equal
@@ -93,6 +97,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 RTOL = 1e-5
+# ~0.1 ms of device busy wait before each timed call (see _time_ms)
+PRIME_CYCLES = 200_000
 N_STATIONS = 4
 PAPER_HOURS = 24.0
 # a short trace whose events the paper's 32 s fingerprints see; the same
@@ -109,7 +115,8 @@ KERNEL_PATH = {**{k: ("paper",) for k in BATCH_KERNELS},
                "flash_attention": ("lm_serve", "qwen2.5-14b"),
                "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
 # kernel tolerance, a share of max|plain|: fp32 summation order and the
-# online-softmax rescale; one rounding of a bf16 output
+# online-softmax rescale; one rounding of a bf16 output, plus P rounded to
+# bf16 before P·V (at most ~2⁻⁹·max|v|)
 LM_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
 LM_SERVE_LAYERS = 4
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -122,7 +129,14 @@ def _need(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def _time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def _time_ms(fn, iters: int = 30, warmup: int = 3,
+             primed: bool = True) -> float:
+    """Median of ``iters`` timings of ``fn`` between two CUDA events.
+    ``primed`` queues a device-side busy wait of ``PRIME_CYCLES`` before
+    each call, so the host has enqueued the call before the device reaches
+    the first event and the events bracket the device's work alone;
+    unprimed, a call whose host dispatch outlasts its device work (~0.05
+    ms for a ctypes kernel wrapper) is timed at its dispatch."""
     import torch
     for _ in range(warmup):
         fn()
@@ -131,6 +145,8 @@ def _time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if primed:
+            torch.cuda._sleep(PRIME_CYCLES)
         a.record()
         fn()
         b.record()
@@ -195,14 +211,20 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
     n_bytes = 4 * (wave.numel() + frame_len + 2 * frame_len * k + got.numel())
     n_ops = r * nf * (k * 4 * frame_len + frame_len + 3 * k)
     bound, by = _bound_ms(n_bytes, n_ops)
+    ms = _time_ms(lambda: ops.stft_mag(*args))
     out.append({"name": "stft_mag", "route": "cuda",
                 "source": "src/repro_torch/csrc/stft_mag.cu",
                 "replaces": "src/repro/kernels/stft_mag.py:35",
-                "shape": [r, nf, k], "max_abs_err": err,
-                "ms": _time_ms(lambda: ops.stft_mag(*args)),
+                "shape": [r, nf, k], "max_abs_err": err, "ms": ms,
+                "gflop_s": n_ops / ms * 1e-6,
                 "plain_ms": _time_ms(lambda: stft_k.plain(*args)),
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": _time_ms(lambda: torch.matmul(xw, dft_cat))})
+    print("stft_mag_rate", json.dumps({
+        "shape": [r, nf, k], "ms": ms, "gflop_s": out[-1]["gflop_s"],
+        "ms_unprimed": _time_ms(lambda: ops.stft_mag(*args), primed=False),
+        "library_ms_unprimed": _time_ms(lambda: torch.matmul(xw, dft_cat),
+                                        primed=False)}), flush=True)
     spec = want
 
     # --- haar2d
@@ -739,10 +761,13 @@ def lm_kernel_phase(dev) -> list[dict]:
         bound, by = _bound_ms(n_bytes, 4 * b * hq * d * pairs,
                               BF16_OPS_PER_S if dt == torch.bfloat16
                               else FP32_OPS_PER_S)
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v))
         runs.append({
             "shape": [b, hq, hkv, sq, sk, d], "dtype": str(dt)[6:],
-            "causal_pairs": pairs, "max_abs_err": err,
-            "ms": _time_ms(lambda: ops.flash_attention(q, k, v)),
+            "causal_pairs": pairs, "max_abs_err": err, "ms": ms,
+            "tflop_s": 4 * b * hq * d * pairs / ms * 1e-9,
+            "ms_unprimed": _time_ms(lambda: ops.flash_attention(q, k, v),
+                                    primed=False),
             "plain_ms": _time_ms(lambda: fa_k.plain(q, k, v), iters=10),
             "bound_ms": bound, "bound_by": by,
             # the library's causal mask is not offset for Sq < Sk
@@ -750,6 +775,10 @@ def lm_kernel_phase(dev) -> list[dict]:
                 q, k, v, is_causal=True, enable_gqa=True))
             if sq == sk else None})
         del q, k, v
+    print("flash_attention_rate", json.dumps([
+        {key: r[key] for key in ("shape", "dtype", "ms", "tflop_s",
+                                 "ms_unprimed")}
+        for r in runs]), flush=True)
     main = runs[0]
     out.append({"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -187,7 +187,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """GQA attention, query head h reading kv head h // group: q (B, Hq,
     Sq, D), k / v (B, Hkv, Sk, D) → (B, Hq, Sq, D) in q's dtype; causal
     with offset Sk − Sq. fp32 or bf16, all one dtype; any strides with the
-    last dim contiguous (the output takes q's layout)."""
+    last dim contiguous (the output takes q's layout). On the card, bf16
+    tensors must also be 16-byte aligned with batch/head/seq strides that
+    are multiples of 8 elements; others raise (no copy is made)."""
     name = "flash_attention"
     _require(q.dtype in _FLOATS and k.dtype == v.dtype == q.dtype, name,
              f"q, k, v must share one of {_FLOATS}")
@@ -202,6 +204,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _fa.plain(q, k, v, causal)
     _require(d in _fa.HEAD_DIMS, name,
              f"the kernel takes head sizes {_fa.HEAD_DIMS}, not {d}")
+    if q.dtype == torch.bfloat16:
+        for t, label in ((q, "q"), (k, "k"), (v, "v")):
+            _require(_fa.aligned(t), name,
+                     f"the bf16 kernel loads 16 bytes a thread: {label} must "
+                     "start on a 16-byte boundary and have batch/head/seq "
+                     "strides that are multiples of 8 elements (offset "
+                     f"{t.data_ptr() % 16} B, strides {t.stride()[:3]})")
     out = torch.empty_like(q)
     _fa.launch(q, k, v, out, causal)
     LAUNCHES[name] += 1

@@ -3,8 +3,16 @@
 The CUDA kernel (``csrc/stft_mag.cu``) replaces the Pallas kernel
 ``repro/kernels/stft_mag.py:stft_mag`` and fuses the framing that the
 reference does before the call, so both versions here take the raw
-waveform and the hop. ``plain`` is the PyTorch version of the same
-function; ``kernels.ops.stft_mag`` picks between them by device.
+waveform and the hop. It is IEEE fp32 on the CUDA cores (TF32 would flip
+top-K bits downstream): a CTA stages 36 frames of one row, the window and
+the band DFT in shared memory with ``cp.async``, writes the windowed
+samples there once, and each thread accumulates 4 frames × 1 bin. Every
+output's arithmetic (rounded x·w, fp32 FMAs in t order, re² + im²) is
+fixed, so the result does not depend on the tiling. It is bound by its
+fp32 operations (0.0037 ms for one paper block) and takes 0.0190 ms there
+on an H100 80GB HBM3 at 700 W, paced by shared-memory loads (PERF.md).
+``plain`` is the PyTorch version of the same function;
+``kernels.ops.stft_mag`` picks between them by device.
 """
 from __future__ import annotations
 

@@ -86,9 +86,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The kernel's contract is (B, H, S, D); it takes strides, so the
     transposes here are views and no copy is made. Any S (the reference
-    needs S to be a multiple of its attention block). p stays fp32 before
-    P·V, as in the Pallas kernel (the reference's XLA path rounds it to
-    the value dtype). The kernel's tiles are its own: the reference's
+    needs S to be a multiple of its attention block). In bf16 the kernel
+    rounds p to bf16 before P·V, as the reference's XLA path rounds it to
+    the value dtype; in fp32 p stays fp32, as in the Pallas kernel. The
+    kernel's tiles are its own: the reference's
     ``cfg.attn_q_block`` / ``attn_kv_block`` have no part here."""
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal)

@@ -38,7 +38,11 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("rows,n,frame_len,hop,k", [
-    (3, 777, 50, 7, 9), (4, 54375, 200, 25, 35), (1, 4000, 1024, 100, 40)])
+    (3, 777, 50, 7, 9), (4, 54375, 200, 25, 35), (1, 4000, 1024, 100, 40),
+    # frame counts off the 32-frame tile, bins off the 4-bin tile
+    (2, 1000, 64, 8, 9), (3, 6000, 200, 25, 35), (2, 9000, 1024, 64, 40),
+    (2, 5000, 1024, 100, 35),            # DFT staged in 5 chunks of t
+    (1, 3000, 1024, 256, 511)])          # 128 bin groups: 4 rounds a CTA
 def test_stft_mag_kernel(cuda, rows, n, frame_len, hop, k):
     g = torch.Generator().manual_seed(0)
     wave = torch.randn((rows, n), generator=g).to(cuda)
@@ -203,7 +207,8 @@ def test_offline_golden_and_dedup_on_the_card(cuda):
 
 
 # fp32: summation order and the online-softmax rescale; bf16 output: one
-# rounding of the output to bf16.
+# rounding of the output to bf16, plus P rounded to bf16 before P·V (at most
+# ~2⁻⁹·max|v|; tests/test_torch_lm_kernels.py emulates it on the CPU).
 LM_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
 
 
@@ -232,6 +237,67 @@ def test_flash_attention_kernel(cuda, b, hq, hkv, sq, sk, d, dt, causal):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 1
     _lm_close(got, ref.flash_attention(q, k, v, causal))
+
+
+_EDGES = (1, 63, 64, 65, 127, 129)
+
+
+def _edge_cases():
+    """bf16 at the 64-row q tile's and 64-key tile's edges: every (Sq, Sk)
+    pair, cycling D 32 / 64 / 128 and groups 1 / 5 / 8, B = 2; causal
+    (offset Sk − Sq) where Sq ≤ Sk, except every fourth, and non-causal
+    otherwise."""
+    cases = []
+    for i, (sq, sk) in enumerate((a, b) for a in _EDGES for b in _EDGES):
+        d = (32, 64, 128)[i % 3]
+        group = (1, 5, 8)[i // 3 % 3]
+        hkv = 1 + i % 2
+        cases.append((2, group * hkv, hkv, sq, sk, d,
+                      sq <= sk and i % 4 != 3))
+    return cases
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", _edge_cases() + [
+    (1, 40, 8, 2048, 2048, 128, True)])          # qwen2.5-14b's prefill
+def test_flash_attention_bf16_tiles(cuda, b, hq, hkv, sq, sk, d, causal):
+    g = torch.Generator().manual_seed(sq * 1000 + sk)
+    q = torch.randn((b, hq, sq, d), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(cuda, torch.bfloat16)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    _lm_close(got, ref.flash_attention(q, k, v, causal))
+
+
+def test_flash_attention_bf16_fused_projection_views(cuda):
+    """q, k and v as head-split views of one fused (B, S, (Hq + 2 Hkv) D)
+    projection: seq stride (Hq + 2 Hkv) D, offsets of whole heads."""
+    b, s, hq, hkv, d = 2, 300, 8, 2, 64
+    g = torch.Generator().manual_seed(10)
+    qkv = torch.randn((b, s, (hq + 2 * hkv) * d), generator=g).to(
+        cuda, torch.bfloat16).view(b, s, hq + 2 * hkv, d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.split([hq, hkv, hkv], dim=2))
+    got = ops.flash_attention(q, k, v)
+    _lm_close(got, ref.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous()))
+
+
+@pytest.mark.parametrize("width,start", [(129, 1), (136, 1)])
+def test_flash_attention_bf16_unaligned_view_raises(cuda, width, start):
+    """A seq stride that is not a multiple of 8 elements (width 129) or a
+    start off a 16-byte boundary (width 136, one element in) is refused:
+    no copy, no plain fallback."""
+    base = torch.zeros((1, 4, 64, width), device=cuda, dtype=torch.bfloat16)
+    q = base[..., start:start + 128]
+    kv = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.bfloat16)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(kv.repeat(1, 2, 1, 1), q[:, :2], kv)
+    assert ops.LAUNCHES["flash_attention"] == 0
 
 
 def test_flash_attention_kernel_takes_model_layout(cuda):

@@ -58,6 +58,67 @@ def test_flash_attention_plain_matches_ref_ragged(rng, b, hq, hkv, sq, sk,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _emulate_kernel(q, k, v, causal, round_p, bk=64):
+    """The CUDA kernels' numerics in PyTorch: 64-key tiles in order, an
+    online softmax with exp2 and scale·log2(e) folded into one multiply,
+    fp32 m, l and O, and P rounded to bf16 before P·V where ``round_p``
+    (the bf16 tensor-core kernel; the fp32 kernel keeps P fp32)."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(group, 1).float()
+    vf = v.repeat_interleave(group, 1).float()
+    c = torch.tensor(1.4426950408889634 / np.sqrt(d), dtype=torch.float32)
+    m = torch.full((b, hq, sq, 1), -np.inf)
+    l = torch.zeros((b, hq, sq, 1))
+    o = torch.zeros((b, hq, sq, d))
+    qi = torch.arange(sq)[:, None] + (sk - sq)
+    for k0 in range(0, sk, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        if causal:
+            kj = torch.arange(k0, min(k0 + bk, sk))[None, :]
+            s = s.masked_fill(kj > qi, -np.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        m_use = torch.where(m_new == -np.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s * c - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if round_p:
+            p = p.bfloat16().float()
+        o = o * alpha + p @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (o / l.clamp_min(1e-20)).to(q.dtype)
+
+
+# share of max|plain| that chip_smoke.py and tests/test_torch_cuda.py allow
+_KERNEL_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dtype,causal", [
+    # chip_smoke.py's four cases with the heads cut 40/8 → 5/1 and the
+    # lengths 8x: 2048², 512 × 2048, the ragged 1000², fp32 2048²
+    (1, 5, 1, 256, 256, 128, torch.bfloat16, True),
+    (1, 5, 1, 64, 256, 128, torch.bfloat16, True),
+    (1, 5, 1, 125, 125, 128, torch.bfloat16, True),
+    (1, 5, 1, 256, 256, 128, torch.float32, True),
+    # the card test's non-causal case: small max|plain| against max|v|
+    (2, 6, 3, 77, 77, 128, torch.bfloat16, False)])
+def test_kernel_numerics_stay_within_the_card_tolerance(
+        b, hq, hkv, sq, sk, d, dtype, causal):
+    """The bf16 kernel rounds P to bf16 before P·V; by design that stays
+    inside the card's unchanged 2⁻⁷·max|plain| (and the fp32 kernel's
+    arithmetic inside 5e-5·max|plain|) on chip_smoke's inputs, standard
+    normal q, k, v."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype) for shape in (
+        (b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    want = ref.flash_attention(q, k, v, causal)
+    got = _emulate_kernel(q, k, v, causal, round_p=dtype == torch.bfloat16)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _KERNEL_TOL[dtype] * float(want.float().abs().max()), err
+
+
 def _scan_inputs(rng, b, s, di, n):
     xdt = rng.standard_normal((b, s, di)).astype(np.float32)
     dt = np.abs(rng.standard_normal((b, s, di))).astype(np.float32) * 0.1

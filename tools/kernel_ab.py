@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""Hold one of the port's CUDA kernels against another build of it on the
+card: outputs compared element by element, times taken in turns.
+
+    python3 tools/kernel_ab.py stft_mag path/to/other_stft_mag.cu
+    python3 tools/kernel_ab.py flash_attention path/to/other.cu
+
+The other source must export the same C entry point as
+``src/repro_torch/csrc/<kernel>.cu`` (an earlier commit's file, e.g. from
+``git show <rev>:src/repro_torch/csrc/stft_mag.cu``, or a variant of the
+tree's). It is built with the port's ``nvcc`` flags into
+``build/kernel_ab/`` and swapped in for the tree's library around each
+call, so both go through the same wrapper. Times are medians of
+CUDA-event timings of the device's work (each call queued behind a ~0.1
+ms device busy wait, as in ``chip_smoke.py``), taken other, tree, tree,
+other. Shapes: ``stft_mag`` at one paper block (``fast_seismic.config()``, 4 rows × 256 fingerprints) and
+the card tests' shapes; ``flash_attention`` at ``chip_smoke.py``'s cases.
+Prints one JSON line per shape and needs a CUDA card.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def build(src: pathlib.Path) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    out_dir = ROOT / "build" / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = out_dir / f"{src.stem}-{digest}.so"
+    if not lib.exists():
+        subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib: ctypes.CDLL):
+    """The port's wrappers launch ``lib`` instead of the tree's build."""
+    from repro_torch.kernels import _build
+    own = _build.load(name)
+    _build._LIBS[name] = lib
+    try:
+        yield
+    finally:
+        _build._LIBS[name] = own
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)   # device busy while the host enqueues
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def compare(name: str, other: ctypes.CDLL, label: str, fn, plain) -> dict:
+    """``fn()`` through the tree's kernel and the other build: max abs
+    difference between them and to ``plain``, bit equality, times in
+    turns (other, tree, tree, other)."""
+    import torch
+    tree_out = fn()
+    with swapped(name, other):
+        other_out = fn()
+    torch.cuda.synchronize()
+    times = {"other": [], "tree": []}
+    for who in ("other", "tree", "tree", "other"):
+        if who == "other":
+            with swapped(name, other):
+                times[who].append(time_ms(fn))
+        else:
+            times[who].append(time_ms(fn))
+    diff = (tree_out.float() - other_out.float()).abs()
+    return {"kernel": name, "case": label,
+            "bit_equal": bool(torch.equal(tree_out, other_out)),
+            "max_abs_diff": float(diff.max()),
+            "tree_err_to_plain": float((tree_out.float() - plain.float())
+                                       .abs().max()),
+            "other_err_to_plain": float((other_out.float() - plain.float())
+                                        .abs().max()),
+            "max_abs_plain": float(plain.float().abs().max()),
+            "tree_ms": times["tree"], "other_ms": times["other"]}
+
+
+def stft_cases(dev):
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import fingerprint as fp_mod
+    from repro_torch.kernels import ref
+    fcfg = fast_seismic.config().fingerprint
+    c = fp_mod._consts(fcfg, dev)
+    g = torch.Generator().manual_seed(0)
+    wave = torch.randn((4, fcfg.block_samples(256)), generator=g).to(dev)
+    yield "paper_block", (wave, c["window"], c["dft_r"], c["dft_i"],
+                          fcfg.stft_hop)
+    for rows, n, frame_len, hop, k in ((3, 777, 50, 7, 9),
+                                       (1, 4000, 1024, 100, 40),
+                                       (2, 3000, 200, 25, 35)):
+        wave = torch.randn((rows, n), generator=g).to(dev)
+        dr, di = (torch.as_tensor(np.ascontiguousarray(m[:, 1:1 + k]),
+                                  device=dev)
+                  for m in ref.dft_matrices(frame_len, frame_len // 2 + 1))
+        yield (f"{rows}x{n}_L{frame_len}_hop{hop}_K{k}",
+               (wave, torch.hann_window(frame_len).to(dev), dr, di, hop))
+
+
+def attention_cases(dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    for b, hq, hkv, sq, sk, d, dt in (
+            (1, 40, 8, 2048, 2048, 128, torch.bfloat16),
+            (1, 40, 8, 512, 2048, 128, torch.bfloat16),
+            (1, 40, 8, 1000, 1000, 128, torch.bfloat16),
+            (1, 40, 8, 2048, 2048, 128, torch.float32)):
+        q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
+        k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+        yield f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}_{str(dt)[6:]}", (q, k, v)
+
+
+def main(argv: list[str]) -> int:
+    import torch
+    if len(argv) != 2 or argv[0] not in ("stft_mag", "flash_attention"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stft_mag as stft_k
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, other = argv[0], build(pathlib.Path(argv[1]).resolve())
+    dev = torch.device("cuda", 0)
+    if name == "stft_mag":
+        for label, args in stft_cases(dev):
+            print(json.dumps(compare(name, other, label,
+                                     lambda: ops.stft_mag(*args),
+                                     stft_k.plain(*args))), flush=True)
+    else:
+        for label, (q, k, v) in attention_cases(dev):
+            print(json.dumps(compare(name, other, label,
+                                     lambda: ops.flash_attention(q, k, v),
+                                     fa_k.plain(q, k, v))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
