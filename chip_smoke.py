@@ -54,7 +54,9 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     online-softmax rescale) and ≤ 2⁻⁷·max|plain| for a bf16 output (one
     rounding of the output, P rounded to bf16 before P·V). Prints each
     case's achieved TFLOP/s (``flash_attention_rate``), as phase 2 prints
-    ``stft_mag``'s GFLOP/s (``stft_mag_rate``).
+    ``stft_mag``'s and ``haar2d``'s GFLOP/s (``stft_mag_rate``,
+    ``haar2d_rate``). ``mamba_scan``'s bound counts its exponentials on
+    the SFU (16 a clock an SM) beside its bytes and fp32 operations.
 11. LM parity: ``ServeEngine`` on the card against the port's CPU path on
     the fp32 variants of the default smoke model and the qwen2.5-14b and
     falcon-mamba-7b smoke configs, same parameters, 4 requests: equal
@@ -95,6 +97,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
+# H100 SXM exponentials (MUFU.EX2 on the SFU): 16 a clock an SM, 132 SMs,
+# at the 1.98 GHz that FP32_OPS_PER_S assumes
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 RTOL = 1e-5
 # ~0.1 ms of device busy wait before each timed call (see _time_ms)
@@ -157,10 +162,14 @@ def _time_ms(fn, iters: int = 30, warmup: int = 3,
 
 
 def _bound_ms(n_bytes: float, n_ops: float,
-              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+              ops_per_s: float = FP32_OPS_PER_S,
+              n_sfu: float = 0.0) -> tuple[float, str]:
+    """The least time for the work and what sets it: bytes over the HBM
+    rate, operations over their pipe's rate, or ``n_sfu`` exponentials
+    over the SFU rate, whichever is longest."""
+    return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (n_ops / ops_per_s * 1e3, "operations"),
+               (n_sfu / SFU_OPS_PER_S * 1e3, "sfu"))
 
 
 def _close(got, want) -> float:
@@ -236,17 +245,22 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
     torch.cuda.synchronize()
     err = _close(got, want)
     n, h, w = imgs.shape
-    bound, by = _bound_ms(4 * (2 * imgs.numel() + h * h + w * w),
-                          n * (2 * h * w * w + 2 * h * h * w))
+    n_ops = n * (2 * h * w * w + 2 * h * h * w)
+    bound, by = _bound_ms(4 * (2 * imgs.numel() + h * h + w * w), n_ops)
+    ms = _time_ms(lambda: ops.haar2d(imgs))
     out.append({"name": "haar2d", "route": "cuda",
                 "source": "src/repro_torch/csrc/haar2d.cu",
                 "replaces": "src/repro/kernels/haar2d.py:39",
-                "shape": [n, h, w], "max_abs_err": err,
-                "ms": _time_ms(lambda: ops.haar2d(imgs)),
+                "shape": [n, h, w], "max_abs_err": err, "ms": ms,
+                "gflop_s": n_ops / ms * 1e-6,
                 "plain_ms": _time_ms(lambda: haar_k.plain(imgs, th, tw)),
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": _time_ms(lambda: torch.einsum(
                     "ij,njk,lk->nil", th, imgs, tw))})
+    print("haar2d_rate", json.dumps({
+        "shape": [n, h, w], "ms": ms, "gflop_s": out[-1]["gflop_s"],
+        "plain_ms": out[-1]["plain_ms"],
+        "library_ms": out[-1]["library_ms"]}), flush=True)
 
     # --- minmax_sig_buckets (bit-exact, including rows with no set bit)
     coeffs = want.reshape(n, -1)
@@ -804,7 +818,9 @@ def lm_kernel_phase(dev) -> list[dict]:
     err = max(_lm_check(y, y_p, "mamba_scan y"),
               _lm_check(h, h_p, "mamba_scan h_final"))
     n_bytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + b * di * n)
-    bound, by = _bound_ms(n_bytes, 7 * b * s * di * n)
+    # one exponential per (step, channel, state), on the SFU
+    bound, by = _bound_ms(n_bytes, 7 * b * s * di * n,
+                          n_sfu=b * s * di * n)
     out.append({"name": "mamba_scan", "route": "cuda",
                 "source": "src/repro_torch/csrc/mamba_scan.cu",
                 "replaces": "src/repro/kernels/mamba_scan.py:54",

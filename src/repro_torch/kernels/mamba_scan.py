@@ -3,11 +3,14 @@ h_t = exp(dt_t·A)∘h + (x·dt)_t ⊗ B_t, y_t = h_t·C_t.
 
 The CUDA kernel (``csrc/mamba_scan.cu``) replaces the Pallas kernel
 ``repro/kernels/mamba_scan.py:mamba_scan``: the state stays in registers
-(one thread per (channel, state) pair, y reduced over the state with warp
-shuffles) while time runs sequentially in chunks staged in shared memory,
-so only xdt, dt, B, C, y and the final state move through device memory.
-It is bound by those bytes (~0.06 ms at falcon-mamba-7b's 2048-token
-prefill), and its parallelism is B·Di·N lanes. ``plain`` is the
+(a thread per 4 states of one channel) while time runs sequentially in
+32-step chunks double-buffered in shared memory, and y is reduced over
+the states once a chunk, off the recurrence's path, so only xdt, dt, B,
+C, y and the final state move through device memory. Its bound is the
+exponentials on the SFU and those bytes (~0.06 ms each at
+falcon-mamba-7b's 2048-token prefill); its parallelism is B·Di·N lanes.
+h_final is bit-identical to the earlier one-lane-a-state kernel; y is
+summed over the states in another order. ``plain`` is the
 reference's sequential arithmetic (``repro.kernels.ref.mamba_scan``) in
 fp32, as the kernel computes: only dt·a is exponentiated, as
 ``models/ssm.py`` forms its decay. ``kernels.ops.mamba_scan`` picks

@@ -55,13 +55,31 @@ def test_stft_mag_kernel(cuda, rows, n, frame_len, hop, k):
     _close(got, ref.stft_mag(wave, window, dr, di, hop))
 
 
-@pytest.mark.parametrize("n,h,w", [(5, 8, 8), (1024, 32, 128),
-                                   (3, 64, 256)])   # > 48 KB shared memory
+@pytest.mark.parametrize("n,h,w", [
+    (5, 8, 8), (1024, 32, 128),
+    (3, 64, 256),                 # T_W^T (256 KB) staged in chunks of c
+    # image counts off the persistent grid's share a CTA, the smoke shape
+    (1, 32, 128), (7, 32, 128), (1023, 32, 128), (64, 16, 32),
+    (4, 2, 16), (3, 16, 2)])      # sides below the 4 x 4 thread tile
 def test_haar2d_kernel(cuda, n, h, w):
     imgs = torch.randn((n, h, w), generator=torch.Generator().manual_seed(1))
     imgs = imgs.to(cuda)
     th, tw, _ = ops.haar_mats(h, w, cuda)
     _close(ops.haar2d(imgs), ref.haar2d(imgs, th, tw))
+
+
+def test_haar2d_kernel_takes_unaligned_images(cuda):
+    """Images that do not start on a 16-byte boundary take the 1 x 1 tile
+    path and give the tiled path's result bit for bit."""
+    n, h, w = 9, 32, 128
+    g = torch.Generator().manual_seed(2)
+    flat = torch.randn(n * h * w + 1, generator=g).to(cuda)
+    imgs = flat[1:].view(n, h, w)
+    assert imgs.data_ptr() % 16 != 0
+    got = ops.haar2d(imgs)
+    assert torch.equal(got, ops.haar2d(imgs.clone()))
+    th, tw, _ = ops.haar_mats(h, w, cuda)
+    _close(got, ref.haar2d(imgs, th, tw))
 
 
 @pytest.mark.parametrize("n,d,t,f,use_minmax", [
@@ -319,7 +337,12 @@ def test_flash_attention_kernel_takes_model_layout(cuda):
     (2, 16, 8, 4, torch.float32), (1, 33, 24, 5, torch.float32),
     (3, 8, 128, 16, torch.float32), (1, 100, 300, 16, torch.bfloat16),
     (2, 70, 64, 1, torch.float32), (1, 40, 40, 32, torch.float32),
-    (1, 2048, 512, 16, torch.float32)])
+    (1, 2048, 512, 16, torch.float32),
+    # Di off the 32 channels a CTA takes at N = 16, S off the 32-step chunk
+    (1, 1, 200, 16, torch.float32), (1, 31, 200, 16, torch.bfloat16),
+    (2, 33, 200, 16, torch.float32), (1, 33, 72, 16, torch.bfloat16),
+    (1, 2049, 200, 16, torch.float32), (1, 2049, 200, 16, torch.bfloat16),
+    (1, 31, 100, 8, torch.float32), (1, 2049, 40, 32, torch.bfloat16)])
 def test_mamba_scan_kernel(cuda, b, s, di, n, dt):
     g = torch.Generator().manual_seed(8)
     xdt = torch.randn((b, s, di), generator=g).to(cuda, dt)

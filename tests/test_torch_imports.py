@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package (``repro``)."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no script of ``tools/`` imports JAX or the JAX
+package (``repro``)."""
 import ast
 import pathlib
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -4,6 +4,8 @@ card: outputs compared element by element, times taken in turns.
 
     python3 tools/kernel_ab.py stft_mag path/to/other_stft_mag.cu
     python3 tools/kernel_ab.py flash_attention path/to/other.cu
+    python3 tools/kernel_ab.py haar2d path/to/other.cu
+    python3 tools/kernel_ab.py mamba_scan path/to/other.cu
 
 The other source must export the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier commit's file, e.g. from
@@ -13,9 +15,15 @@ tree's). It is built with the port's ``nvcc`` flags into
 call, so both go through the same wrapper. Times are medians of
 CUDA-event timings of the device's work (each call queued behind a ~0.1
 ms device busy wait, as in ``chip_smoke.py``), taken other, tree, tree,
-other. Shapes: ``stft_mag`` at one paper block (``fast_seismic.config()``, 4 rows × 256 fingerprints) and
-the card tests' shapes; ``flash_attention`` at ``chip_smoke.py``'s cases.
-Prints one JSON line per shape and needs a CUDA card.
+other. Shapes: ``stft_mag`` at one paper block (``fast_seismic.config()``,
+4 rows × 256 fingerprints) and the card tests' shapes;
+``flash_attention`` at ``chip_smoke.py``'s cases; ``haar2d`` at the
+paper block (1024 × 32 × 128), image counts off a CTA's share and the
+card tests' shapes, its whole output held bit for bit; ``mamba_scan`` at
+falcon-mamba-7b's prefill (1 × 2048 × 8192 × 16, fp32 and bf16, with
+``chip_smoke.py``'s inputs) and ragged card-test shapes, ``h_final`` held
+bit for bit and y's difference printed. Prints one JSON line per shape
+and needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -74,15 +82,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def compare(name: str, other: ctypes.CDLL, label: str, fn, plain) -> dict:
-    """``fn()`` through the tree's kernel and the other build: max abs
-    difference between them and to ``plain``, bit equality, times in
-    turns (other, tree, tree, other)."""
+def compare(name: str, other: ctypes.CDLL, label: str, fn, plain,
+            names: tuple = ("out",)) -> dict:
+    """``fn()`` (one tensor, or a tuple named by ``names``) through the
+    tree's kernel and the other build: bit equality of the first output,
+    max abs difference of each output between the builds and to ``plain``,
+    times in turns (other, tree, tree, other)."""
     import torch
-    tree_out = fn()
+
+    def run():
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+
+    tree_out = run()
     with swapped(name, other):
-        other_out = fn()
+        other_out = run()
     torch.cuda.synchronize()
+    plain = plain if isinstance(plain, tuple) else (plain,)
     times = {"other": [], "tree": []}
     for who in ("other", "tree", "tree", "other"):
         if who == "other":
@@ -90,16 +106,17 @@ def compare(name: str, other: ctypes.CDLL, label: str, fn, plain) -> dict:
                 times[who].append(time_ms(fn))
         else:
             times[who].append(time_ms(fn))
-    diff = (tree_out.float() - other_out.float()).abs()
-    return {"kernel": name, "case": label,
-            "bit_equal": bool(torch.equal(tree_out, other_out)),
-            "max_abs_diff": float(diff.max()),
-            "tree_err_to_plain": float((tree_out.float() - plain.float())
-                                       .abs().max()),
-            "other_err_to_plain": float((other_out.float() - plain.float())
-                                        .abs().max()),
-            "max_abs_plain": float(plain.float().abs().max()),
-            "tree_ms": times["tree"], "other_ms": times["other"]}
+    row = {"kernel": name, "case": label,
+           "bit_equal": bool(torch.equal(tree_out[0], other_out[0]))}
+    for i, nm in enumerate(names):
+        pre = "" if i == 0 else f"{nm}_"
+        t, o, p = (x[i].float() for x in (tree_out, other_out, plain))
+        row.update({f"{pre}max_abs_diff": float((t - o).abs().max()),
+                    f"{pre}tree_err_to_plain": float((t - p).abs().max()),
+                    f"{pre}other_err_to_plain": float((o - p).abs().max()),
+                    f"{pre}max_abs_plain": float(p.abs().max())})
+    row.update({"tree_ms": times["tree"], "other_ms": times["other"]})
+    return row
 
 
 def stft_cases(dev):
@@ -139,15 +156,46 @@ def attention_cases(dev):
         yield f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}_{str(dt)[6:]}", (q, k, v)
 
 
+def haar_cases(dev):
+    import torch
+    g = torch.Generator().manual_seed(1)
+    for n, h, w in ((1024, 32, 128), (1, 32, 128), (7, 32, 128),
+                    (1023, 32, 128), (5, 8, 8), (64, 16, 32), (3, 64, 256)):
+        yield f"{n}x{h}x{w}", torch.randn((n, h, w), generator=g).to(dev)
+
+
+def scan_cases(dev):
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(0)
+    for b, s, di, n, dt in ((1, 2048, 8192, 16, torch.float32),
+                            (1, 2048, 8192, 16, torch.bfloat16),
+                            (1, 2049, 200, 16, torch.float32),
+                            (2, 33, 300, 16, torch.bfloat16),
+                            (1, 31, 24, 5, torch.float32)):
+        # chip_smoke.py's inputs: A = -(1..N), a softplus-sized dt
+        xdt = torch.randn((b, s, di), generator=g)
+        dtv = F.softplus(torch.randn((b, s, di), generator=g) - 4.6)
+        a = -torch.arange(1, n + 1, dtype=torch.float32).expand(di, n)
+        bm = torch.randn((b, s, n), generator=g)
+        cm = torch.randn((b, s, n), generator=g)
+        yield (f"{b}x{s}x{di}x{n}_{str(dt)[6:]}",
+               (xdt.to(dev, dt), dtv.to(dev, dt), a.contiguous().to(dev),
+                bm.to(dev, dt), cm.to(dev, dt)))
+
+
 def main(argv: list[str]) -> int:
     import torch
-    if len(argv) != 2 or argv[0] not in ("stft_mag", "flash_attention"):
+    if len(argv) != 2 or argv[0] not in ("stft_mag", "flash_attention",
+                                         "haar2d", "mamba_scan"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import haar2d as haar_k
+    from repro_torch.kernels import mamba_scan as ms_k
     from repro_torch.kernels import ops
     from repro_torch.kernels import stft_mag as stft_k
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,6 +206,19 @@ def main(argv: list[str]) -> int:
             print(json.dumps(compare(name, other, label,
                                      lambda: ops.stft_mag(*args),
                                      stft_k.plain(*args))), flush=True)
+    elif name == "haar2d":
+        for label, imgs in haar_cases(dev):
+            th, tw, _ = ops.haar_mats(imgs.shape[1], imgs.shape[2], dev)
+            print(json.dumps(compare(name, other, label,
+                                     lambda: ops.haar2d(imgs),
+                                     haar_k.plain(imgs, th, tw))), flush=True)
+    elif name == "mamba_scan":
+        for label, args in scan_cases(dev):
+            y, h = ms_k.plain(*args)
+            print(json.dumps(compare(name, other, label,
+                                     lambda: ops.mamba_scan(*args)[::-1],
+                                     (h, y), ("h_final", "y"))), flush=True)
+            del y, h
     else:
         for label, (q, k, v) in attention_cases(dev):
             print(json.dumps(compare(name, other, label,

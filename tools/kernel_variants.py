@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time variants of the port's CUDA kernels on the card, each held against
+another build of the same kernel.
+
+    python3 tools/kernel_variants.py SPEC.json RUN OTHER_DIR
+
+``SPEC.json`` maps a run name to ``{kernel: {variant: [[old, new], ...]}}``;
+each variant is the tree's ``src/repro_torch/csrc/<kernel>.cu`` with every
+``old`` text replaced by ``new`` (the variant ``tree`` has no replacement).
+``OTHER_DIR`` holds ``<kernel>.cu`` of the build they are held against
+(e.g. ``git show <rev>:src/repro_torch/csrc/haar2d.cu``, extracted into the
+git-ignored ``build/`` first: the card's copy has no ``.git``). All sources
+are built at once with the port's ``nvcc`` flags into
+``build/kernel_variants/`` (each build's registers and stack are printed),
+then for each case every variant is swapped in behind the port's wrapper
+and compared with the other build: bit equality of the whole output
+(``haar2d``) or of ``h_final`` (``mamba_scan``), and two CUDA-event
+medians as ``tools/kernel_ab.py`` takes them. A variant may compute a
+wrong result on purpose (a loop cut out, say) to time what is left.
+Cases: ``haar2d`` at the paper block (1024 × 32 × 128), 64 × 16 × 32 and
+3 × 64 × 256; ``mamba_scan`` at falcon-mamba-7b's prefill, fp32 and bf16.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
+
+HAAR_CASES = ("1024x32x128", "64x16x32", "3x64x256")
+SCAN_CASES = ("1x2048x8192x16_float32", "1x2048x8192x16_bfloat16")
+
+
+def variant_sources(kernel: str, variants: dict, out_dir: pathlib.Path
+                    ) -> dict[str, pathlib.Path]:
+    tree = (ROOT / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").read_text()
+    paths = {}
+    for name, subs in variants.items():
+        src = tree
+        for old, new in subs:
+            if old not in src:
+                raise SystemExit(f"{kernel}/{name}: text not in the source: "
+                                 f"{old[:60]!r}")
+            src = src.replace(old, new)
+        paths[name] = out_dir / f"{kernel}__{name}.cu"
+        paths[name].write_text(src)
+    return paths
+
+
+def build_all(sources: dict, out_dir: pathlib.Path) -> dict:
+    """One ``nvcc`` per source, all started together."""
+    from repro_torch.kernels import _build
+    procs = {}
+    for key, src in sources.items():
+        lib = out_dir / f"{key[0]}__{key[1]}.so"
+        procs[key] = (subprocess.Popen(
+            [_build.nvcc(), *_build.FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
+    libs = {}
+    for key, (proc, lib) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        usage = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
+                 if "registers" in ln or "stack frame" in ln]
+        print("built", json.dumps({"kernel": key[0], "variant": key[1],
+                                   "rc": proc.returncode, "usage": usage}),
+              flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(log[-3000:])
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def main(argv: list[str]) -> int:
+    import torch
+    import kernel_ab as ab
+    from repro_torch.kernels import ops
+    if len(argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: CUDA is not available", file=sys.stderr)
+        return 2
+    spec = json.loads(pathlib.Path(argv[0]).read_text())[argv[1]]
+    other_dir = pathlib.Path(argv[2]).resolve()
+    out_dir = ROOT / "build" / "kernel_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = {}
+    for kernel, variants in spec.items():
+        for name, path in variant_sources(kernel, variants, out_dir).items():
+            sources[(kernel, name)] = path
+        sources[(kernel, "other")] = other_dir / f"{kernel}.cu"
+    libs = build_all(sources, out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    def run(kernel, label, fn, pick):
+        row = {"kernel": kernel, "case": label}
+        with ab.swapped(kernel, libs[(kernel, "other")]):
+            ref = pick(fn())
+            row["other_ms"] = ab.time_ms(fn)
+        for (k, name), lib in libs.items():
+            if k != kernel or name == "other":
+                continue
+            with ab.swapped(kernel, lib):
+                got = pick(fn())
+                row[name] = {"bit_equal": bool(torch.equal(ref, got)),
+                             "ms": [ab.time_ms(fn) for _ in range(2)]}
+        with ab.swapped(kernel, libs[(kernel, "other")]):
+            row["other_ms_again"] = ab.time_ms(fn)
+        print(json.dumps(row), flush=True)
+
+    if "haar2d" in spec:
+        for label, imgs in ab.haar_cases(dev):
+            if label in HAAR_CASES:
+                run("haar2d", label, lambda: ops.haar2d(imgs), lambda o: o)
+    if "mamba_scan" in spec:
+        for label, args in ab.scan_cases(dev):
+            if label in SCAN_CASES:
+                run("mamba_scan", label, lambda: ops.mamba_scan(*args),
+                    lambda o: o[1])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
