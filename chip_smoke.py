@@ -16,7 +16,10 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    Times kernel, plain version and, where one PyTorch call computes the
    same function, that call (CUDA events, median of 30 launches, each
    behind a ~0.1 ms device busy wait so that the events time the device's
-   work and not the host's dispatch).
+   work and not the host's dispatch). The Min-Max bounds count 2 · nnz · H
+   comparisons at the DPX rate (``MINMAX_COMPARES_PER_S``), and a
+   ``minmax_sig_buckets_rate`` line gives the bytes a set bit's gathers
+   read and the bytes the tiled kernel stages, each over its time.
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
    from the seed in ``tests/golden/batch_detect.json``): the golden's
    stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
@@ -43,7 +46,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
 9. ``minmax_hash`` against its plain version at station 0's shape (N =
    43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
-   baseline's H = 800, bit-exact, timed and bounded.
+   baseline's H = 800, bit-exact, timed and bounded, with a
+   ``minmax_hash_rate`` line for each.
 
 10. The LM kernels against their plain versions on the card, timed and
     bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
@@ -101,6 +105,13 @@ FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
 # at the 1.98 GHz that FP32_OPS_PER_S assumes
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# H100 32-bit integer min/max: 64 results a clock an SM (IMNMX, the CUDA
+# C++ Programming Guide's throughput table for compute capability 9.0),
+# 132 SMs at the 1.98 GHz FP32_OPS_PER_S assumes. The three-input DPX
+# min/max (__vimin3_s32 / __vimax3_s32) issue at that rate with two
+# comparisons a result (tools/int_minmax_peak.py), the faster of the two:
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+MINMAX_COMPARES_PER_S = 2 * INT_OPS_PER_S
 RTOL = 1e-5
 # ~0.1 ms of device busy wait before each timed call (see _time_ms)
 PRIME_CYCLES = 200_000
@@ -170,6 +181,37 @@ def _bound_ms(n_bytes: float, n_ops: float,
     return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                (n_ops / ops_per_s * 1e3, "operations"),
                (n_sfu / SFU_OPS_PER_S * 1e3, "sfu"))
+
+
+def _minmax_bound(n_bytes: float, n_compares: float,
+                  n_int_ops: float = 0.0) -> tuple[float, str]:
+    """A Min-Max kernel's least time: its bytes over the HBM rate, or its
+    comparisons at the DPX rate plus its other integer operations (the
+    signature epilogue's) at the IMNMX rate, on the same pipe."""
+    return _bound_ms(n_bytes, n_compares + n_int_ops * (
+        MINMAX_COMPARES_PER_S / INT_OPS_PER_S), MINMAX_COMPARES_PER_S)
+
+
+def _minmax_rate(name: str, packed, mappings, nnz: int, ms: float,
+                 f: int | None = None) -> dict:
+    """Print ``<name>_rate``: the bytes a set bit's gathers would read
+    (nnz · H · 4, what the row kernel reads from L2) and the bytes the
+    tiled kernel stages from L2 (each row tile reads the table once),
+    each over the kernel's time, with the plan that ran."""
+    from repro_torch.kernels import minmax_hash as mm_k
+    n, words = packed.shape
+    h = mappings.shape[1]
+    p = mm_k._plan_for(packed, mappings, f)
+    staged = (p.grid[0] // p.split * 32 * words * h * 4 if p.tiled
+              else nnz * h * 4)
+    out = {"shape": [n, words, h], "set_bits": nnz, "ms": ms,
+           "gather_bytes": nnz * h * 4,
+           "gather_tb_s": nnz * h * 4 / ms * 1e-9,
+           "staged_bytes": staged, "staged_tb_s": staged / ms * 1e-9,
+           "plan": {"tiled": p.tiled, "warps": p.warps, "split": p.split,
+                    "grid": list(p.grid)}}
+    print(f"{name}_rate", json.dumps(out), flush=True)
+    return out
 
 
 def _close(got, want) -> float:
@@ -282,17 +324,20 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
     nnz = int(bits.sum())
     dims = int(bits.reshape(n, -1).any(dim=0).sum())
     h_fns = mappings.shape[1]
-    bound, by = _bound_ms(4 * (packed.numel() + dims * h_fns + salts.numel()
-                               + sig.numel() + bkt.numel()),
-                          2 * nnz * h_fns + 6 * n * h_fns
-                          + 13 * n * lcfg.n_tables)
+    bound, by = _minmax_bound(4 * (packed.numel() + dims * h_fns
+                                   + salts.numel() + sig.numel()
+                                   + bkt.numel()),
+                              2 * nnz * h_fns,
+                              6 * n * h_fns + 13 * n * lcfg.n_tables)
+    ms = _time_ms(lambda: ops.minmax_sig_buckets(*mm_args, **kw))
+    rate = _minmax_rate("minmax_sig_buckets", packed, mappings, nnz, ms, f)
     out.append({"name": "minmax_sig_buckets", "route": "cuda",
                 "source": "src/repro_torch/csrc/minmax_hash.cu",
                 "replaces": "src/repro/kernels/minmax_hash.py:151",
                 "shape": [n, packed.shape[1], h_fns], "set_bits": nnz,
-                "max_abs_err": 0,
-                "ms": _time_ms(lambda: ops.minmax_sig_buckets(*mm_args,
-                                                              **kw)),
+                "max_abs_err": 0, "ms": ms,
+                "gather_tb_s": rate["gather_tb_s"],
+                "staged_tb_s": rate["staged_tb_s"],
                 "plain_ms": _time_ms(lambda: mm_k.plain(
                     *mm_args, f, lcfg.use_minmax, n_buckets), iters=20),
                 "bound_ms": bound, "bound_by": by, "library_ms": None})
@@ -708,11 +753,14 @@ def minmax_hash_phase(packed0, dev) -> dict:
               f"minmax_hash ({label}) differs from its plain version")
         del want
         h = mp.shape[1]
-        bound, by = _bound_ms(4 * (packed.numel() + dims * h + 2 * n * h),
-                              2 * nnz * h)
+        bound, by = _minmax_bound(4 * (packed.numel() + dims * h
+                                       + 2 * n * h), 2 * nnz * h)
+        ms = _time_ms(lambda: ops.minmax_hash(packed, mp), iters=20)
+        rate = _minmax_rate("minmax_hash", packed, mp, nnz, ms)
         runs[label] = {
-            "shape": [n, words, h], "ms": _time_ms(
-                lambda: ops.minmax_hash(packed, mp), iters=20),
+            "shape": [n, words, h], "ms": ms,
+            "gather_tb_s": rate["gather_tb_s"],
+            "staged_tb_s": rate["staged_tb_s"],
             "plain_ms": _time_ms(lambda: mm_k.plain_raw(packed, mp),
                                  iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by}
@@ -721,7 +769,8 @@ def minmax_hash_phase(packed0, dev) -> dict:
            "source": "src/repro_torch/csrc/minmax_hash.cu",
            "replaces": "src/repro/kernels/minmax_hash.py:71",
            "shape": main["shape"], "set_bits": nnz, "max_abs_err": 0,
-           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "ms": main["ms"], "gather_tb_s": main["gather_tb_s"],
+           "staged_tb_s": main["staged_tb_s"], "plain_ms": main["plain_ms"],
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
            "library_ms": None, "baseline_h800": runs["baseline"]}
     print("minmax_hash", json.dumps(out), flush=True)

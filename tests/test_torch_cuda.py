@@ -124,6 +124,92 @@ def test_minmax_hash_kernel(cuda, n, d, h):
     assert (mins[0] == 2**31 - 1).all() and (maxs[0] == 0).all()
 
 
+def _edge_bits(n, d, seed):
+    """5% random bits; every 7th row empty, row 1 (inside the first row
+    tile of sparse rows) full, and rows 128..255 all zero (a whole tile
+    when there are that many)."""
+    bits = torch.from_numpy(np.random.default_rng(seed).random((n, d))
+                            < 0.05)
+    bits[::7] = False
+    if n > 1:
+        bits[1] = True
+    bits[128:256] = False
+    return bits
+
+
+@pytest.mark.parametrize("n,d,h", [
+    (129, 8192, 400),        # one tile and a row; H = 400 (16-column slice)
+    (5, 8192, 400),          # fewer rows than a tile
+    (1000, 8224, 400),       # 64 chunks and a 32-dimension one
+    (300, 4096, 800),        # the fewest dimensions tiled; H = 800
+    (24, 8192, 64),          # 64 columns: groups of 16 lanes
+    (1024, 8192, 1200),
+    (2000, 8192, 40)])       # 40 columns: 10 quads in groups of 16
+def test_minmax_hash_tiled_edges(cuda, n, d, h):
+    """The tiled kernel's tile, chunk, slice and cluster edges, bit for
+    bit against the plain version; an all-zero tile gives 2**31 - 1 / 0."""
+    assert mm_k.plan(n, d // 32, h).tiled
+    rng = np.random.default_rng(6)
+    bits = _edge_bits(n, d, 7)
+    packed = tu.pack_bits(bits).to(cuda)
+    mappings = torch.from_numpy(rng.integers(0, 2**31 - 1, (d, h),
+                                             dtype=np.int32)).to(cuda)
+    ops.reset_launches()
+    mins, maxs = ops.minmax_hash(packed, mappings)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["minmax_hash"] == 1
+    want = mm_k.plain_raw(packed, mappings)
+    assert torch.equal(mins, want[0]) and torch.equal(maxs, want[1])
+    assert (mins[128:256] == 2**31 - 1).all() and (maxs[128:256] == 0).all()
+    assert (mins[0] == 2**31 - 1).all() and (maxs[0] == 0).all()
+
+
+@pytest.mark.parametrize("n,d,t,f,use_minmax", [
+    (129, 8192, 100, 4, True), (5, 8192, 100, 4, True),
+    (1000, 8224, 100, 4, True), (1024, 8192, 100, 4, False),
+    (2000, 8192, 20, 2, True),           # the smoke config's H = 40
+    (300, 4128, 400, 2, True), (77, 8192, 300, 4, True),
+    (40, 8192, 40, 1, False),
+    (50, 8192, 13, 3, True),             # f = 3: the row kernel
+    (1000, 1024, 20, 2, True)])          # D = 1024: the row kernel
+def test_minmax_sig_buckets_tiled_edges(cuda, n, d, t, f, use_minmax):
+    assert mm_k.plan(n, d // 32, t * f, f).tiled == (f != 3 and d >= 4096)
+    rng = np.random.default_rng(8)
+    packed = tu.pack_bits(_edge_bits(n, d, 9)).to(cuda)
+    mappings = torch.from_numpy(rng.integers(0, 2**31 - 1, (d, t * f),
+                                             dtype=np.int32)).to(cuda)
+    salts = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, t,
+                                          dtype=np.int32)).to(cuda)
+    ops.reset_launches()
+    sig, bkt = ops.minmax_sig_buckets(packed, mappings, salts,
+                                      use_minmax=use_minmax, n_buckets=4096)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["minmax_sig_buckets"] == 1
+    want = mm_k.plain(packed, mappings, salts, f, use_minmax, 4096)
+    assert torch.equal(sig, want[0]) and torch.equal(bkt, want[1])
+
+
+def test_minmax_unaligned_mappings_take_the_row_kernel(cuda):
+    """A mapping table that does not start on 16 bytes runs the row
+    kernel and gives the tiled kernel's planes and signatures."""
+    n, d, t, f = 200, 8192, 100, 4
+    rng = np.random.default_rng(10)
+    packed = tu.pack_bits(_edge_bits(n, d, 11)).to(cuda)
+    flat = torch.from_numpy(rng.integers(0, 2**31 - 1, d * t * f + 1,
+                                         dtype=np.int32)).to(cuda)
+    loose = flat[1:].view(d, t * f)
+    assert loose.data_ptr() % 16 != 0
+    assert not mm_k.plan(n, d // 32, t * f, f, aligned=False).tiled
+    salts = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, t,
+                                          dtype=np.int32)).to(cuda)
+    for call in (lambda m: ops.minmax_hash(packed, m),
+                 lambda m: ops.minmax_sig_buckets(packed, m, salts,
+                                                  use_minmax=True,
+                                                  n_buckets=4096)):
+        got, want = call(loose), call(loose.clone())
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("s,ring,words,m", [(1, 17, 3, 29), (4, 500, 256,
                                                              4096)])
 def test_jaccard_popcount_kernel(cuda, s, ring, words, m):

@@ -6,6 +6,8 @@ card: outputs compared element by element, times taken in turns.
     python3 tools/kernel_ab.py flash_attention path/to/other.cu
     python3 tools/kernel_ab.py haar2d path/to/other.cu
     python3 tools/kernel_ab.py mamba_scan path/to/other.cu
+    python3 tools/kernel_ab.py minmax_sig_buckets path/to/other_minmax_hash.cu
+    python3 tools/kernel_ab.py minmax_hash path/to/other_minmax_hash.cu
 
 The other source must export the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier commit's file, e.g. from
@@ -22,8 +24,15 @@ paper block (1024 × 32 × 128), image counts off a CTA's share and the
 card tests' shapes, its whole output held bit for bit; ``mamba_scan`` at
 falcon-mamba-7b's prefill (1 × 2048 × 8192 × 16, fp32 and bf16, with
 ``chip_smoke.py``'s inputs) and ragged card-test shapes, ``h_final`` held
-bit for bit and y's difference printed. Prints one JSON line per shape
-and needs a CUDA card.
+bit for bit and y's difference printed; ``minmax_sig_buckets`` (both
+outputs bit for bit) at the paper block (1024 × 256 words × 400
+functions, 4 a table) and the card tests' shapes, ``minmax_hash`` (both
+planes bit for bit) at a station-day (43,184 × 256 × 400), the MinHash
+baseline's H = 800 and the card tests' shapes, each on random bits at
+top_k / D = 400 / 8192 (5% elsewhere) with every 97th row empty. Both
+come from ``csrc/minmax_hash.cu``; a build of it without the tiled
+entry points (an earlier commit's) runs its row kernel at every shape.
+Prints one JSON line per shape and needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -51,10 +60,46 @@ def build(src: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+# the source (and library) each kernel of the command line is built from
+SOURCE = {"minmax_sig_buckets": "minmax_hash"}
+
+
+class _RowLaunch:
+    """Stands in for a ``*_tiled_launch`` entry point that a build lacks:
+    calls the row entry point with the plan's arguments dropped."""
+
+    def __init__(self, row):
+        self.row, self.argtypes, self.restype = row, [], ctypes.c_int
+
+    def __call__(self, *args):
+        from repro_torch.kernels import minmax_hash as mm_k
+        cut = len(mm_k.PLAN_TYPES) + 1           # the plan, then the stream
+        self.row.argtypes = self.argtypes[:-cut] + self.argtypes[-1:]
+        self.row.restype = self.restype
+        return self.row(*args[:-cut], args[-1])
+
+
+class RowOnly:
+    """A Min-Max build with only the row kernel's entry points (an earlier
+    commit's source): the wrapper's tiled launches take its row kernel."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+
+    def __getattr__(self, attr: str):
+        if attr.endswith("_tiled_launch"):
+            return _RowLaunch(getattr(self._lib,
+                                      attr.replace("_tiled_", "_")))
+        return getattr(self._lib, attr)
+
+
 @contextlib.contextmanager
 def swapped(name: str, lib: ctypes.CDLL):
     """The port's wrappers launch ``lib`` instead of the tree's build."""
     from repro_torch.kernels import _build
+    name = SOURCE.get(name, name)
+    if name == "minmax_hash" and not hasattr(lib, "minmax_hash_tiled_launch"):
+        lib = RowOnly(lib)
     own = _build.load(name)
     _build._LIBS[name] = lib
     try:
@@ -106,11 +151,11 @@ def compare(name: str, other: ctypes.CDLL, label: str, fn, plain,
                 times[who].append(time_ms(fn))
         else:
             times[who].append(time_ms(fn))
-    row = {"kernel": name, "case": label,
-           "bit_equal": bool(torch.equal(tree_out[0], other_out[0]))}
+    row = {"kernel": name, "case": label}
     for i, nm in enumerate(names):
         pre = "" if i == 0 else f"{nm}_"
-        t, o, p = (x[i].float() for x in (tree_out, other_out, plain))
+        row[f"{pre}bit_equal"] = bool(torch.equal(tree_out[i], other_out[i]))
+        t, o, p = (x[i].double() for x in (tree_out, other_out, plain))
         row.update({f"{pre}max_abs_diff": float((t - o).abs().max()),
                     f"{pre}tree_err_to_plain": float((t - p).abs().max()),
                     f"{pre}other_err_to_plain": float((o - p).abs().max()),
@@ -184,10 +229,53 @@ def scan_cases(dev):
                 bm.to(dev, dt), cm.to(dev, dt)))
 
 
+def random_packed(n: int, d: int, density: float, g, dev):
+    """(n, d / 32) packed words of random bits, every 97th row empty."""
+    import torch
+    from repro_torch import utils
+    packed = torch.cat([utils.pack_bits(torch.rand(
+        (min(4096, n - r), d), generator=g, device=dev) < density)
+        for r in range(0, n, 4096)])
+    packed[::97] = 0
+    return packed
+
+
+def minmax_sig_cases(dev):
+    import torch
+    from repro_torch.core import lsh
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, d, t, f, use_minmax in ((1024, 8192, 100, 4, True),
+                                   (13, 320, 12, 3, True),
+                                   (256, 8192, 100, 4, True),
+                                   (7, 32768, 300, 4, True),
+                                   (9, 128, 5, 2, False),
+                                   (1000, 1024, 20, 2, True)):
+        density = 400 / 8192 if d == 8192 else 0.05
+        mappings = torch.randint(0, 2**31 - 1, (d, t * f), generator=g,
+                                 device=dev, dtype=torch.int32)
+        yield (f"{n}x{d // 32}x{t * f}_f{f}",
+               (random_packed(n, d, density, g, dev), mappings,
+                lsh.bucket_salts(t, 3, dev)), f, use_minmax)
+
+
+def minmax_raw_cases(dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+    for n, d, h in ((43184, 8192, 400), (43184, 8192, 800), (13, 320, 100),
+                    (256, 8192, 400), (9, 8192, 800), (24, 1024, 64),
+                    (5, 16384, 400)):
+        density = 400 / 8192 if d == 8192 else 0.05
+        yield (f"{n}x{d // 32}x{h}",
+               (random_packed(n, d, density, g, dev),
+                torch.randint(0, 2**31 - 1, (d, h), generator=g, device=dev,
+                              dtype=torch.int32)))
+
+
 def main(argv: list[str]) -> int:
     import torch
-    if len(argv) != 2 or argv[0] not in ("stft_mag", "flash_attention",
-                                         "haar2d", "mamba_scan"):
+    if len(argv) != 2 or argv[0] not in (
+            "stft_mag", "flash_attention", "haar2d", "mamba_scan",
+            "minmax_sig_buckets", "minmax_hash"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -196,6 +284,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import haar2d as haar_k
     from repro_torch.kernels import mamba_scan as ms_k
+    from repro_torch.kernels import minmax_hash as mm_k
     from repro_torch.kernels import ops
     from repro_torch.kernels import stft_mag as stft_k
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -212,6 +301,20 @@ def main(argv: list[str]) -> int:
             print(json.dumps(compare(name, other, label,
                                      lambda: ops.haar2d(imgs),
                                      haar_k.plain(imgs, th, tw))), flush=True)
+    elif name == "minmax_sig_buckets":
+        for label, args, f, use_minmax in minmax_sig_cases(dev):
+            kw = {"use_minmax": use_minmax, "n_buckets": 16384}
+            print(json.dumps(compare(
+                name, other, label,
+                lambda: ops.minmax_sig_buckets(*args, **kw),
+                mm_k.plain(*args, f, use_minmax, 16384), ("sig", "bkt"))),
+                flush=True)
+    elif name == "minmax_hash":
+        for label, args in minmax_raw_cases(dev):
+            print(json.dumps(compare(name, other, label,
+                                     lambda: ops.minmax_hash(*args),
+                                     mm_k.plain_raw(*args),
+                                     ("mins", "maxs"))), flush=True)
     elif name == "mamba_scan":
         for label, args in scan_cases(dev):
             y, h = ms_k.plain(*args)

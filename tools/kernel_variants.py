@@ -7,6 +7,9 @@ another build of the same kernel.
 ``SPEC.json`` maps a run name to ``{kernel: {variant: [[old, new], ...]}}``;
 each variant is the tree's ``src/repro_torch/csrc/<kernel>.cu`` with every
 ``old`` text replaced by ``new`` (the variant ``tree`` has no replacement).
+A variant may instead be ``{"cu": [[old, new], ...], "py": {NAME: value}}``:
+the module ``repro_torch.kernels.<kernel>`` then has each ``NAME`` set to
+``value`` while the variant runs (the Min-Max launch plan's constants).
 ``OTHER_DIR`` holds ``<kernel>.cu`` of the build they are held against
 (e.g. ``git show <rev>:src/repro_torch/csrc/haar2d.cu``, extracted into the
 git-ignored ``build/`` first: the card's copy has no ``.git``). All sources
@@ -18,12 +21,17 @@ and compared with the other build: bit equality of the whole output
 medians as ``tools/kernel_ab.py`` takes them. A variant may compute a
 wrong result on purpose (a loop cut out, say) to time what is left.
 Cases: ``haar2d`` at the paper block (1024 × 32 × 128), 64 × 16 × 32 and
-3 × 64 × 256; ``mamba_scan`` at falcon-mamba-7b's prefill, fp32 and bf16.
+3 × 64 × 256; ``mamba_scan`` at falcon-mamba-7b's prefill, fp32 and bf16;
+``minmax_hash`` (the source of both Min-Max kernels) ``minmax_sig_buckets``
+at the paper block and ``minmax_hash`` at a station-day, H = 400 and 800
+(``tools/kernel_ab.py``'s inputs; every output compared).
 Needs a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib
 import json
 import pathlib
 import subprocess
@@ -35,15 +43,36 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 HAAR_CASES = ("1024x32x128", "64x16x32", "3x64x256")
 SCAN_CASES = ("1x2048x8192x16_float32", "1x2048x8192x16_bfloat16")
+MINMAX_SIG_CASES = ("1024x256x400_f4",)
+MINMAX_RAW_CASES = ("43184x256x400", "43184x256x800")
+
+
+def _subs(variant) -> list:
+    return variant["cu"] if isinstance(variant, dict) else variant
+
+
+@contextlib.contextmanager
+def plan_constants(kernel: str, variant):
+    """The kernel's Python module with the variant's ``py`` values set."""
+    values = variant.get("py", {}) if isinstance(variant, dict) else {}
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    old = {k: getattr(mod, k) for k in values}
+    for k, v in values.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
 
 
 def variant_sources(kernel: str, variants: dict, out_dir: pathlib.Path
                     ) -> dict[str, pathlib.Path]:
     tree = (ROOT / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").read_text()
     paths = {}
-    for name, subs in variants.items():
+    for name, variant in variants.items():
         src = tree
-        for old, new in subs:
+        for old, new in _subs(variant):
             if old not in src:
                 raise SystemExit(f"{kernel}/{name}: text not in the source: "
                                  f"{old[:60]!r}")
@@ -107,9 +136,11 @@ def main(argv: list[str]) -> int:
         for (k, name), lib in libs.items():
             if k != kernel or name == "other":
                 continue
-            with ab.swapped(kernel, lib):
+            with ab.swapped(kernel, lib), plan_constants(kernel,
+                                                         spec[k][name]):
                 got = pick(fn())
-                row[name] = {"bit_equal": bool(torch.equal(ref, got)),
+                row[name] = {"bit_equal": all(
+                    torch.equal(a, b) for a, b in zip(ref, got)),
                              "ms": [ab.time_ms(fn) for _ in range(2)]}
         with ab.swapped(kernel, libs[(kernel, "other")]):
             row["other_ms_again"] = ab.time_ms(fn)
@@ -118,12 +149,22 @@ def main(argv: list[str]) -> int:
     if "haar2d" in spec:
         for label, imgs in ab.haar_cases(dev):
             if label in HAAR_CASES:
-                run("haar2d", label, lambda: ops.haar2d(imgs), lambda o: o)
+                run("haar2d", label, lambda: ops.haar2d(imgs), lambda o: (o,))
     if "mamba_scan" in spec:
         for label, args in ab.scan_cases(dev):
             if label in SCAN_CASES:
                 run("mamba_scan", label, lambda: ops.mamba_scan(*args),
-                    lambda o: o[1])
+                    lambda o: (o[1],))
+    if "minmax_hash" in spec:
+        kw = {"n_buckets": 16384}
+        for label, args, f, use_minmax in ab.minmax_sig_cases(dev):
+            if label in MINMAX_SIG_CASES:
+                run("minmax_hash", label, lambda: ops.minmax_sig_buckets(
+                    *args, use_minmax=use_minmax, **kw), lambda o: o)
+        for label, args in ab.minmax_raw_cases(dev):
+            if label in MINMAX_RAW_CASES:
+                run("minmax_hash", label, lambda: ops.minmax_hash(*args),
+                    lambda o: o)
     return 0
 
 
