@@ -18,8 +18,11 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    behind a ~0.1 ms device busy wait so that the events time the device's
    work and not the host's dispatch). The Min-Max bounds count 2 · nnz · H
    comparisons at the DPX rate (``MINMAX_COMPARES_PER_S``), and a
-   ``minmax_sig_buckets_rate`` line gives the bytes a set bit's gathers
-   read and the bytes the tiled kernel stages, each over its time.
+   ``minmax_sig_buckets_rate`` line gives the plan that ran and the bytes
+   it reads from L2 by its design over its time (arithmetic, not traced).
+   The replay's shapes that take the row kernel (one station's block; a
+   block of the smoke config, D 1024, H 40, f 2) are held bit-exact too,
+   and the kernels line names each shape's plan.
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
    from the seed in ``tests/golden/batch_detect.json``): the golden's
    stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
@@ -47,7 +50,9 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
 9. ``minmax_hash`` against its plain version at station 0's shape (N =
    43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
    baseline's H = 800, bit-exact, timed and bounded, with a
-   ``minmax_hash_rate`` line for each.
+   ``minmax_hash_rate`` line for each; bit-exact also at the row kernel's
+   shapes of the offline path (the offline golden's station, D 1024,
+   H 40; corpus dedup's 24 × 1024 × 64).
 
 10. The LM kernels against their plain versions on the card, timed and
     bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
@@ -192,25 +197,58 @@ def _minmax_bound(n_bytes: float, n_compares: float,
         MINMAX_COMPARES_PER_S / INT_OPS_PER_S), MINMAX_COMPARES_PER_S)
 
 
+def _plan_dict(p) -> dict:
+    return {"tiled": p.tiled, "warps": p.warps, "split": p.split,
+            "grid": list(p.grid)}
+
+
+def _minmax_l2(p, nnz: int, words: int, h: int) -> tuple[str, int]:
+    """The bytes that the plan ``p`` reads from L2 by its design, and what
+    they are: the row kernel's gathers of a mapping value a set bit and
+    column (``gather``, nnz · H · 4), or the tiled kernel's staging of the
+    table once a row tile (``staged``). Arithmetic from the plan, not a
+    traced byte count."""
+    if p.tiled:
+        return "staged", p.grid[0] // p.split * 32 * words * h * 4
+    return "gather", nnz * h * 4
+
+
 def _minmax_rate(name: str, packed, mappings, nnz: int, ms: float,
                  f: int | None = None) -> dict:
-    """Print ``<name>_rate``: the bytes a set bit's gathers would read
-    (nnz · H · 4, what the row kernel reads from L2) and the bytes the
-    tiled kernel stages from L2 (each row tile reads the table once),
-    each over the kernel's time, with the plan that ran."""
+    """Print ``<name>_rate``: the plan that ran, and the bytes it reads
+    from L2 by its design (``_minmax_l2``) over the kernel's time, as
+    ``gather_tb_s`` for the row kernel or ``staged_tb_s`` for the tiled
+    one."""
     from repro_torch.kernels import minmax_hash as mm_k
     n, words = packed.shape
     h = mappings.shape[1]
     p = mm_k._plan_for(packed, mappings, f)
-    staged = (p.grid[0] // p.split * 32 * words * h * 4 if p.tiled
-              else nnz * h * 4)
+    kind, l2 = _minmax_l2(p, nnz, words, h)
     out = {"shape": [n, words, h], "set_bits": nnz, "ms": ms,
-           "gather_bytes": nnz * h * 4,
-           "gather_tb_s": nnz * h * 4 / ms * 1e-9,
-           "staged_bytes": staged, "staged_tb_s": staged / ms * 1e-9,
-           "plan": {"tiled": p.tiled, "warps": p.warps, "split": p.split,
-                    "grid": list(p.grid)}}
+           f"{kind}_bytes": l2, f"{kind}_tb_s": l2 / ms * 1e-9,
+           "plan": _plan_dict(p)}
     print(f"{name}_rate", json.dumps(out), flush=True)
+    return out
+
+
+def _minmax_row_cases(name: str, cases: dict, call, plain) -> dict:
+    """Shapes of the path that the plan gives the row kernel: each of
+    ``cases`` (label → args) must plan the row kernel, ``call(*args)``
+    must equal ``plain(*args)`` bit for bit; returns each one's plan,
+    shape and time."""
+    import torch
+    from repro_torch.kernels import minmax_hash as mm_k
+    out = {}
+    for label, args in cases.items():
+        packed, mappings, f = args[0], args[1], args[-1]
+        p = mm_k._plan_for(packed, mappings, f)
+        _need(not p.tiled, f"{name} ({label}) must take the row kernel")
+        got, want = call(*args), plain(*args)
+        torch.cuda.synchronize()
+        _need(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} ({label}) differs from its plain version")
+        out[label] = {"shape": [*packed.shape, mappings.shape[1]],
+                      **_plan_dict(p), "ms": _time_ms(lambda: call(*args))}
     return out
 
 
@@ -331,13 +369,36 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
                               6 * n * h_fns + 13 * n * lcfg.n_tables)
     ms = _time_ms(lambda: ops.minmax_sig_buckets(*mm_args, **kw))
     rate = _minmax_rate("minmax_sig_buckets", packed, mappings, nnz, ms, f)
+    # the row kernel's shapes of the replay: one station's block at the
+    # paper widths, and a 4-station block of the smoke config (D 1024,
+    # H 40, f 2)
+    scfg = fast_seismic.smoke_config()
+    sfc, slc = scfg.fingerprint, scfg.lsh
+    s0 = min(start, ds.waveforms.shape[1] - sfc.block_samples(256))
+    swave = torch.as_tensor(np.ascontiguousarray(
+        ds.waveforms[:, s0:s0 + sfc.block_samples(256)]), device=dev)
+    spacked = torch.cat([fp_mod.fingerprints_from_waveform(x, sfc)[1]
+                         for x in swave]).contiguous()
+    spacked[:: 97] = 0
+    plans = {"paper_block": rate["plan"]}
+    plans.update(_minmax_row_cases(
+        "minmax_sig_buckets",
+        {"one_station": (packed[:n // N_STATIONS].contiguous(), mappings,
+                         salts, lcfg.use_minmax, f),
+         "smoke_block": (spacked, lsh_mod.hash_mappings(sfc.fp_dim, slc, dev),
+                         lsh_mod.bucket_salts(slc.n_tables, slc.seed, dev),
+                         slc.use_minmax, slc.funcs_per_table)},
+        lambda pk, mp, sa, um, ff: ops.minmax_sig_buckets(
+            pk, mp, sa, use_minmax=um, n_buckets=n_buckets),
+        lambda pk, mp, sa, um, ff: mm_k.plain(pk, mp, sa, ff, um,
+                                              n_buckets)))
     out.append({"name": "minmax_sig_buckets", "route": "cuda",
                 "source": "src/repro_torch/csrc/minmax_hash.cu",
                 "replaces": "src/repro/kernels/minmax_hash.py:151",
                 "shape": [n, packed.shape[1], h_fns], "set_bits": nnz,
                 "max_abs_err": 0, "ms": ms,
-                "gather_tb_s": rate["gather_tb_s"],
-                "staged_tb_s": rate["staged_tb_s"],
+                **{k: v for k, v in rate.items() if k.endswith("_tb_s")},
+                "plans": plans,
                 "plain_ms": _time_ms(lambda: mm_k.plain(
                     *mm_args, f, lcfg.use_minmax, n_buckets), iters=20),
                 "bound_ms": bound, "bound_by": by, "library_ms": None})
@@ -564,10 +625,21 @@ def _same_search(a, b) -> bool:
             and torch.equal(ja.cpu(), jb.cpu()))
 
 
+def _dedup_docs():
+    """tests/test_data.py's input: 24 documents, an exact and a near
+    duplicate among them."""
+    import numpy as np
+    docs = np.random.default_rng(0).integers(1, 1000, (24, 128)).astype(
+        np.int32)
+    docs[20] = docs[3]
+    docs[21] = docs[5].copy()
+    docs[21, ::37] = 7
+    return docs
+
+
 def offline_golden_phase(dev) -> dict:
     """The offline search's golden on the card, and corpus dedup card
     against CPU."""
-    import numpy as np
     import torch
     from repro_torch.configs import fast_seismic
     from repro_torch.core import SynthConfig, make_dataset
@@ -582,12 +654,7 @@ def offline_golden_phase(dev) -> dict:
         torch.as_tensor(ds.waveforms[0], device=dev), cfg.fingerprint)
     pairs, _ = lsh.search(packed, cfg.lsh)
     got = [list(p) for p in _valid_pairs(pairs)]
-    # tests/test_data.py's input: an exact and a near duplicate
-    docs = np.random.default_rng(0).integers(1, 1000, (24, 128)).astype(
-        np.int32)
-    docs[20] = docs[3]
-    docs[21] = docs[5].copy()
-    docs[21, ::37] = 7
+    docs = _dedup_docs()
     keep, dstats = dedup.find_duplicates(docs, device=dev)
     keep_cpu, dstats_cpu = dedup.find_duplicates(docs, device="cpu")
     out = {"offline_pairs": len(got),
@@ -727,12 +794,17 @@ def offline_paper_phase(ds, n_fp: int, dev) -> tuple[dict, object]:
 def minmax_hash_phase(packed0, dev) -> dict:
     """``minmax_hash`` against its plain version at the offline search's
     shape (one station-day), bit-exact, and at the MinHash baseline's
-    H = t·k = 800."""
+    H = t·k = 800; then at the shapes of the path that take the row
+    kernel: the offline golden's station (the smoke config, D 1024, H 40)
+    and corpus dedup's 24 × 1024 × 64."""
     import dataclasses
     import torch
     from repro_torch import utils
     from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core import fingerprint as fp_mod
     from repro_torch.core import lsh
+    from repro_torch.data import dedup
     from repro_torch.kernels import minmax_hash as mm_k
     from repro_torch.kernels import ops
     lcfg = fast_seismic.config().lsh
@@ -759,18 +831,38 @@ def minmax_hash_phase(packed0, dev) -> dict:
         rate = _minmax_rate("minmax_hash", packed, mp, nnz, ms)
         runs[label] = {
             "shape": [n, words, h], "ms": ms,
-            "gather_tb_s": rate["gather_tb_s"],
-            "staged_tb_s": rate["staged_tb_s"],
+            **{k: v for k, v in rate.items() if k.endswith("_tb_s")},
+            "plan": rate["plan"],
             "plain_ms": _time_ms(lambda: mm_k.plain_raw(packed, mp),
                                  iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by}
+    gold = json.loads((ROOT / "tests" / "golden" / "stream_pairs.json")
+                      .read_text())
+    scfg = fast_seismic.smoke_config()
+    _, gpacked = fp_mod.fingerprints_from_waveform(torch.as_tensor(
+        make_dataset(SynthConfig(**gold["synth"])).waveforms[0], device=dev),
+        scfg.fingerprint)
+    dcfg = dedup.DedupConfig()
+    dpacked = utils.pack_bits(dedup.shingle_fingerprints(
+        torch.as_tensor(_dedup_docs(), device=dev), dcfg))
+    plans = {"station_day": runs["minmax"]["plan"],
+             "station_day_h800": runs["baseline"]["plan"]}
+    plans.update(_minmax_row_cases(
+        "minmax_hash",
+        {"offline_golden": (gpacked, lsh.hash_mappings(
+            scfg.fingerprint.fp_dim, scfg.lsh, dev), None),
+         "dedup": (dpacked, lsh.hash_mappings(dcfg.feature_dim, dcfg.lsh,
+                                              dev), None)},
+        lambda pk, mp, _: ops.minmax_hash(pk, mp),
+        lambda pk, mp, _: mm_k.plain_raw(pk, mp)))
     main = runs["minmax"]
     out = {"name": "minmax_hash", "route": "cuda",
            "source": "src/repro_torch/csrc/minmax_hash.cu",
            "replaces": "src/repro/kernels/minmax_hash.py:71",
            "shape": main["shape"], "set_bits": nnz, "max_abs_err": 0,
-           "ms": main["ms"], "gather_tb_s": main["gather_tb_s"],
-           "staged_tb_s": main["staged_tb_s"], "plain_ms": main["plain_ms"],
+           "ms": main["ms"],
+           **{k: v for k, v in main.items() if k.endswith("_tb_s")},
+           "plans": plans, "plain_ms": main["plain_ms"],
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
            "library_ms": None, "baseline_h800": runs["baseline"]}
     print("minmax_hash", json.dumps(out), flush=True)
@@ -1112,7 +1204,10 @@ def main() -> int:
             node = node[key]
         k["launches"] = node["launches"][k["name"]]
     report["kernels"] = kernels
-    line = [{key: k[key] for key in KERNEL_KEYS} for k in kernels]
+    # the Min-Max kernels also carry the plan of each shape they ran at
+    line = [{**{key: k[key] for key in KERNEL_KEYS},
+             **({"plans": k["plans"]} if "plans" in k else {})}
+            for k in kernels]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=float))

@@ -22,9 +22,9 @@
 // Two kernels, picked by the wrapper from the shapes
 // (kernels/minmax_hash.py:plan).
 //
-// Tiled (tiled_kernel): D >= 4096, H a multiple of 4, 16-byte aligned
-// mappings and, for signatures, 4 % f == 0 -- the paper widths' replay and
-// offline search.
+// Tiled (tiled_kernel): N * H >= 2^17, D >= 4096, H a multiple of 4,
+// 16-byte aligned mappings and, for signatures, 4 % f == 0 -- the paper
+// widths' replay of two or more stations and offline search.
 //   - A CTA owns a tile of warps * kRowsPerWarp rows (128 at the paper
 //     shapes) and a slice of kCols = 128 columns. One thread streams the
 //     slice through shared memory by TMA, kChunk = 128 dimensions a box,
@@ -57,7 +57,8 @@
 //
 // Row (minmax_*_kernel): every other shape (fewer dimensions, as the smoke
 // config's and dedup's 1024, where a row's few bits make its short CTA
-// faster; H not a multiple of 4, f = 3, an unaligned table). One CTA per
+// faster; smaller planes, as one station's replay block, whose tiles fill
+// few SMs; H not a multiple of 4, f = 3, an unaligned table). One CTA per
 // fingerprint row. Pass 1 compacts the
 // row's set-bit positions from its packed uint32 words into a
 // shared-memory list (atomicAdd claims a run per word; the list order is
@@ -516,15 +517,14 @@ size_t tiled_smem_bytes(int warps) {
 
 template <class Epilogue>
 int launch_tiled(const uint32_t* packed, int n, int n_words,
-                 const int32_t* mappings, int n_hash, int warps,
-                 int rows_per_warp, int chunk, int split, int smem,
+                 const int32_t* mappings, int n_hash, int warps, int split,
                  void* part, void* counters, Epilogue epi, void* stream) {
-  if (rows_per_warp != kRowsPerWarp || warps < 1 || warps > kMaxWarps ||
-      chunk != kChunk || n_hash % 4 != 0 || split < 1 ||
-      split > kMaxSplit || (split > 1 && (!part || !counters)) ||
-      (size_t)smem != tiled_smem_bytes(warps))
+  if (warps < 1 || warps > kMaxWarps || n_hash % 4 != 0 || split < 1 ||
+      split > kMaxSplit)
     return (int)cudaErrorInvalidValue;
   if (n <= 0 || n_hash <= 0) return (int)cudaGetLastError();
+  if (split > 1 && (!part || !counters)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)tiled_smem_bytes(warps);
   const int rows = warps * kRowsPerWarp;
   // the mapping table as a TMA tensor: (D, H) int32, boxes of kChunk
   // dimensions x kCols columns
@@ -608,47 +608,49 @@ extern "C" int minmax_sig_buckets_launch(const uint32_t* packed, int n,
   return (int)cudaGetLastError();
 }
 
-// Tiled path, the same planes. warps, rows_per_warp, chunk, split and smem
-// are the wrapper's plan (kernels/minmax_hash.py:plan); a plan this build
-// does not take returns cudaErrorInvalidValue. With split > 1, part has
+// Tiled path, the same planes. warps (at most kMaxWarps) and split (at
+// most kMaxSplit) are the wrapper's plan (kernels/minmax_hash.py:plan),
+// which sizes its grid and shared memory as this file does; other values
+// return cudaErrorInvalidValue. With split > 1, part has
 // room for grid.x * grid.y * warps * 8 * 64 int4 and counters holds
 // grid.x / split * grid.y zeros (left zero). mappings and the planes start
 // on 16 bytes; n_hash is a multiple of 4.
 extern "C" int minmax_hash_tiled_launch(const uint32_t* packed, int n,
                                         int n_words, const int32_t* mappings,
                                         int n_hash, int32_t* mins,
-                                        int32_t* maxs, int warps,
-                                        int rows_per_warp, int chunk,
-                                        int split, int smem, void* part,
-                                        void* counters, void* stream) {
-  return launch_tiled(packed, n, n_words, mappings, n_hash, warps,
-                      rows_per_warp, chunk, split, smem, part, counters,
-                      RawEpilogue{mins, maxs, n_hash}, stream);
+                                        int32_t* maxs, int warps, int split,
+                                        void* part, void* counters,
+                                        void* stream) {
+  return launch_tiled(packed, n, n_words, mappings, n_hash, warps, split,
+                      part, counters, RawEpilogue{mins, maxs, n_hash},
+                      stream);
 }
 
 // Tiled path, the same signatures and buckets; f is 1, 2 or 4.
 extern "C" int minmax_sig_buckets_tiled_launch(
     const uint32_t* packed, int n, int n_words, const int32_t* mappings,
     const uint32_t* salts, int n_tables, int f, int use_minmax,
-    int n_buckets, uint32_t* sig, int32_t* bkt, int warps,
-    int rows_per_warp, int chunk, int split, int smem, void* part,
-    void* counters, void* stream) {
+    int n_buckets, uint32_t* sig, int32_t* bkt, int warps, int split,
+    void* part, void* counters, void* stream) {
   const int n_hash = n_tables * f;
   const uint32_t mask = (uint32_t)(n_buckets - 1);
   if (f == 4)
-    return launch_tiled(packed, n, n_words, mappings, n_hash, warps,
-                        rows_per_warp, chunk, split, smem, part, counters,
-                        SigEpilogue<4>{salts, sig, bkt, n_tables, use_minmax,
-                                       mask}, stream);
+    return launch_tiled(packed, n, n_words, mappings, n_hash, warps, split,
+                        part, counters,
+                        SigEpilogue<4>{salts, sig, bkt, n_tables,
+                                       use_minmax, mask},
+                        stream);
   if (f == 2)
-    return launch_tiled(packed, n, n_words, mappings, n_hash, warps,
-                        rows_per_warp, chunk, split, smem, part, counters,
-                        SigEpilogue<2>{salts, sig, bkt, n_tables, use_minmax,
-                                       mask}, stream);
+    return launch_tiled(packed, n, n_words, mappings, n_hash, warps, split,
+                        part, counters,
+                        SigEpilogue<2>{salts, sig, bkt, n_tables,
+                                       use_minmax, mask},
+                        stream);
   if (f == 1)
-    return launch_tiled(packed, n, n_words, mappings, n_hash, warps,
-                        rows_per_warp, chunk, split, smem, part, counters,
-                        SigEpilogue<1>{salts, sig, bkt, n_tables, use_minmax,
-                                       mask}, stream);
+    return launch_tiled(packed, n, n_words, mappings, n_hash, warps, split,
+                        part, counters,
+                        SigEpilogue<1>{salts, sig, bkt, n_tables,
+                                       use_minmax, mask},
+                        stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,8 +10,9 @@ bucket epilogue fused, the block replay). Both read the packed (N, D/32)
 fingerprint words that ``binarize_coeffs`` produces instead of the (N, D)
 bits, and compare only the mapping rows of set bits. ``plan`` picks the
 kernel from the shapes: the tiled one (the mapping table staged in shared
-memory once per tile of rows) at the paper widths (D = 8192), the row one
-(a CTA a row, mapping values gathered from L2) for the rest.
+memory once per tile of rows) at the paper widths (D = 8192) from
+MIN_TILED_PLANE rows × columns, the row one (a CTA a row, mapping values
+gathered from L2) for the rest.
 ``plain_raw`` and ``plain`` compute the same functions from the same
 packed input in PyTorch: the masked min/max (the reference's
 ``ref.minmax_hash``), followed for ``plain`` by the signature fold and
@@ -32,7 +33,8 @@ from repro_torch.kernels import _build
 BIG = 2**31 - 1
 
 # The tiled kernel's shape: csrc/minmax_hash.cu's kCols, kRowsPerWarp,
-# kMaxWarps, kChunk, kStages, kListBytes and kMaxSplit.
+# kMaxWarps, kChunk, kStages, kListBytes and kMaxSplit (the plan's copy;
+# the launch sends only the warps, the split and the split's scratch).
 SLICE_COLS = 128         # columns a CTA: 32 lanes x 4
 ROWS_PER_WARP = 8        # rows whose mins and maxs a lane holds
 MAX_WARPS = 16           # a row tile of 128 rows
@@ -49,15 +51,23 @@ H100_SMS = 132
 # short CTAs beat the tiled kernel's pipeline fill (tools/kernel_ab.py on
 # the H100: D = 320 and 1024 run 1.6-2.1x faster in the row kernel; at D
 # of 8192 and more the tiled one runs up to 5.3x faster, 2x on a
-# station-day, and 1.3x slower only at a few hundred rows).
+# station-day).
 MIN_TILED_DIMS = 4096
+# Below this many rows x columns (the planes' size, N * H) the tiled grid
+# fills few SMs even split 8 ways (256 rows at H = 400: 2 tiles x 4 slices
+# x 8 CTAs), and the row kernel, whose work grows with N * H, is faster.
+# tools/kernel_variants.py, run `rows`, on the H100 at D = 8192: the row
+# kernel wins at 256 x 400 (1.27x raw, 1.03x signatures), the tiled one
+# from 384 x 400 (1.03x raw, 1.14x signatures) and at 256 x 800 (1.28x).
+MIN_TILED_PLANE = 1 << 17
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one call runs: ``tiled`` or the row kernel and, when tiled,
     the CTA's warps, the CTAs that split a tile's dimensions (``split``),
-    the dynamic shared memory in bytes and the grid."""
+    the dynamic shared memory in bytes (as the kernel's launch sizes it)
+    and the grid."""
     tiled: bool
     warps: int = 0
     split: int = 1
@@ -80,15 +90,15 @@ def plan(n: int, n_words: int, n_hash: int, f: int | None = None,
     signatures (None for the raw planes), ``aligned`` whether the mapping
     table starts on 16 bytes.
 
-    The tiled kernel takes at least MIN_TILED_DIMS dimensions and H a
-    multiple of 4 on an aligned table and, for signatures, 4 % f == 0 (a
-    lane's 4 columns hold whole tables); every other shape takes the row
-    kernel. Row tiles of up to 128 rows, one
-    CTA a tile and 128-column slice; where those leave SMs idle, up to 8
-    CTAs split each tile's dimensions, as many as one wave holds and no
-    more than the chunks."""
-    if (32 * n_words < MIN_TILED_DIMS or n_hash % 4 or not aligned
-            or (f is not None and 4 % f)):
+    The tiled kernel takes at least MIN_TILED_PLANE rows × columns of
+    at least MIN_TILED_DIMS dimensions, H a multiple of 4 on an aligned
+    table and, for signatures, 4 % f == 0 (a lane's 4 columns hold whole
+    tables); every other shape takes the row kernel. Row tiles of up to
+    128 rows, one CTA a tile and 128-column slice; where those leave SMs
+    idle, up to 8 CTAs split each tile's dimensions, as many as one wave
+    holds and no more than the chunks."""
+    if (n * n_hash < MIN_TILED_PLANE or 32 * n_words < MIN_TILED_DIMS
+            or n_hash % 4 or not aligned or (f is not None and 4 % f)):
         return Plan(False)
     warps = min(MAX_WARPS, max(1, -(-n // ROWS_PER_WARP)))
     tiles = -(-n // (warps * ROWS_PER_WARP))
@@ -98,7 +108,7 @@ def plan(n: int, n_words: int, n_hash: int, f: int | None = None,
     per_sm = max(1, min(SM_SMEM // (_smem(warps) + 1024),
                         65536 // (threads * REGS), 2048 // threads))
     split = 1
-    while (split * 2 <= min(MAX_SPLIT, chunks)
+    while (tiles and split * 2 <= min(MAX_SPLIT, chunks)
            and tiles * slices * split * 2 <= n_sms * per_sm):
         split *= 2
     return Plan(True, warps, split, _smem(warps), (tiles * split, slices))
@@ -116,9 +126,8 @@ def _plan_for(packed: torch.Tensor, mappings: torch.Tensor,
                                                       or 0))
 
 
-# the tiled entry points' plan arguments: warps, rows a warp, chunk,
-# split, shared memory, partials, counters
-PLAN_TYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+# the tiled entry points' plan arguments: warps, split, partials, counters
+PLAN_TYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 # per (device, stream): a zero for every tile and slice of a split launch,
 # which the kernel leaves zero
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
@@ -201,7 +210,7 @@ def _run(entry: str, p: Plan, device: torch.device, args: list,
     plan_args = []
     if p.tiled:
         part, counters = _scratch(p, device)
-        plan_args = [p.warps, ROWS_PER_WARP, CHUNK, p.split, p.smem,
+        plan_args = [p.warps, p.split,
                      part.data_ptr() if part is not None else None,
                      counters.data_ptr() if counters is not None else None]
     rc = fn(*args, *plan_args, torch.cuda.current_stream(device).cuda_stream)

@@ -155,8 +155,10 @@ def minmax_sig_buckets(packed: torch.Tensor, mappings: torch.Tensor,
     n = packed.shape[0]
     sig = torch.empty((n, t), dtype=torch.int32, device=packed.device)
     bkt = torch.empty((n, t), dtype=torch.int32, device=packed.device)
-    _mm.launch(packed, mappings, salts, f, use_minmax, n_buckets, sig, bkt)
-    LAUNCHES[name] += 1
+    if n:
+        _mm.launch(packed, mappings, salts, f, use_minmax, n_buckets, sig,
+                   bkt)
+        LAUNCHES[name] += 1
     return sig, bkt
 
 

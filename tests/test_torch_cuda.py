@@ -145,9 +145,12 @@ def _edge_bits(n, d, seed):
     (24, 8192, 64),          # 64 columns: groups of 16 lanes
     (1024, 8192, 1200),
     (2000, 8192, 40)])       # 40 columns: 10 quads in groups of 16
-def test_minmax_hash_tiled_edges(cuda, n, d, h):
+def test_minmax_hash_tiled_edges(cuda, monkeypatch, n, d, h):
     """The tiled kernel's tile, chunk, slice and cluster edges, bit for
-    bit against the plain version; an all-zero tile gives 2**31 - 1 / 0."""
+    bit against the plain version; an all-zero tile gives 2**31 - 1 / 0.
+    Every plane takes the tiled kernel here (a station-day's last tile
+    holds 48 rows)."""
+    monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", 0)
     assert mm_k.plan(n, d // 32, h).tiled
     rng = np.random.default_rng(6)
     bits = _edge_bits(n, d, 7)
@@ -172,7 +175,9 @@ def test_minmax_hash_tiled_edges(cuda, n, d, h):
     (40, 8192, 40, 1, False),
     (50, 8192, 13, 3, True),             # f = 3: the row kernel
     (1000, 1024, 20, 2, True)])          # D = 1024: the row kernel
-def test_minmax_sig_buckets_tiled_edges(cuda, n, d, t, f, use_minmax):
+def test_minmax_sig_buckets_tiled_edges(cuda, monkeypatch, n, d, t, f,
+                                       use_minmax):
+    monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", 0)
     assert mm_k.plan(n, d // 32, t * f, f).tiled == (f != 3 and d >= 4096)
     rng = np.random.default_rng(8)
     packed = tu.pack_bits(_edge_bits(n, d, 9)).to(cuda)
@@ -189,9 +194,10 @@ def test_minmax_sig_buckets_tiled_edges(cuda, n, d, t, f, use_minmax):
     assert torch.equal(sig, want[0]) and torch.equal(bkt, want[1])
 
 
-def test_minmax_unaligned_mappings_take_the_row_kernel(cuda):
+def test_minmax_unaligned_mappings_take_the_row_kernel(cuda, monkeypatch):
     """A mapping table that does not start on 16 bytes runs the row
     kernel and gives the tiled kernel's planes and signatures."""
+    monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", 0)
     n, d, t, f = 200, 8192, 100, 4
     rng = np.random.default_rng(10)
     packed = tu.pack_bits(_edge_bits(n, d, 11)).to(cuda)
@@ -208,6 +214,59 @@ def test_minmax_unaligned_mappings_take_the_row_kernel(cuda):
                                                   n_buckets=4096)):
         got, want = call(loose), call(loose.clone())
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [256, 320])
+def test_minmax_few_rows_take_the_row_kernel(cuda, monkeypatch, n):
+    """One station's replay block (256 rows at the paper widths) runs the
+    row kernel; its planes and signatures equal the plain version's and,
+    bit for bit, the tiled kernel's on the same input."""
+    d, t, f = 8192, 100, 4
+    assert not mm_k.plan(n, d // 32, t * f, f).tiled
+    rng = np.random.default_rng(12)
+    packed = tu.pack_bits(_edge_bits(n, d, 13)).to(cuda)
+    mappings = torch.from_numpy(rng.integers(0, 2**31 - 1, (d, t * f),
+                                             dtype=np.int32)).to(cuda)
+    salts = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, t,
+                                          dtype=np.int32)).to(cuda)
+    calls = (lambda: ops.minmax_hash(packed, mappings),
+             lambda: ops.minmax_sig_buckets(packed, mappings, salts,
+                                            use_minmax=True, n_buckets=4096))
+    row = [call() for call in calls]
+    assert all(torch.equal(a, b) for a, b in zip(
+        row[0], mm_k.plain_raw(packed, mappings)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        row[1], mm_k.plain(packed, mappings, salts, f, True, 4096)))
+    monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", 0)
+    assert mm_k.plan(n, d // 32, t * f, f).tiled
+    for got, call in zip(row, calls):
+        assert all(torch.equal(a, b) for a, b in zip(got, call()))
+
+
+@pytest.mark.parametrize("min_plane", [0, None])
+def test_minmax_no_rows(cuda, monkeypatch, min_plane):
+    """No rows at the paper widths give empty outputs and launch nothing,
+    also where the plan would tile them; the launch functions take an
+    empty input on either plan."""
+    if min_plane is not None:
+        monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", min_plane)
+    d, t, f = 8192, 100, 4
+    packed = torch.zeros((0, d // 32), dtype=torch.int32, device=cuda)
+    mappings = torch.randint(0, 2**31 - 1, (d, t * f), dtype=torch.int32,
+                             device=cuda)
+    salts = torch.zeros(t, dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    mins, maxs = ops.minmax_hash(packed, mappings)
+    sig, bkt = ops.minmax_sig_buckets(packed, mappings, salts,
+                                      use_minmax=True, n_buckets=4096)
+    torch.cuda.synchronize()
+    assert mins.shape == maxs.shape == (0, t * f)
+    assert sig.shape == bkt.shape == (0, t)
+    assert ops.LAUNCHES["minmax_hash"] == ops.LAUNCHES[
+        "minmax_sig_buckets"] == 0
+    mm_k.launch_raw(packed, mappings, mins, maxs)
+    mm_k.launch(packed, mappings, salts, f, True, 4096, sig, bkt)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("s,ring,words,m", [(1, 17, 3, 29), (4, 500, 256,

@@ -36,8 +36,13 @@ W_SMOKE = SMOKE.fingerprint.fp_dim // 32
 # (caller, rows, words, H, f or None for the raw planes) -> the expected
 # (tiled, warps, split, grid)
 CALLERS = [
-    # the batch replay: 4 stations x 256 fingerprints a block
+    # the batch replay: 4 stations x 256 fingerprints a block; one and two
+    # stations
     ("replay_paper", 1024, W_PAPER, H_PAPER, F_PAPER, (True, 16, 4, (32, 4))),
+    ("replay_paper_one_station", 256, W_PAPER, H_PAPER, F_PAPER,
+     (False, 0, 1, (0, 0))),
+    ("replay_paper_two_stations", 512, W_PAPER, H_PAPER, F_PAPER,
+     (True, 16, 8, (32, 4))),
     ("replay_smoke", 1024, W_SMOKE, H_SMOKE, F_SMOKE, (False, 0, 1, (0, 0))),
     # the offline search on a station-day, and the MinHash baseline
     ("search_station_day", 43184, W_PAPER, H_PAPER, None,
@@ -47,6 +52,8 @@ CALLERS = [
     # corpus dedup: the golden's 24 documents
     ("dedup", 24, DEDUP.feature_dim // 32, H_DEDUP, None,
      (False, 0, 1, (0, 0))),
+    # an empty input at the paper widths
+    ("no_rows", 0, W_PAPER, H_PAPER, None, (False, 0, 1, (0, 0))),
     # the card tests' row-kernel shapes
     ("three_functions_a_table", 13, 10, 36, 3, (False, 0, 1, (0, 0))),
     ("columns_not_quads", 9, 4, 10, 2, (False, 0, 1, (0, 0))),
@@ -76,15 +83,31 @@ def test_paper_widths_are_the_planned_ones():
     (True, 256, 16, 4, True), (True, 1024, 1200, None, True)])
 def test_shapes_off_the_tiling_take_the_row_kernel(aligned, words, h, f,
                                                    tiled):
-    assert mm_k.plan(100, words, h, f, aligned=aligned).tiled == tiled
+    assert mm_k.plan(43184, words, h, f, aligned=aligned).tiled == tiled
     assert (32 * words >= mm_k.MIN_TILED_DIMS) or not tiled
 
 
-@pytest.mark.parametrize("n", [1, 5, 127, 128, 129, 1000, 1024, 43184,
+@pytest.mark.parametrize("n,h,tiled", [
+    (0, 400, False), (1, 400, False), (256, 400, False), (327, 400, False),
+    (328, 400, True), (384, 400, True), (512, 400, True),
+    (163, 800, False), (164, 800, True), (256, 800, True),
+    (3276, 40, False), (3277, 40, True)])
+def test_small_planes_take_the_row_kernel(n, h, tiled):
+    """Below MIN_TILED_PLANE rows × columns the tiled grid fills few SMs
+    even split, and the row kernel runs: one station's replay block (256 ×
+    400) does, two stations' and 256 rows at H = 800 do not."""
+    assert mm_k.MIN_TILED_PLANE == 131_072
+    for words, f in ((256, None), (512, None), (256, 4)):
+        assert mm_k.plan(n, words, h, f).tiled == tiled
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 127, 128, 129, 1000, 1024, 43184,
                                200_000])
 @pytest.mark.parametrize("words,h", [(128, 4), (129, 40), (256, 64),
                                      (256, 400), (256, 800), (1024, 1200)])
-def test_tiled_plans_fit_the_card(n, words, h):
+def test_tiled_plans_fit_the_card(monkeypatch, n, words, h):
+    """The tiled plan at every row count (as the card tests force it)."""
+    monkeypatch.setattr(mm_k, "MIN_TILED_PLANE", 0)
     p = mm_k.plan(n, words, h)
     assert p.tiled
     rows = p.warps * mm_k.ROWS_PER_WARP
@@ -93,10 +116,12 @@ def test_tiled_plans_fit_the_card(n, words, h):
     assert rows >= min(n, mm_k.MAX_WARPS * mm_k.ROWS_PER_WARP)
     assert p.grid == (tiles * p.split, slices)
     assert p.smem <= mm_k.SMEM_LIMIT
-    # a split never exceeds the chunks, nor one wave of CTAs
+    # a split never exceeds the chunks, nor one wave of CTAs; no rows, no
+    # split (nor its scratch)
     assert p.split & (p.split - 1) == 0
     assert p.split <= min(mm_k.MAX_SPLIT, -(-32 * words // mm_k.CHUNK))
     assert p.split == 1 or p.grid[0] * p.grid[1] <= mm_k.H100_SMS
+    assert n or (p.split == 1 and p.grid[0] == 0)
 
 
 def test_split_fills_a_wave_of_the_card():
@@ -125,12 +150,16 @@ def test_plan_constants_match_the_cuda_source(name, value):
 
 
 def test_tiled_entry_points_take_the_plan():
+    """The plan crosses to the .cu as its warps, split and the split's
+    scratch; the kernel's constants and shared memory stay in the .cu."""
     for entry in ("minmax_hash_tiled_launch",
                   "minmax_sig_buckets_tiled_launch"):
         sig = CSRC[CSRC.index(f'extern "C" int {entry}('):]
-        sig = sig[:sig.index(")")]
-        assert sig.count("int warps") == 1 and "void* counters" in sig
-    assert len(mm_k.PLAN_TYPES) == 7
+        sig = " ".join(sig[:sig.index(")")].split())
+        assert ("int warps, int split, void* part, void* counters, "
+                "void* stream") in sig
+        assert "smem" not in sig and "chunk" not in sig
+    assert len(mm_k.PLAN_TYPES) == 4
 
 
 def _chip_smoke():
@@ -169,3 +198,19 @@ def test_minmax_bound_of_a_station_day():
     assert by_b == "bytes"
     assert ms_b == pytest.approx(4 * (n * 256 + 8192 * h + 2 * n * h)
                                  / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("n,words,h,want", [
+    # the paper block: 8 tiles of 128 rows (split 4) read the table once
+    (1024, 256, 400, ("staged", 8 * 8192 * 400 * 4)),
+    # a station-day: 338 tiles
+    (43184, 256, 400, ("staged", 338 * 8192 * 400 * 4)),
+    # one station's block and dedup: the row kernel gathers per set bit
+    (256, 256, 400, ("gather", 1000 * 400 * 4)),
+    (24, 32, 64, ("gather", 1000 * 64 * 4))])
+def test_minmax_l2_bytes_follow_the_plan(n, words, h, want):
+    """chip_smoke.py's L2 bytes of a Min-Max call are those of the plan
+    that runs: the tiled kernel's staged table, or the row kernel's
+    gathers (nnz · H · 4); never the other design's."""
+    cs = _chip_smoke()
+    assert cs._minmax_l2(mm_k.plan(n, words, h), 1000, words, h) == want

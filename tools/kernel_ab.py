@@ -26,9 +26,10 @@ falcon-mamba-7b's prefill (1 × 2048 × 8192 × 16, fp32 and bf16, with
 ``chip_smoke.py``'s inputs) and ragged card-test shapes, ``h_final`` held
 bit for bit and y's difference printed; ``minmax_sig_buckets`` (both
 outputs bit for bit) at the paper block (1024 × 256 words × 400
-functions, 4 a table) and the card tests' shapes, ``minmax_hash`` (both
-planes bit for bit) at a station-day (43,184 × 256 × 400), the MinHash
-baseline's H = 800 and the card tests' shapes, each on random bits at
+functions, 4 a table), blocks of 256–768 rows (one to three stations) and
+the card tests' shapes, ``minmax_hash`` (both planes bit for bit) at a
+station-day (43,184 × 256 × 400), the MinHash baseline's H = 800, 256–768
+rows and the card tests' shapes, each on random bits at
 top_k / D = 400 / 8192 (5% elsewhere) with every 97th row empty. Both
 come from ``csrc/minmax_hash.cu``; a build of it without the tiled
 entry points (an earlier commit's) runs its row kernel at every shape.
@@ -247,6 +248,9 @@ def minmax_sig_cases(dev):
     for n, d, t, f, use_minmax in ((1024, 8192, 100, 4, True),
                                    (13, 320, 12, 3, True),
                                    (256, 8192, 100, 4, True),
+                                   (384, 8192, 100, 4, True),
+                                   (512, 8192, 100, 4, True),
+                                   (768, 8192, 100, 4, True),
                                    (7, 32768, 300, 4, True),
                                    (9, 128, 5, 2, False),
                                    (1000, 1024, 20, 2, True)):
@@ -262,8 +266,9 @@ def minmax_raw_cases(dev):
     import torch
     g = torch.Generator(device=dev).manual_seed(1)
     for n, d, h in ((43184, 8192, 400), (43184, 8192, 800), (13, 320, 100),
-                    (256, 8192, 400), (9, 8192, 800), (24, 1024, 64),
-                    (5, 16384, 400)):
+                    (256, 8192, 400), (384, 8192, 400), (512, 8192, 400),
+                    (768, 8192, 400), (256, 8192, 800), (9, 8192, 800),
+                    (24, 1024, 64), (5, 16384, 400)):
         density = 400 / 8192 if d == 8192 else 0.05
         yield (f"{n}x{d // 32}x{h}",
                (random_packed(n, d, density, g, dev),

@@ -23,8 +23,9 @@ wrong result on purpose (a loop cut out, say) to time what is left.
 Cases: ``haar2d`` at the paper block (1024 × 32 × 128), 64 × 16 × 32 and
 3 × 64 × 256; ``mamba_scan`` at falcon-mamba-7b's prefill, fp32 and bf16;
 ``minmax_hash`` (the source of both Min-Max kernels) ``minmax_sig_buckets``
-at the paper block and ``minmax_hash`` at a station-day, H = 400 and 800
-(``tools/kernel_ab.py``'s inputs; every output compared).
+at the paper block and at 256–768 rows, ``minmax_hash`` at a station-day,
+H = 400 and 800, and at 256–768 rows (``tools/kernel_ab.py``'s inputs;
+every output compared).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -43,8 +44,11 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 HAAR_CASES = ("1024x32x128", "64x16x32", "3x64x256")
 SCAN_CASES = ("1x2048x8192x16_float32", "1x2048x8192x16_bfloat16")
-MINMAX_SIG_CASES = ("1024x256x400_f4",)
-MINMAX_RAW_CASES = ("43184x256x400", "43184x256x800")
+MINMAX_SIG_CASES = ("1024x256x400_f4", "256x256x400_f4", "384x256x400_f4",
+                    "512x256x400_f4", "768x256x400_f4")
+MINMAX_RAW_CASES = ("43184x256x400", "43184x256x800", "256x256x400",
+                    "384x256x400", "512x256x400", "768x256x400",
+                    "256x256x800")
 
 
 def _subs(variant) -> list:
