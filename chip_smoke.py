@@ -15,14 +15,21 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    unions included), STFT and Haar within rtol 1e-5, atol 1e-5·max|x|.
    Times kernel, plain version and, where one PyTorch call computes the
    same function, that call (CUDA events, median of 30 launches, each
-   behind a ~0.1 ms device busy wait so that the events time the device's
+   behind a ~0.5 ms device busy wait so that the events time the device's
    work and not the host's dispatch). The Min-Max bounds count 2 · nnz · H
    comparisons at the DPX rate (``MINMAX_COMPARES_PER_S``), and a
    ``minmax_sig_buckets_rate`` line gives the plan that ran and the bytes
    it reads from L2 by its design over its time (arithmetic, not traced).
    The replay's shapes that take the row kernel (one station's block; a
    block of the smoke config, D 1024, H 40, f 2) are held bit-exact too,
-   and the kernels line names each shape's plan.
+   and the kernels line names each shape's plan. ``jaccard_popcount``
+   scores 4 × 4096 slots all valid over the paper ring (ids not reduced
+   modulo the ring), on both plans (16-byte loads; 4-byte words on a copy
+   of the ring 4 bytes off 16), each bit-exact, timed warm and cold (an
+   L2 flush of ``L2_FLUSH_BYTES`` before each busy wait, outside the
+   events), with a ``jaccard_popcount_rate`` line; its bound counts the
+   valid pairs' distinct rows once and 2 POPC a word at
+   ``POPC_OPS_PER_S``.
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
    from the seed in ``tests/golden/batch_detect.json``): the golden's
    stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
@@ -33,7 +40,11 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    stations × 24 h of synthetic 100 Hz data, with launch counters zeroed
    just before and read just after: stage wall times, fingerprints per
    second, detections, recall, peak memory and each kernel's launches
-   (each must be at least the number of blocks).
+   (each must be at least the number of blocks), and each station's
+   pairs emitted. Then ``jaccard_popcount`` at the replay's real shape:
+   4 × 4096 slots, station s valid on a prefix as long as its pairs
+   emitted over the whole replay (capped at 4096), garbage ids behind
+   it; both plans bit-exact, warm and cold, with its own rate line.
 6. The offline golden: ``core.lsh.search`` on the card reproduces the 17
    ``offline_pairs`` of ``tests/golden/stream_pairs.json``, and
    ``data.dedup.find_duplicates`` on the card equals the port's CPU path.
@@ -44,7 +55,7 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    fingerprints, ``search`` and ``verify_jaccard`` of the valid pairs, and
    ``partitioned_search`` (4 partitions) on station 0, with launch counters
    zeroed just before and read just after (``minmax_hash`` at least once
-   per search, ``jaccard_popcount`` once per search with pairs): stage wall
+   per search, ``jaccard_popcount`` once per verify): stage wall
    times, fingerprints per second, pairs before and after the filter,
    ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
 9. ``minmax_hash`` against its plain version at station 0's shape (N =
@@ -95,6 +106,7 @@ result. Writes ``chiprun_out/chip_smoke.json`` with everything printed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -117,9 +129,19 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 # comparisons a result (tools/int_minmax_peak.py), the faster of the two:
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 MINMAX_COMPARES_PER_S = 2 * INT_OPS_PER_S
+# H100 population counts (POPC): 15.4 a clock an SM, measured by
+# tools/int_minmax_peak.py's `popc` probe (15.35-15.48 on an H100 80GB
+# HBM3 at 700 W; the CUDA C++ Programming Guide's throughput table gives
+# 16 for compute capability 9.0), 132 SMs at 1.98 GHz
+POPC_OPS_PER_S = 132 * 15.4 * 1.98e9
+# bytes written before each cold timing: more than the 50 MB L2 holds
+L2_FLUSH_BYTES = 128 << 20
 RTOL = 1e-5
-# ~0.1 ms of device busy wait before each timed call (see _time_ms)
-PRIME_CYCLES = 200_000
+# ~0.5 ms of device busy wait before each timed call (see _time_ms): a
+# slow moment of the host (~0.1 ms of wait was not always enough for the
+# jaccard_popcount wrapper on a shared host) would otherwise land inside
+# the events
+PRIME_CYCLES = 1_000_000
 N_STATIONS = 4
 PAPER_HOURS = 24.0
 # a short trace whose events the paper's 32 s fingerprints see; the same
@@ -151,13 +173,15 @@ def _need(cond: bool, what: str) -> None:
 
 
 def _time_ms(fn, iters: int = 30, warmup: int = 3,
-             primed: bool = True) -> float:
+             primed: bool = True, flush=None) -> float:
     """Median of ``iters`` timings of ``fn`` between two CUDA events.
     ``primed`` queues a device-side busy wait of ``PRIME_CYCLES`` before
     each call, so the host has enqueued the call before the device reaches
     the first event and the events bracket the device's work alone;
     unprimed, a call whose host dispatch outlasts its device work (~0.05
-    ms for a ctypes kernel wrapper) is timed at its dispatch."""
+    ms for a ctypes kernel wrapper) is timed at its dispatch. ``flush``
+    (a tensor larger than the L2) is zeroed before each busy wait, outside
+    the events, so that each call finds its inputs in device memory."""
     import torch
     for _ in range(warmup):
         fn()
@@ -166,6 +190,8 @@ def _time_ms(fn, iters: int = 30, warmup: int = 3,
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         if primed:
             torch.cuda._sleep(PRIME_CYCLES)
         a.record()
@@ -262,15 +288,15 @@ def _close(got, want) -> float:
     return err
 
 
-def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
-    """Every kernel against its plain version at one paper block's shapes."""
+def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
+    """Every kernel against its plain version at one paper block's shapes;
+    returns their entries and the Jaccard slots for the replay's shape."""
     import numpy as np
     import torch
     from repro_torch.configs import fast_seismic
     from repro_torch.core import fingerprint as fp_mod
     from repro_torch.core import lsh as lsh_mod
     from repro_torch.kernels import haar2d as haar_k
-    from repro_torch.kernels import jaccard_popcount as jac_k
     from repro_torch.kernels import minmax_hash as mm_k
     from repro_torch.kernels import ops
     from repro_torch.kernels import stft_mag as stft_k
@@ -406,13 +432,12 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
     # --- jaccard_popcount (bit-exact, including empty unions). As in
     # verify_pairs on the paper replay: the packed ring covers the whole
     # trace, idx2 is a row of the current block and idx1 any row the ring
-    # has filled so far, so the gathers reach across all of it.
+    # has filled so far, so the gathers reach across all of it; the ids
+    # are not reduced modulo the ring (the kernel reduces them).
     ring, m = n_fp, 4096
     words = packed.shape[1]
     per = n // N_STATIONS
     blk = packed.reshape(N_STATIONS, per, words)
-    pk = blk.repeat(1, -(-ring // per), 1)[:, :ring].contiguous()
-    pk[:, ring - 2:] = 0                          # two empty rows
     first = start // fcfg.lag_samples             # the block's first id
     g = torch.Generator(device="cpu").manual_seed(0)
     i2 = first + torch.randint(0, per, (N_STATIONS, m), generator=g)
@@ -420,24 +445,112 @@ def kernel_phase(ds, n_fp: int, dev) -> list[dict]:
     i1[:, :64] = i2[:, :64]                       # identical rows
     i1[:, 64:96] = ring - 1                       # empty unions
     i2[:, 64:96] = ring - 2
-    i1, i2 = i1.to(dev), i2.to(dev)
-    got = ops.jaccard_popcount(pk, i1, i2)
-    want = jac_k.plain(pk, i1, i2)
-    torch.cuda.synchronize()
-    _need(torch.equal(got, want), "jaccard_popcount differs from plain")
-    _need(bool((got[:, 64:96] == 0).all()), "empty union must score 0")
-    rows = torch.unique(torch.cat([
-        (torch.arange(N_STATIONS, device=dev)[:, None] * ring + i).reshape(-1)
-        for i in (i1, i2)])).numel()
-    bound, by = _bound_ms(4 * (rows * words + 3 * N_STATIONS * m),
-                          6 * N_STATIONS * m * words)
-    out.append({"name": "jaccard_popcount", "route": "cuda",
-                "source": "src/repro_torch/csrc/jaccard_popcount.cu",
-                "replaces": "src/repro/kernels/jaccard_popcount.py:32",
-                "shape": [N_STATIONS, m, words], "max_abs_err": 0,
-                "ms": _time_ms(lambda: ops.jaccard_popcount(pk, i1, i2)),
-                "plain_ms": _time_ms(lambda: jac_k.plain(pk, i1, i2)),
-                "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for ids in (i1, i2):                          # ids as the stream has them
+        ids += ring * torch.randint(-1, 3, (N_STATIONS, m), generator=g)
+    jac = {"blk": blk.cpu(), "ring": ring, "i1": i1.to(torch.int32),
+           "i2": i2.to(torch.int32)}
+    entry = {"name": "jaccard_popcount", "route": "cuda",
+             "source": "src/repro_torch/csrc/jaccard_popcount.cu",
+             "replaces": "src/repro/kernels/jaccard_popcount.py:32",
+             "shape": [N_STATIONS, m, words], "max_abs_err": 0,
+             "library_ms": None, "plans": {}}
+    valid = torch.ones((N_STATIONS, m), dtype=torch.bool)
+    case = jaccard_case("all_valid", jac, valid, dev, entry)
+    entry.update({"ms": case["warm_ms"], "cold_ms": case["cold_ms"],
+                  "plain_ms": case["plain_ms"],
+                  "bound_ms": case["bound_ms"], "bound_by": case["bound_by"]})
+    out.append(entry)
+    return out, jac
+
+
+def _jaccard_ring(jac: dict, dev):
+    """The paper replay's packed ring for 4 stations at the paper widths
+    (one block's rows repeated over the whole trace, the last two rows
+    empty), and a copy of it that starts 4 bytes off 16 (the scalar
+    plan's input)."""
+    import torch
+    blk, ring = jac["blk"].to(dev), jac["ring"]
+    per = blk.shape[1]
+    pk = blk.repeat(1, -(-ring // per), 1)[:, :ring].contiguous()
+    pk[:, ring - 2:] = 0
+    flat = torch.empty(pk.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(pk.shape)
+    off.copy_(pk)
+    return pk, off
+
+
+def jaccard_case(label: str, jac: dict, valid, dev, entry: dict) -> dict:
+    """``jaccard_popcount`` at one shape of the replay's verify: the
+    slots' ids of ``jac``, valid where ``valid`` says (garbage ids
+    elsewhere, never read). Both plans (16-byte loads on the aligned
+    ring, 4-byte words on the copy off 16 bytes) bit-exact against the
+    plain version; each timed warm (the same call repeated) and cold (an
+    L2 flush before each call); the bound counts the rows of the valid
+    pairs once, the flags, the valid slots' ids and the scores, and 2
+    POPC a word of each valid pair at ``POPC_OPS_PER_S``. Prints a
+    ``jaccard_popcount_rate`` line and records each plan in ``entry``."""
+    import torch
+    from repro_torch.kernels import jaccard_popcount as jac_k
+    from repro_torch.kernels import ops
+    pk, off = _jaccard_ring(jac, dev)
+    s, ring, words = pk.shape
+    g = torch.Generator(device="cpu").manual_seed(1)
+    junk = torch.randint(-2**31, 2**31 - 1, (2, *valid.shape), generator=g,
+                         dtype=torch.int32)
+    i1 = torch.where(valid, jac["i1"], junk[0]).to(dev)
+    i2 = torch.where(valid, jac["i2"], junk[1]).to(dev)
+    valid = valid.to(dev)
+    want = jac_k.plain(pk, i1, i2, valid)
+    live = int(valid.sum())
+    st = torch.arange(s, device=dev)[:, None].expand_as(valid)[valid]
+    rows = torch.unique(torch.cat([st * ring + (i[valid] % ring)
+                                   for i in (i1, i2)])).numel()
+    bound, by = _bound_ms(rows * words * 4 + valid.numel() * 5 + 8 * live,
+                          2 * live * words, POPC_OPS_PER_S)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {"case": label, "shape": [s, valid.shape[1], words],
+           "valid_pairs": live, "distinct_rows": rows, "bound_ms": bound,
+           "bound_by": by, "popc_ops_per_s": POPC_OPS_PER_S}
+    for name, ring_t in (("vector", pk), ("scalar", off)):
+        p = jac_k.plan(words, ring_t.data_ptr())
+        _need(p.vector == (name == "vector"),
+              f"jaccard_popcount ({label}): the {name} plan did not run")
+        got = ops.jaccard_popcount(ring_t, i1, i2, valid)
+        torch.cuda.synchronize()
+        _need(torch.equal(got, want),
+              f"jaccard_popcount ({label}, {name} plan) differs from plain")
+        call = (lambda r=ring_t: ops.jaccard_popcount(r, i1, i2, valid))
+        warm, cold = _time_ms(call), _time_ms(call, flush=flush)
+        row_bytes = 2 * live * words * 4
+        out[name] = {"plan": dataclasses.asdict(p), "warm_ms": warm,
+                     "cold_ms": cold, "warm_gb_s": row_bytes / warm * 1e-6,
+                     "cold_gb_s": row_bytes / cold * 1e-6}
+        entry["plans"][f"{label}_{name}"] = {**out[name]["plan"],
+                                            "warm_ms": warm, "cold_ms": cold}
+    _need(bool((want[~valid] == 0).all()), "invalid slots must score 0")
+    out["warm_ms"], out["cold_ms"] = (out["vector"]["warm_ms"],
+                                      out["vector"]["cold_ms"])
+    if label == "all_valid":
+        _need(bool((want[:, 64:96] == 0).all()), "empty union must score 0")
+        out["plain_ms"] = _time_ms(lambda: jac_k.plain(pk, i1, i2, valid))
+    print("jaccard_popcount_rate", json.dumps(out), flush=True)
+    del flush
+    return out
+
+
+def jaccard_replay_phase(jac: dict, emitted: list, dev,
+                         entry: dict) -> dict:
+    """``jaccard_popcount`` at the replay's real shape: 4 × 4096 slots a
+    block, station s valid on a prefix as long as its pairs emitted over
+    the whole paper replay (capped at 4096; no block can hold more)."""
+    import torch
+    m = jac["i1"].shape[1]
+    valid = (torch.arange(m)[None, :]
+             < torch.tensor([min(e, m) for e in emitted])[:, None])
+    out = jaccard_case("replay", jac, valid, dev, entry)
+    out["pairs_emitted_per_station"] = emitted
+    entry["replay"] = {k: out[k] for k in (
+        "valid_pairs", "warm_ms", "cold_ms", "bound_ms", "bound_by")}
     return out
 
 
@@ -562,6 +675,9 @@ def paper_phase(ds, n_fp: int, dev) -> dict:
         "drops": stats["drops"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
+        "pairs_emitted_per_station": [
+            stats[f"station{st}_qc"]["pairs_emitted"]
+            for st in range(ds.waveforms.shape[0])],
     }
     print("paper", json.dumps(out), flush=True)
     for name in BATCH_KERNELS:
@@ -1184,10 +1300,14 @@ def main() -> int:
         ds.waveforms.shape[1])
     report["synth_s"] = time.perf_counter() - t0
 
-    kernels = kernel_phase(ds, n_fp, dev)
+    kernels, jac = kernel_phase(ds, n_fp, dev)
     report["golden"] = golden_phase(dev)
     report["paper_parity"] = paper_parity_phase(dev)
     report["paper"] = paper_phase(ds, n_fp, dev)
+    report["jaccard_replay"] = jaccard_replay_phase(
+        jac, report["paper"]["pairs_emitted_per_station"], dev,
+        next(k for k in kernels if k["name"] == "jaccard_popcount"))
+    del jac
     report["offline_golden"] = offline_golden_phase(dev)
     report["offline_parity"] = offline_parity_phase(dev)
     report["offline_paper"], packed0 = offline_paper_phase(ds, n_fp, dev)

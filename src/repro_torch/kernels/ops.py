@@ -162,25 +162,35 @@ def minmax_sig_buckets(packed: torch.Tensor, mappings: torch.Tensor,
     return sig, bkt
 
 
-def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor,
-                     i2: torch.Tensor) -> torch.Tensor:
-    """Exact Jaccard of ring rows ``pk[s, i1[s, m]]`` and ``pk[s, i2[s, m]]``.
+def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact Jaccard of ring rows ``pk[s, i1[s, m] % P]`` and
+    ``pk[s, i2[s, m] % P]`` (Python's modulo, so negative ids wrap too).
 
-    pk (S, P, W) int32 packed words; i1/i2 (S, M) integer ring slots, each
-    in [0, P) (callers reduce ids modulo the ring) → (S, M) fp32.
+    pk (S, P, W) int32 packed words; i1/i2 (S, M) int32 ids, not reduced;
+    valid (S, M) bool or None (all valid) → (S, M) fp32, 0 where the union
+    is empty and where the slot is not valid (its ids may hold anything
+    and neither row is read). One launch on the card, no host sync.
     """
     name = "jaccard_popcount"
     _typed(name, pk, torch.int32, 3, "pk")
-    _require(i1.shape == i2.shape and i1.dim() == 2
-             and i1.shape[0] == pk.shape[0], name,
+    _typed(name, i1, torch.int32, 2, "i1")
+    _typed(name, i2, torch.int32, 2, "i2")
+    _require(i1.shape == i2.shape and i1.shape[0] == pk.shape[0], name,
              "i1/i2 must both be (S, M) with S = pk.shape[0]")
-    if not _on_cuda(name, pk, i1, i2):
-        return _jac.plain(pk, i1, i2)
-    i1 = i1.to(torch.int32).contiguous()
-    i2 = i2.to(torch.int32).contiguous()
+    _require(pk.shape[1] > 0 or i1.numel() == 0, name,
+             "pk must hold at least one ring row")
+    tensors = (pk, i1, i2)
+    if valid is not None:
+        _typed(name, valid, torch.bool, 2, "valid")
+        _require(valid.shape == i1.shape, name, "valid must be (S, M)")
+        tensors += (valid,)
+    if not _on_cuda(name, *tensors):
+        return _jac.plain(pk, i1, i2, valid)
     out = torch.empty(i1.shape, dtype=torch.float32, device=pk.device)
-    _jac.launch(pk, i1, i2, out)
-    LAUNCHES[name] += 1
+    if out.numel():
+        _jac.launch(pk, i1, i2, valid, out)
+        LAUNCHES[name] += 1
     return out
 
 

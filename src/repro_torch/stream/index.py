@@ -327,15 +327,11 @@ def compact_pairs(pairs: Pairs, max_pairs: int
 
 
 def verify_pairs(state: IndexState, pairs: Pairs) -> torch.Tensor:
-    """Exact Jaccard of compacted candidates from the packed ring, through
-    ``kernels.ops.jaccard_popcount`` (the ring gathers are fused into the
-    kernel). Invalid rows score 0."""
-    ring = state.pk.shape[1]
-    zero = torch.zeros_like(pairs.idx1)
-    i1 = torch.where(pairs.valid, pairs.idx1, zero) % ring
-    i2 = torch.where(pairs.valid, pairs.idx2, zero) % ring
-    jac = ops.jaccard_popcount(state.pk, i1, i2)
-    return torch.where(pairs.valid, jac, torch.zeros_like(jac))
+    """Exact Jaccard of compacted candidates from the packed ring, in one
+    ``kernels.ops.jaccard_popcount`` call (the valid mask, the ring modulo
+    and the gathers are fused into the kernel). Invalid rows score 0."""
+    return ops.jaccard_popcount(state.pk, pairs.idx1, pairs.idx2,
+                                pairs.valid)
 
 
 def guarded_step(state: IndexState, sigs: torch.Tensor, buckets: torch.Tensor,
@@ -408,8 +404,10 @@ def guarded_step(state: IndexState, sigs: torch.Tensor, buckets: torch.Tensor,
     qc_overflow = zero
     if max_pairs > 0:
         pairs, qc_overflow = compact_pairs(pairs, max_pairs)
-        jac = torch.zeros(pairs.valid.shape, dtype=torch.float32, device=dev)
-        if verify > 0:
+        if verify == 0:
+            jac = torch.zeros(pairs.valid.shape, dtype=torch.float32,
+                              device=dev)
+        else:
             jac = verify_pairs(state, pairs)
             if min_jac > 0.0:
                 floor = torch.tensor(min_jac, dtype=torch.float32, device=dev)

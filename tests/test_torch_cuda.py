@@ -269,19 +269,128 @@ def test_minmax_no_rows(cuda, monkeypatch, min_plane):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("s,ring,words,m", [(1, 17, 3, 29), (4, 500, 256,
-                                                             4096)])
-def test_jaccard_popcount_kernel(cuda, s, ring, words, m):
-    rng = np.random.default_rng(3)
-    pk = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (s, ring, words),
-                                       dtype=np.int32)).to(cuda)
+JAC_WIDTHS = (1, 3, 4, 32, 33, 255, 256, 257, 512)
+JAC_PATTERNS = ("all", "none", "prefix", "scattered")
+
+
+def _jaccard_inputs(w: int, m: int, pattern: str, s: int = 2,
+                    ring: int = 300):
+    """A seeded (s, ring, w) ring (the last two rows of each station empty)
+    and (s, m) slots: valid ids not reduced modulo the ring (negative ones
+    too), an empty union and a row with itself among them, and garbage
+    ids in the invalid slots."""
+    rng = np.random.default_rng(7 * w + m)
+    pk = (rng.integers(0, 2**32, (s, ring, w), dtype=np.uint32)
+          & rng.integers(0, 2**32, (s, ring, w), dtype=np.uint32))
     pk[:, -2:] = 0
-    i1 = torch.from_numpy(rng.integers(0, ring, (s, m))).to(cuda)
-    i2 = torch.from_numpy(rng.integers(0, ring, (s, m))).to(cuda)
-    i1[:, 0], i2[:, 0] = ring - 1, ring - 2          # empty union
-    got = ops.jaccard_popcount(pk, i1, i2)
-    assert torch.equal(got, ref.jaccard_popcount(pk, i1, i2))
-    assert float(got[0, 0]) == 0.0
+    i1 = rng.integers(-2 * ring, 5 * ring, (s, m)).astype(np.int32)
+    i2 = rng.integers(-2 * ring, 5 * ring, (s, m)).astype(np.int32)
+    if m:
+        i1[:, 0], i2[:, 0] = ring - 1, 2 * ring - 2
+        i1[:, m // 2], i2[:, m // 2] = 7 + ring, 7 - 2 * ring
+    valid = {"all": np.ones((s, m), bool), "none": np.zeros((s, m), bool),
+             "prefix": np.arange(m)[None, :] < (m * np.arange(1, s + 1)
+                                                 // (s + 1))[:, None],
+             "scattered": rng.random((s, m)) < 0.4}[pattern]
+    junk = rng.integers(-2**31, 2**31 - 1, (2, s, m)).astype(np.int32)
+    i1, i2 = np.where(valid, i1, junk[0]), np.where(valid, i2, junk[1])
+    return (torch.from_numpy(pk.view(np.int32)),
+            *(torch.from_numpy(np.ascontiguousarray(a))
+              for a in (i1, i2, valid)))
+
+
+@pytest.mark.parametrize("pattern", JAC_PATTERNS)
+@pytest.mark.parametrize("m", [0, 1, 33, 4096, 20000])
+@pytest.mark.parametrize("w", JAC_WIDTHS)
+def test_jaccard_popcount_kernel(cuda, w, m, pattern):
+    """Both plans (16-byte loads where W % 4 == 0, else 4-byte words)
+    against the plain version, bit for bit; one launch where there are
+    slots, none where there are not."""
+    pk, i1, i2, valid = (t.to(cuda) for t in _jaccard_inputs(w, m, pattern))
+    ops.reset_launches()
+    got = ops.jaccard_popcount(pk, i1, i2, valid)
+    assert ops.LAUNCHES["jaccard_popcount"] == (1 if m else 0)
+    want = ref.jaccard_popcount(pk, i1, i2, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if m > 1 and pattern == "all":
+        assert float(got[0, 0]) == 0.0 and float(got[0, m // 2]) == 1.0
+        assert torch.equal(ops.jaccard_popcount(pk, i1, i2), got)
+
+
+@pytest.mark.parametrize("w", [4, 32, 255, 256, 257, 512])
+def test_jaccard_popcount_unaligned_ring_takes_scalar_plan(cuda, w):
+    """A ring view off 16 bytes takes the 4-byte plan and gives the
+    16-byte plan's (or the plain version's) result bit for bit."""
+    from repro_torch.kernels import jaccard_popcount as jac_k
+    pk, i1, i2, valid = (t.to(cuda) for t in _jaccard_inputs(
+        w, 4096, "scattered"))
+    flat = torch.empty(pk.numel() + 1, dtype=torch.int32, device=cuda)
+    view = flat[1:].view(pk.shape)
+    view.copy_(pk)
+    assert view.data_ptr() % 16 != 0 and not jac_k.plan(
+        w, view.data_ptr()).vector
+    got = ops.jaccard_popcount(view, i1, i2, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.jaccard_popcount(pk, i1, i2, valid))
+    assert torch.equal(got, ref.jaccard_popcount(pk, i1, i2, valid))
+
+
+@pytest.mark.parametrize("w", [33, 256])
+def test_jaccard_popcount_several_passes(cuda, w):
+    """300,000 slots take more than one pass of the persistent grid: a
+    warp takes at most 32 slots a pass, and the H100 holds at most
+    132 x 64 warps (8,448 x 32 < 300,000)."""
+    pk, i1, i2, valid = (t.to(cuda) for t in _jaccard_inputs(
+        w, 300_000, "scattered", s=1))
+    got = ops.jaccard_popcount(pk, i1, i2, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.jaccard_popcount(pk, i1, i2, valid))
+
+
+@pytest.mark.parametrize("caller", ["verify_pairs", "verify_jaccard"])
+def test_verify_is_one_launch_without_host_sync(cuda, caller):
+    """The stream verify and the offline verify each run one kernel on
+    the card (the profiler's device events) and never make the host wait
+    (sync debug mode "error" raises on any synchronising call)."""
+    import types
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import lsh
+    from repro_torch.stream import index as tidx
+    pk, i1, i2, valid = (t.to(cuda) for t in _jaccard_inputs(
+        256, 4096, "prefix", s=4 if caller == "verify_pairs" else 1))
+    if caller == "verify_pairs":
+        state = types.SimpleNamespace(pk=pk)
+        pairs = lsh.Pairs(i1, i2, torch.zeros_like(i1), valid)
+
+        def call():
+            return tidx.verify_pairs(state, pairs)
+    else:
+        packed = pk[0]
+        pairs = lsh.Pairs(torch.where(valid[0], i1[0] % pk.shape[1], i1[0]),
+                          i2[0] % pk.shape[1], torch.zeros_like(i1[0]),
+                          valid[0])
+
+        def call():
+            return lsh.verify_jaccard(packed, pairs)
+    want = call()                                 # builds and loads the kernel
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["jaccard_popcount"] == 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "jaccard_popcount" in kernels[0], kernels
+    assert torch.equal(got, want)
 
 
 def test_batch_golden_on_the_card(cuda):

@@ -121,7 +121,7 @@ def _wrapper_inputs(rng):
                                              dtype=np.int32))
     salts = torch.from_numpy(np.array(j_bucket_salts(4, 3)).view(np.int32))
     pk = tu.pack_bits(bits)[None]
-    idx = torch.from_numpy(rng.integers(0, 6, (1, 10)))
+    idx = torch.from_numpy(rng.integers(0, 6, (1, 10)).astype(np.int32))
     q = torch.from_numpy(rng.standard_normal((1, 4, 9, 32))
                          .astype(np.float32))
     kv = torch.from_numpy(rng.standard_normal((1, 2, 9, 32))

@@ -1,5 +1,6 @@
-// Rate probes for the Min-Max kernels' resources: 32-bit integer min/max
-// (IMNMX), the three-input DPX min/max, 16-byte shared-memory loads of one
+// Rate probes for the Min-Max and Jaccard kernels' resources: 32-bit
+// integer min/max (IMNMX), the three-input DPX min/max, population counts
+// (POPC), 16-byte shared-memory loads of one
 // contiguous 512-byte row a warp, and the L2 gather of a CTA-a-row walk
 // over a mapping table (each thread one column, one 4-byte load a set
 // bit). Every kernel writes thread 0 of block 0's clock64() span to
@@ -45,6 +46,26 @@ __global__ void minmax_probe(int* out, long long* cycles, int iters, int s) {
   int t = 0;
 #pragma unroll
   for (int k = 0; k < kAcc; ++k) t ^= lo[k] ^ hi[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = t;
+  if (blockIdx.x == 0 && threadIdx.x == 0) cycles[0] = clock64() - t0;
+}
+
+// 16 independent population counts (POPC) a thread an iteration, each
+// feeding the next of its chain (x += popc(x): one POPC and one IADD a
+// count, so the compiler can neither fold nor hoist them): the rate the
+// Jaccard kernel's two counts a word rest on.
+__global__ void popc_probe(int* out, long long* cycles, int iters, int s) {
+  const long long t0 = clock64();
+  int x[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) x[k] = s * (threadIdx.x + 7 * k) ^ k;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) x[k] += __popc(x[k]);
+  }
+  int t = 0;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) t ^= x[k];
   out[blockIdx.x * blockDim.x + threadIdx.x] = t;
   if (blockIdx.x == 0 && threadIdx.x == 0) cycles[0] = clock64() - t0;
 }
@@ -114,6 +135,13 @@ extern "C" int minmax_probe_launch(int* out, long long* cycles, int kind,
     minmax_probe<false><<<blocks, threads, 0, st>>>(out, cycles, iters, 3);
   else
     minmax_probe<true><<<blocks, threads, 0, st>>>(out, cycles, iters, 3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int popc_probe_launch(int* out, long long* cycles, int blocks,
+                                 int threads, int iters, void* stream) {
+  popc_probe<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, cycles,
+                                                           iters, 3);
   return (int)cudaGetLastError();
 }
 

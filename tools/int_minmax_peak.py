@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Measure the rates the Min-Max kernels rest on.
+"""Measure the rates the Min-Max and Jaccard kernels rest on.
 
     python3 tools/int_minmax_peak.py
 
 Builds ``tools/int_minmax_peak.cu`` with the port's ``nvcc`` flags and
-times four probes, CUDA-event medians as ``tools/kernel_ab.py`` takes
+times five probes, CUDA-event medians as ``tools/kernel_ab.py`` takes
 them (1, 2 or 4 CTAs of 256 threads an SM; the gather 432 or 4,320
 rows):
 
@@ -12,6 +12,10 @@ rows):
   independent accumulator pairs a thread); counts one comparison a result.
 - ``dpx``: ``__vimin3_s32``/``__vimax3_s32``; counts two comparisons a
   result.
+- ``popc``: 32-bit population counts (``__popc``) of registers, 16
+  independent chains a thread, each count added into the next one's
+  operand (one POPC and one IADD a count); the rate behind
+  ``chip_smoke.py``'s ``POPC_OPS_PER_S``; counts one a result.
 - ``lds128``: a warp loads one contiguous 512-byte shared-memory row (16
   bytes a lane), 8 loads in flight; bytes a clock an SM.
 - ``l2_gather``: the row kernel's access pattern, a CTA a row, thread h
@@ -24,10 +28,11 @@ the card keeps resident (``cudaOccupancyMaxActiveClusters``) at 512
 threads and 164,352 or 73,728 bytes of shared memory a CTA (one or three
 CTAs an SM).
 
-Each rate line gives the comparisons (or bytes) a second over the card's SMs,
-the SM clock (thread 0 of block 0's ``clock64`` span over the event
-time, at one CTA an SM; the other cases take the clock of the last such
-probe) and the rate a clock an SM. Needs a CUDA card.
+Each rate line gives the comparisons (or counts, or bytes) a second
+over the card's SMs, the SM clock (thread 0 of block 0's ``clock64``
+span over the event time, at one CTA an SM; the other cases take the
+clock of the last such probe) and the rate a clock an SM. Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ def main() -> int:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, types in (("minmax_probe_launch", [vp, vp] + [ci] * 4 + [vp]),
                         ("lds128_probe_launch", [vp, vp] + [ci] * 3 + [vp]),
+                        ("popc_probe_launch", [vp, vp] + [ci] * 3 + [vp]),
                         ("gather_probe_launch",
                          [vp] + [ci] * 4 + [vp, vp, vp])):
         getattr(lib, name).restype = ci
@@ -90,6 +96,12 @@ def main() -> int:
                 out.data_ptr(), cycles.data_ptr(), kind, blocks, threads,
                 iters, stream), results * per_result, "compares",
                 per_sm == 1, blocks=blocks)
+    for per_sm in (1, 2, 4):
+        blocks = per_sm * sms
+        report("popc", lambda: lib.popc_probe_launch(
+            out.data_ptr(), cycles.data_ptr(), blocks, threads, iters,
+            stream), 16 * iters * blocks * threads, "popc", per_sm == 1,
+            blocks=blocks)
     for per_sm in (1, 2, 4):
         blocks = per_sm * sms
         loaded = 8 * 512 * iters * blocks * threads // 32

@@ -8,6 +8,7 @@ card: outputs compared element by element, times taken in turns.
     python3 tools/kernel_ab.py mamba_scan path/to/other.cu
     python3 tools/kernel_ab.py minmax_sig_buckets path/to/other_minmax_hash.cu
     python3 tools/kernel_ab.py minmax_hash path/to/other_minmax_hash.cu
+    python3 tools/kernel_ab.py jaccard_popcount path/to/other.cu
 
 The other source must export the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier commit's file, e.g. from
@@ -33,12 +34,28 @@ rows and the card tests' shapes, each on random bits at
 top_k / D = 400 / 8192 (5% elsewhere) with every 97th row empty. Both
 come from ``csrc/minmax_hash.cu``; a build of it without the tiled
 entry points (an earlier commit's) runs its row kernel at every shape.
+``jaccard_popcount`` at the paper replay's verify (4 stations × 4096
+slots × 256 words over a 43,184-row ring, i2 a row of one 256-row block
+and i1 any row before its end): all valid on both plans (the ring on 16
+bytes and a copy 4 bytes off), the replay's real valid prefixes, none
+valid, 40% scattered, and all valid with both rows anywhere in the ring;
+and at W = 32, 33 and 512, M = 1,
+33 and 20,000; ids not reduced modulo the ring, garbage ids in invalid
+slots; warm and behind a 128 MB L2 flush, the two builds called in
+turn within each of 200 iterations (``time_turns``), twice, in both
+orders. An other source whose entry
+point takes no valid mask (an earlier commit's, ids reduced by its
+caller) is called directly with ids masked and reduced before the
+timing, its scores masked after; ``other_chain_ms`` times its caller's
+whole chain (mask, modulo, kernel, mask: 8 launches) as
+``verify_pairs`` ran it.
 Prints one JSON line per shape and needs a CUDA card.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -60,6 +77,11 @@ def build(src: pathlib.Path) -> ctypes.CDLL:
                         str(src)], check=True, capture_output=True)
     return ctypes.CDLL(str(lib))
 
+
+# The replay's valid prefix a station (4 stations x 4096 slots): its pairs
+# emitted over chip_smoke.py's whole paper replay (its `paper` line,
+# `pairs_emitted_per_station`), more than any one block holds.
+REPLAY_PREFIX = (8, 39, 37, 13)
 
 # the source (and library) each kernel of the command line is built from
 SOURCE = {"minmax_sig_buckets": "minmax_hash"}
@@ -126,6 +148,37 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in pairs)
     return times[len(times) // 2]
+
+
+def time_turns(fns, iters: int = 200, warmup: int = 5,
+               flush=None) -> list[float]:
+    """CUDA-event medians of each of ``fns``, called in turn within each
+    iteration (each behind its own busy wait, and behind an L2 flush
+    with ``flush``), so that a drift of the card's clocks or of its
+    neighbours moves every one of them alike."""
+    import torch
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    events = [[] for _ in fns]
+    for _ in range(iters):
+        for fn, ev in zip(fns, events):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if flush is not None:
+                flush.zero_()
+            torch.cuda._sleep(200_000)
+            a.record()
+            fn()
+            b.record()
+            ev.append((a, b))
+    torch.cuda.synchronize()
+    out = []
+    for ev in events:
+        times = sorted(a.elapsed_time(b) for a, b in ev)
+        out.append(times[len(times) // 2])
+    return out
 
 
 def compare(name: str, other: ctypes.CDLL, label: str, fn, plain,
@@ -276,11 +329,144 @@ def minmax_raw_cases(dev):
                               dtype=torch.int32)))
 
 
+def jaccard_cases(dev):
+    """(label, pk, i1, i2, valid): the replay's verify shapes and the
+    card tests' edges (see the module's docstring)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def ring(s, p, w):
+        return torch.randint(-2**31, 2**31 - 1, (s, p, w), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def slots(s, m, p, pattern, block=None):
+        """Ids not reduced modulo p; with ``block`` (the first id of a
+        256-row block), i2 a row of that block and i1 any row before its
+        end, as the replay's verify draws them."""
+        def ids(lo, hi):
+            return (torch.randint(lo, hi, (s, m), generator=g, device=dev)
+                    + p * torch.randint(-1, 3, (s, m), generator=g,
+                                        device=dev)).to(torch.int32)
+        if block is None:
+            i1, i2 = ids(0, p), ids(0, p)
+        else:
+            i1, i2 = ids(0, block + 256), ids(block, block + 256)
+        pos = torch.arange(m, device=dev)[None, :]
+        if pattern == "all":
+            valid = torch.ones((s, m), dtype=torch.bool, device=dev)
+        elif pattern == "none":
+            valid = torch.zeros((s, m), dtype=torch.bool, device=dev)
+        elif pattern == "replay":
+            valid = pos < torch.tensor(REPLAY_PREFIX, device=dev)[:s, None]
+        else:
+            valid = torch.rand((s, m), generator=g, device=dev) < 0.4
+        junk = torch.randint(-2**31, 2**31 - 1, (2, s, m), generator=g,
+                             device=dev, dtype=torch.int32)
+        return (torch.where(valid, i1, junk[0]),
+                torch.where(valid, i2, junk[1]), valid)
+
+    paper, block = ring(4, 43184, 256), 21504
+    for pattern in ("all", "replay", "none", "scattered"):
+        yield (f"4x4096x256_{pattern}", paper,
+               *slots(4, 4096, 43184, pattern, block))
+    flat = torch.empty(paper.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(paper.shape)
+    off.copy_(paper)
+    yield ("4x4096x256_all_scalar_plan", off,
+           *slots(4, 4096, 43184, "all", block))
+    yield "4x4096x256_all_random_rows", paper, *slots(4, 4096, 43184, "all")
+    del paper, off, flat
+    for s, p, w, m, pattern in ((4, 5000, 32, 4096, "all"),
+                                (2, 300, 33, 33, "scattered"),
+                                (1, 300, 256, 1, "all"),
+                                (1, 5000, 256, 20000, "all"),
+                                (2, 3000, 512, 4096, "scattered")):
+        yield (f"{s}x{m}x{w}_{pattern}", ring(s, p, w),
+               *slots(s, m, p, pattern))
+
+
+def _takes_valid(src: pathlib.Path) -> bool:
+    """Whether a jaccard_popcount source's entry point takes the valid
+    mask (the tree's interface) or not (an earlier commit's)."""
+    text = src.read_text()
+    head = text[text.index('extern "C" int jaccard_popcount_launch('):]
+    return "valid" in head[:head.index(")")]
+
+
+def jaccard_compare(other: ctypes.CDLL, new_api: bool, label: str, pk, i1,
+                    i2, valid) -> dict:
+    """The tree's ``ops.jaccard_popcount`` against the other build: bit
+    equality, warm and cold times in turns (other, tree, tree, other)."""
+    import torch
+    from repro_torch.kernels import jaccard_popcount as jac_k
+    from repro_torch.kernels import ops
+    s, p, w = pk.shape
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=pk.device)
+
+    def tree():
+        return ops.jaccard_popcount(pk, i1, i2, valid)
+
+    if new_api:
+        def other_fn():
+            with swapped("jaccard_popcount", other):
+                return tree()
+        chain = None
+    else:
+        fn = other.jaccard_popcount_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        r1 = (torch.where(valid, i1, 0) % p).contiguous()
+        r2 = (torch.where(valid, i2, 0) % p).contiguous()
+        buf = torch.empty(i1.shape, dtype=torch.float32, device=pk.device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch_old(a, b, out):
+            if out.numel():
+                rc = fn(pk.data_ptr(), s, p, w, a.data_ptr(), b.data_ptr(),
+                        i1.shape[1], out.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"other build: cudaError {rc}")
+            return out
+
+        def other_fn():
+            return launch_old(r1, r2, buf)
+
+        def chain():
+            zero = torch.zeros_like(i1)
+            a = torch.where(valid, i1, zero) % p
+            b = torch.where(valid, i2, zero) % p
+            jac = launch_old(a, b, torch.empty(i1.shape, dtype=torch.float32,
+                                               device=pk.device))
+            return torch.where(valid, jac, torch.zeros_like(jac))
+
+    got = tree()
+    theirs = other_fn().clone()
+    if not new_api:
+        theirs = torch.where(valid, theirs, 0.0)
+    plain = jac_k.plain(pk, i1, i2, valid)
+    torch.cuda.synchronize()
+    row = {"kernel": "jaccard_popcount", "case": label,
+           "plan": dataclasses.asdict(jac_k.plan(w, pk.data_ptr())),
+           "valid_pairs": int(valid.sum()),
+           "bit_equal": bool(torch.equal(got, theirs)),
+           "equal_plain": bool(torch.equal(got, plain)),
+           "max_abs_diff": float((got - theirs).abs().max())
+           if got.numel() else 0.0}
+    for cold in ("", "_cold"):
+        o1, t1 = time_turns((other_fn, tree), flush=flush if cold else None)
+        t2, o2 = time_turns((tree, other_fn), flush=flush if cold else None)
+        row[f"tree{cold}_ms"], row[f"other{cold}_ms"] = [t1, t2], [o1, o2]
+    if chain is not None:
+        row["other_chain_ms"] = time_ms(chain)
+    return row
+
+
 def main(argv: list[str]) -> int:
     import torch
     if len(argv) != 2 or argv[0] not in (
             "stft_mag", "flash_attention", "haar2d", "mamba_scan",
-            "minmax_sig_buckets", "minmax_hash"):
+            "minmax_sig_buckets", "minmax_hash", "jaccard_popcount"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -295,7 +481,12 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     name, other = argv[0], build(pathlib.Path(argv[1]).resolve())
     dev = torch.device("cuda", 0)
-    if name == "stft_mag":
+    if name == "jaccard_popcount":
+        new_api = _takes_valid(pathlib.Path(argv[1]))
+        for label, *args in jaccard_cases(dev):
+            print(json.dumps(jaccard_compare(other, new_api, label, *args)),
+                  flush=True)
+    elif name == "stft_mag":
         for label, args in stft_cases(dev):
             print(json.dumps(compare(name, other, label,
                                      lambda: ops.stft_mag(*args),

@@ -17,15 +17,21 @@ are built at once with the port's ``nvcc`` flags into
 ``build/kernel_variants/`` (each build's registers and stack are printed),
 then for each case every variant is swapped in behind the port's wrapper
 and compared with the other build: bit equality of the whole output
-(``haar2d``) or of ``h_final`` (``mamba_scan``), and two CUDA-event
-medians as ``tools/kernel_ab.py`` takes them. A variant may compute a
+(``haar2d``) or of ``h_final`` (``mamba_scan``), and CUDA-event medians
+of the variant and the other build called in turn within each of 200
+iterations (``tools/kernel_ab.py``'s ``time_turns``; ``ratio``: the
+variant's over the other's). A variant may compute a
 wrong result on purpose (a loop cut out, say) to time what is left.
 Cases: ``haar2d`` at the paper block (1024 × 32 × 128), 64 × 16 × 32 and
 3 × 64 × 256; ``mamba_scan`` at falcon-mamba-7b's prefill, fp32 and bf16;
 ``minmax_hash`` (the source of both Min-Max kernels) ``minmax_sig_buckets``
 at the paper block and at 256–768 rows, ``minmax_hash`` at a station-day,
 H = 400 and 800, and at 256–768 rows (``tools/kernel_ab.py``'s inputs;
-every output compared).
+every output compared); ``jaccard_popcount`` at the replay's verify (4 ×
+4096 slots × 256 words: all valid, the replay's valid prefixes, all
+valid on the scalar plan) and at 20,000 slots, each also behind a 128 MB
+L2 flush (``ms_cold``); its other build must take the tree's entry
+point (e.g. the tree's own source copied into ``OTHER_DIR``).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -46,6 +52,9 @@ HAAR_CASES = ("1024x32x128", "64x16x32", "3x64x256")
 SCAN_CASES = ("1x2048x8192x16_float32", "1x2048x8192x16_bfloat16")
 MINMAX_SIG_CASES = ("1024x256x400_f4", "256x256x400_f4", "384x256x400_f4",
                     "512x256x400_f4", "768x256x400_f4")
+JACCARD_CASES = ("4x4096x256_all", "4x4096x256_replay",
+                 "4x4096x256_all_random_rows",
+                 "4x4096x256_all_scalar_plan", "1x20000x256_all")
 MINMAX_RAW_CASES = ("43184x256x400", "43184x256x800", "256x256x400",
                     "384x256x400", "512x256x400", "768x256x400",
                     "256x256x800")
@@ -132,24 +141,42 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    def run(kernel, label, fn, pick):
+    def run(kernel, label, fn, pick, flush=None):
+        """Each variant called in turn with the other build within each
+        iteration (``kernel_ab.time_turns``), and with ``flush`` also
+        behind an L2 flush; ``ratio`` is the variant's median over the
+        other's."""
         row = {"kernel": kernel, "case": label}
-        with ab.swapped(kernel, libs[(kernel, "other")]):
-            ref = pick(fn())
-            row["other_ms"] = ab.time_ms(fn)
+        other = libs[(kernel, "other")]
+
+        def with_lib(lib, name):
+            def call():
+                with ab.swapped(kernel, lib), plan_constants(
+                        kernel, spec[kernel].get(name, [])):
+                    return fn()
+            return call
+        ref = pick(with_lib(other, "other")())
         for (k, name), lib in libs.items():
             if k != kernel or name == "other":
                 continue
-            with ab.swapped(kernel, lib), plan_constants(kernel,
-                                                         spec[k][name]):
-                got = pick(fn())
-                row[name] = {"bit_equal": all(
-                    torch.equal(a, b) for a, b in zip(ref, got)),
-                             "ms": [ab.time_ms(fn) for _ in range(2)]}
-        with ab.swapped(kernel, libs[(kernel, "other")]):
-            row["other_ms_again"] = ab.time_ms(fn)
+            mine = with_lib(lib, name)
+            r = {"bit_equal": all(torch.equal(a, b)
+                                  for a, b in zip(ref, pick(mine())))}
+            for cold in ("", "_cold") if flush is not None else ("",):
+                o, v = ab.time_turns((with_lib(other, "other"), mine),
+                                     flush=flush if cold else None)
+                r.update({f"ms{cold}": v, f"other{cold}_ms": o,
+                          f"ratio{cold}": v / o})
+            row[name] = r
         print(json.dumps(row), flush=True)
 
+    if "jaccard_popcount" in spec:
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        for label, pk, i1, i2, valid in ab.jaccard_cases(dev):
+            if label in JACCARD_CASES:
+                run("jaccard_popcount", label,
+                    lambda: ops.jaccard_popcount(pk, i1, i2, valid),
+                    lambda o: (o,), flush)
     if "haar2d" in spec:
         for label, imgs in ab.haar_cases(dev):
             if label in HAAR_CASES:
