@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's batch FAST detection, offline Min-Max LSH search
-and LM serving on one NVIDIA GPU, end to end.
+"""Run the PyTorch port's batch FAST detection, streaming detection,
+offline Min-Max LSH search and LM serving on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -45,27 +45,48 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    4 × 4096 slots, station s valid on a prefix as long as its pairs
    emitted over the whole replay (capped at 4096), garbage ids behind
    it; both plans bit-exact, warm and cold, with its own rate line.
-6. The offline golden: ``core.lsh.search`` on the card reproduces the 17
+6. The stream golden: ``StreamingDetector`` on the card runs the golden
+   test's four runs on ``tests/golden/stream_pairs.json``'s trace — two-pass
+   statistics (computed on the CPU), the deferred freeze and compact +
+   verify each reproduce ``stream_two_pass_pairs`` exactly with no
+   overflow; self-computed statistics give the port's CPU pair set — then
+   the bounded 3-station smoke stream (sliding window, rolling filter,
+   live association), whose alerts, detections and events must equal the
+   port's CPU path.
+7. The paper streaming service on phase 5's data: ``fast_seismic.config()``
+   with ``stream_config()``, 4 stations pooled, pushed in 60 s chunks
+   (``STREAM_CHUNK``, 1,440 pushes), statistics from the reservoir, launch
+   counters zeroed just before and read just after (each of the four
+   kernels at least once per pooled block): real-time factor,
+   fingerprints per second, push wall p50 / p99, the ``ingest``,
+   ``dup_hash`` (the sample-exact duplicate guard's hashing, host side),
+   ``fused_step`` and ``host_tail`` span totals, peak memory, per-station
+   pairs and events, alerts, detections and the drop breakdown.
+8. The same data in parity mode (``stream_config()`` with
+   ``filter_window_fingerprints=0``), given the statistics
+   ``detect_events`` computes: per-station post-filter pair triplets and
+   events equal ``detect_events``' on the same ``StreamConfig`` (one
+   detection core, two drivers; the stream takes the advance route).
+9. The offline golden: ``core.lsh.search`` on the card reproduces the 17
    ``offline_pairs`` of ``tests/golden/stream_pairs.json``, and
    ``data.dedup.find_duplicates`` on the card equals the port's CPU path.
-7. The offline search at the paper widths on the 20-minute trace of phase
-   4, card against the port's CPU path: packed fingerprints, pair arrays,
-   stats and Jaccard values equal.
-8. The offline search on phase 5's 4 stations × 24 h: per station
-   fingerprints, ``search`` and ``verify_jaccard`` of the valid pairs, and
-   ``partitioned_search`` (4 partitions) on station 0, with launch counters
-   zeroed just before and read just after (``minmax_hash`` at least once
-   per search, ``jaccard_popcount`` once per verify): stage wall
-   times, fingerprints per second, pairs before and after the filter,
-   ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
-9. ``minmax_hash`` against its plain version at station 0's shape (N =
-   43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
-   baseline's H = 800, bit-exact, timed and bounded, with a
-   ``minmax_hash_rate`` line for each; bit-exact also at the row kernel's
-   shapes of the offline path (the offline golden's station, D 1024,
-   H 40; corpus dedup's 24 × 1024 × 64).
-
-10. The LM kernels against their plain versions on the card, timed and
+10. The offline search at the paper widths on the 20-minute trace of phase
+    4, card against the port's CPU path: packed fingerprints, pair arrays,
+    stats and Jaccard values equal.
+11. The offline search on phase 5's 4 stations × 24 h: per station
+    fingerprints, ``search`` and ``verify_jaccard`` of the valid pairs, and
+    ``partitioned_search`` (4 partitions) on station 0, with launch counters
+    zeroed just before and read just after (``minmax_hash`` at least once
+    per search, ``jaccard_popcount`` once per verify): stage wall
+    times, fingerprints per second, pairs before and after the filter,
+    ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
+12. ``minmax_hash`` against its plain version at station 0's shape (N =
+    43,184 rows, 256 words, H = 400, some rows zeroed) and at the MinHash
+    baseline's H = 800, bit-exact, timed and bounded, with a
+    ``minmax_hash_rate`` line for each; bit-exact also at the row kernel's
+    shapes of the offline path (the offline golden's station, D 1024,
+    H 40; corpus dedup's 24 × 1024 × 64).
+13. The LM kernels against their plain versions on the card, timed and
     bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
     40 / 8 heads, 2048 × 2048, D = 128, bf16, causal), plus Sq < Sk, a
     ragged 1000 × 1000 and an fp32 case; ``mamba_scan`` at
@@ -77,11 +98,11 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     ``stft_mag``'s and ``haar2d``'s GFLOP/s (``stft_mag_rate``,
     ``haar2d_rate``). ``mamba_scan``'s bound counts its exponentials on
     the SFU (16 a clock an SM) beside its bytes and fp32 operations.
-11. LM parity: ``ServeEngine`` on the card against the port's CPU path on
+14. LM parity: ``ServeEngine`` on the card against the port's CPU path on
     the fp32 variants of the default smoke model and the qwen2.5-14b and
     falcon-mamba-7b smoke configs, same parameters, 4 requests: equal
     token lists, prefill logits within 1e-4·max|logit|.
-12. LM serving at full width: ``qwen25_14b.config()`` and
+15. LM serving at full width: ``qwen25_14b.config()`` and
     ``falcon_mamba_7b.config()`` with every width unchanged and
     ``n_layers`` cut to 4, bf16 parameters made on the card by
     ``init_params`` (seed 0), ``ServeEngine(n_slots=4, max_len=2560)``
@@ -97,12 +118,13 @@ device's busy and idle shares (``chiprun_out/profile.txt``).
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Every kernel's ``launches`` is read
-from the path that runs it: the paper replay (phase 5) for the four batch
-kernels, the offline search (phase 8) for ``minmax_hash``, the LM serve
-runs (phase 12) for ``flash_attention`` (qwen2.5-14b) and ``mamba_scan``
-(falcon-mamba-7b). Without CUDA
-it exits 2 and prints no
-result. Writes ``chiprun_out/chip_smoke.json`` with everything printed.
+from the path that runs it: the paper streaming service (phase 7) for the
+four kernels of the detection core, each with the batch replay's count
+(phase 5) beside it under ``launches_by_path``; the offline search (phase
+11) for ``minmax_hash``; the LM serve runs (phase 15) for
+``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b).
+Without CUDA it exits 2 and prints no result. Writes
+``chiprun_out/chip_smoke.json`` with everything printed.
 """
 from __future__ import annotations
 
@@ -144,6 +166,9 @@ RTOL = 1e-5
 PRIME_CYCLES = 1_000_000
 N_STATIONS = 4
 PAPER_HOURS = 24.0
+# samples a station a push of the paper stream: 60 s at 100 Hz, the
+# reorder horizon stream_config() is sized for (a live feed's packet span)
+STREAM_CHUNK = 6000
 # a short trace whose events the paper's 32 s fingerprints see; the same
 # as tests/test_torch_paper_widths.py
 PARITY_SYNTH = dict(duration_s=1200.0, n_stations=3, n_sources=2,
@@ -152,8 +177,10 @@ PARITY_SYNTH = dict(duration_s=1200.0, n_stations=3, n_sources=2,
 # the kernels of the batch replay; minmax_hash runs on the offline search
 BATCH_KERNELS = ("stft_mag", "haar2d", "minmax_sig_buckets",
                  "jaccard_popcount")
-# the path whose launch counts the kernels line reports, per kernel
-KERNEL_PATH = {**{k: ("paper",) for k in BATCH_KERNELS},
+# the path whose launch counts the kernels line reports, per kernel: the
+# streaming service for the four kernels of the detection core (each also
+# reports the batch replay's count under launches_by_path)
+KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
                "minmax_hash": ("offline_paper",),
                "flash_attention": ("lm_serve", "qwen2.5-14b"),
                "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
@@ -692,6 +719,217 @@ def paper_phase(ds, n_fp: int, dev) -> dict:
     _need(sum(stats[f"station{st}_pairs"] for st in range(len(events)))
           <= stats["drops"]["pairs_emitted"],
           "more post-filter pairs than the replay emitted")
+    return out
+
+
+def _stream_pairs(det, station: int = 0) -> set:
+    """One station's post-filter (idx1, idx2) pairs after a stream."""
+    _, pairs, _ = det.stations[station].finalize()
+    return {p[:2] for p in _triplets(pairs)}
+
+
+def _event_rows(ev) -> list:
+    from repro_torch.stream.engine import events_to_rows
+    return sorted(map(tuple, events_to_rows(ev).tolist()))
+
+
+def _stream_run(cfg, scfg, wf, pushes, dev, med_mad=None, n_stations=1):
+    """A detector on ``dev`` fed ``wf`` (T,) or (S, T) in ``pushes`` equal
+    chunks; returns the detector after its last push (not flushed)."""
+    import numpy as np
+    from repro_torch.stream import StreamingDetector
+    det = StreamingDetector(cfg, scfg, n_stations=n_stations,
+                            med_mad=med_mad, device=dev)
+    for chunk in np.array_split(wf, pushes, axis=-1):
+        det.push(chunk)
+    return det
+
+
+def stream_golden_phase(dev) -> dict:
+    """The stream golden on the card: the golden test's four runs on
+    ``tests/golden/stream_pairs.json``'s trace (two-pass statistics
+    computed on the CPU), then the bounded 3-station smoke stream, card
+    against the port's CPU path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import fast_seismic as fs
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core import fingerprint as fp_mod
+    from repro_torch.kernels import ops
+    gold = json.loads((ROOT / "tests" / "golden" / "stream_pairs.json")
+                      .read_text())
+    cfg = fs.smoke_config()
+    wf = make_dataset(SynthConfig(**gold["synth"])).waveforms[0]
+    two_pass = fp_mod.mad_stats(fp_mod.coeffs_from_waveform(
+        torch.as_tensor(wf), cfg.fingerprint), 1.0)
+    want = {tuple(p) for p in gold["stream_two_pass_pairs"]}
+    smoke = dataclasses.replace(fs.stream_smoke_config(), reservoir_rows=2048)
+    runs = {"two_pass": (smoke, two_pass), "self_stats": (smoke, None),
+            "deferred": (fs.stream_deferred_smoke_config(), None),
+            "compact_verify": (fs.stream_compact_smoke_config(), two_pass)}
+    out = {}
+    for name, (scfg, mm) in runs.items():
+        ops.reset_launches()
+        det = _stream_run(cfg, scfg, wf, gold["n_chunks"], dev, mm)
+        got = _stream_pairs(det)
+        out[name] = {"pairs": len(got), "launches": dict(ops.LAUNCHES),
+                     "drops": det.telemetry.drop_breakdown()}
+        if name == "self_stats":
+            cpu = _stream_pairs(_stream_run(cfg, scfg, wf, gold["n_chunks"],
+                                            "cpu"))
+            out[name]["equal_cpu"] = got == cpu
+            _need(got == cpu, "stream golden: self-stats pairs on the card "
+                  "differ from the CPU path's")
+        else:
+            out[name]["equal_golden"] = got == want
+            _need(got == want, f"stream golden: {name} pairs differ from "
+                  f"stream_two_pass_pairs: {sorted(got ^ want)}")
+        _need(out[name]["drops"]["overflow_pairs"] == 0,
+              f"stream golden: {name} overflowed its compaction")
+        _need(all(ops.LAUNCHES[k] > 0 for k in BATCH_KERNELS[:3]),
+              f"stream golden: {name} missed a kernel: {ops.LAUNCHES}")
+    _need(out["compact_verify"]["launches"]["jaccard_popcount"] > 0,
+          "stream golden: compact + verify never launched jaccard_popcount")
+    # bounded mode: sliding window + rolling filter + live association
+    ds = make_dataset(SynthConfig(duration_s=600.0, n_stations=3,
+                                  n_sources=2, events_per_source=5,
+                                  event_snr=3.0, seed=11))
+    bounded = []
+    for d in (dev, "cpu"):
+        det = _stream_run(cfg, fs.stream_bounded_smoke_config(),
+                          ds.waveforms, 10, d, n_stations=3)
+        dets, events, stats = det.finalize()
+        bounded.append({
+            "alerts": [a.tolist() for a in det.alerts],
+            "detections": {k: v.cpu().tolist() for k, v in dets.items()},
+            "events": [_event_rows(e) for e in events],
+            "n_detections": stats["detections"]})
+    out["bounded"] = {"alerts": sum(len(a) for a in bounded[0]["alerts"]),
+                      "detections": bounded[0]["n_detections"],
+                      "equal_cpu": bounded[0] == bounded[1]}
+    print("stream_golden", json.dumps(out), flush=True)
+    _need(out["bounded"]["equal_cpu"],
+          "bounded stream: alerts / detections on the card differ from the "
+          "CPU path's")
+    _need(out["bounded"]["alerts"] >= 1 and out["bounded"]["detections"] >= 1,
+          "bounded stream: no alert or no detection")
+    return out
+
+
+def stream_paper_phase(ds, dev) -> dict:
+    """The paper streaming service on phase 5's 4 stations × 24 h:
+    ``fast_seismic.config()`` with ``stream_config()``, pooled, pushed in
+    ``STREAM_CHUNK``-sample chunks, self-computed statistics, launch
+    counters zeroed just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.kernels import ops
+    from repro_torch.stream import StreamingDetector
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    fcfg = cfg.fingerprint
+    wave = ds.waveforms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    det = StreamingDetector(cfg, scfg, n_stations=wave.shape[0], device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walls = []
+    for a in range(0, wave.shape[1], STREAM_CHUNK):
+        t = time.perf_counter()
+        det.push(wave[:, a:a + STREAM_CHUNK])
+        walls.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    dets, events, stats = det.finalize()
+    finalize_s = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    blocks = det.stations[0].stats.blocks
+    n_fp = sum(stats[f"station{i}_fingerprints"]
+               for i in range(wave.shape[0]))
+    spans = det.telemetry.tracer.summary()
+    out = {
+        "stations": wave.shape[0], "hours": wave.shape[1] / fcfg.fs / 3600,
+        "chunk_samples": STREAM_CHUNK, "pushes": len(walls),
+        "blocks": blocks, "setup_s": setup_s, "wall_s": wall,
+        "finalize_s": finalize_s,
+        "real_time_factor": wave.shape[1] / fcfg.fs / wall,
+        "fingerprints_per_s": n_fp / wall,
+        "push_ms_p50": float(np.percentile(walls, 50)) * 1e3,
+        "push_ms_p99": float(np.percentile(walls, 99)) * 1e3,
+        "push_ms_max": max(walls) * 1e3,
+        "slowest_push": int(np.argmax(walls)),
+        "span_s": {k: spans.get(k, {"total_s": 0.0})["total_s"]
+                   for k in ("ingest", "dup_hash", "fused_step",
+                             "host_tail")},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "pairs_per_station": [stats[f"station{i}_pairs"]
+                              for i in range(wave.shape[0])],
+        "events_per_station": [stats[f"station{i}_events"]
+                               for i in range(wave.shape[0])],
+        "alerts": stats["alerts"], "detections": stats["detections"],
+        "drops": det.telemetry.drop_breakdown(),
+        "quality": stats["quality"],
+    }
+    print("stream_paper", json.dumps(out), flush=True)
+    for name in BATCH_KERNELS:
+        _need(launches[name] >= blocks,
+              f"stream: {name} launched {launches[name]} times, fewer than "
+              f"the {blocks} pooled blocks")
+    _need(out["drops"]["raw_collisions"] > 0,
+          "stream: the index search found no collisions at all")
+    _need(n_fp == wave.shape[0] * fcfg.n_fingerprints(wave.shape[1]),
+          f"stream: {n_fp} fingerprints, not every station's whole trace")
+    _need(all(dets[k].shape == dets["valid"].shape for k in dets),
+          "stream: detections columns differ in shape")
+    return out
+
+
+def stream_parity_phase(ds, dev) -> dict:
+    """The paper stream in parity mode (``stream_config()`` with
+    ``filter_window_fingerprints=0``), given the statistics
+    ``detect_events`` computes, against ``detect_events`` on the same
+    ``StreamConfig``: per-station post-filter pair triplets and events
+    equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import detect
+    cfg = fast_seismic.config()
+    scfg = dataclasses.replace(fast_seismic.stream_config(),
+                               filter_window_fingerprints=0)
+    wave = torch.as_tensor(ds.waveforms, device=dev)
+    meds, mads = detect.station_stats(wave, cfg.fingerprint)
+    del wave
+    t0 = time.perf_counter()
+    _, b_events, _, b_stats = detect.detect_events(
+        ds.waveforms, cfg, scfg=scfg, keep_pairs=True, device=dev)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det = _stream_run(cfg, scfg, ds.waveforms,
+                      -(-ds.waveforms.shape[1] // STREAM_CHUNK), dev,
+                      (torch.stack(meds), torch.stack(mads)),
+                      n_stations=ds.waveforms.shape[0])
+    det.flush()
+    stream_s = time.perf_counter() - t0
+    same_pairs, same_events, n_pairs = [], [], []
+    for i, st in enumerate(det.stations):
+        ev, pairs, _ = st.finalize()
+        got = _triplets(pairs)
+        same_pairs.append(got == _triplets(b_stats["_station_pairs"][i]))
+        same_events.append(_event_rows(ev) == _event_rows(b_events[i]))
+        n_pairs.append(len(got))
+    out = {"batch_s": batch_s, "stream_s": stream_s,
+           "pairs_per_station": n_pairs, "pairs_equal": same_pairs,
+           "events_equal": same_events,
+           "stream_blocks": det.stations[0].stats.blocks}
+    print("stream_parity", json.dumps(out), flush=True)
+    _need(all(same_pairs) and all(same_events),
+          "stream parity: the stream's pairs or events differ from "
+          "detect_events' on the same StreamConfig")
     return out
 
 
@@ -1308,6 +1546,9 @@ def main() -> int:
         jac, report["paper"]["pairs_emitted_per_station"], dev,
         next(k for k in kernels if k["name"] == "jaccard_popcount"))
     del jac
+    report["stream_golden"] = stream_golden_phase(dev)
+    report["stream_paper"] = stream_paper_phase(ds, dev)
+    report["stream_parity"] = stream_parity_phase(ds, dev)
     report["offline_golden"] = offline_golden_phase(dev)
     report["offline_parity"] = offline_parity_phase(dev)
     report["offline_paper"], packed0 = offline_paper_phase(ds, n_fp, dev)
@@ -1323,10 +1564,15 @@ def main() -> int:
         for key in KERNEL_PATH[k["name"]]:
             node = node[key]
         k["launches"] = node["launches"][k["name"]]
+        if k["name"] in BATCH_KERNELS:
+            k["launches_by_path"] = {
+                path: report[path]["launches"][k["name"]]
+                for path in ("paper", "stream_paper")}
     report["kernels"] = kernels
-    # the Min-Max kernels also carry the plan of each shape they ran at
+    # the Min-Max kernels also carry the plan of each shape they ran at,
+    # the detection core's kernels their launches on each driver's path
     line = [{**{key: k[key] for key in KERNEL_KEYS},
-             **({"plans": k["plans"]} if "plans" in k else {})}
+             **{x: k[x] for x in ("plans", "launches_by_path") if x in k}}
             for k in kernels]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(

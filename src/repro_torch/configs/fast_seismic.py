@@ -3,7 +3,9 @@
 Paper-faithful knobs: 100 Hz input, 8192-dim fingerprints (32×128 spectral
 images, 2-bit sign encoding), t=100 tables / k=8 funcs / m=2 matches (the
 optimized §6.3 setting), 1% occurrence filter, 3–20 Hz band. The values
-are those of ``repro.configs.fast_seismic``.
+are those of ``repro.configs.fast_seismic``, the streaming configs'
+(``stream_config`` and the five smoke variants) included; their comments
+are the reference's reasons for each value.
 """
 from __future__ import annotations
 
@@ -51,3 +53,168 @@ def batch_replay_config(n_fingerprints: int) -> StreamConfig:
                                                 pk_slots=n_fingerprints),
                         max_pairs_per_block=4096,
                         verify_jaccard=True)
+
+
+def stream_config() -> StreamConfig:
+    """Streaming-detection block for the paper-scale config.
+
+    256 fingerprints per step (~9 min of 100 Hz data per block at
+    the 2 s lag); 2^14 buckets × cap 8 per table holds ~1.3e5 resident
+    fingerprints per station before ring eviction. The sliding detection
+    window expires ids older than 3 days (129 600 fingerprints at the 2 s
+    lag — matching the index capacity), and the rolling occurrence filter
+    retires candidate pairs day-by-day (43 200 fingerprints), so both
+    device and host state stay flat over an unbounded stream.
+    """
+    day = 43_200  # fingerprints per day at the 2 s lag (86400 s / 2 s)
+    # Data-quality knobs sized for real telemetry: a 60 s reorder horizon
+    # absorbs out-of-order packet delivery, offset jumps beyond one hour
+    # are rejected as corrupt timestamps rather than gap-filled, and the
+    # sample-exact duplicate guard looks one day back (telemetry repeats
+    # arrive within hours).
+    # The bucket-saturation quarantine: with a sliding window its traffic
+    # counter halves every window inside the step's expire, so it tracks
+    # recent pressure — average bucket traffic per 3-day window is
+    # ~130k/16384 ≈ 8 inserts, and 200 sits ~25× above it while a
+    # repeating glitch hammers one bucket thousands of times per day. The
+    # in-step §6.5 occurrence limiter caps per-fingerprint partners at 1%
+    # of the filter window (the paper's occurrence fraction applied to a
+    # day), with the partner-count ring sized to the 3-day detection
+    # window; the host rolling filter stays on as the exact §6.5
+    # reference.
+    # Emission epilogue: the dense pair stream at this scale is
+    # t=100 × 256 × cap 8 ≈ 205k slots per station per block, nearly all
+    # masked; max_pairs_per_block=4096 bounds the device→host copy at ~50×
+    # fewer slots, far above the occurrence-limited per-block pair budget
+    # (overflow is counted in the overflow_pairs QC field, so a saturated
+    # bound is visible). verify_jaccard keeps a packed-fingerprint ring
+    # spanning the 3-day window (129 600 rows × fp_dim/32 words ≈ 133 MB)
+    # and scores every surviving candidate with exact Jaccard in the same
+    # step; verify_min_jaccard=0.0 keeps the pair set identical to the
+    # dense path and adds the true-similarity channel.
+    return StreamConfig(block_fingerprints=256,
+                        index=StreamIndexConfig(n_buckets=16384,
+                                                bucket_cap=8,
+                                                occ_slots=3 * day,
+                                                pk_slots=3 * day),
+                        stats_warmup_blocks=2, reservoir_rows=4096,
+                        window_fingerprints=3 * day,
+                        filter_window_fingerprints=day,
+                        reorder_horizon_samples=6000,
+                        max_gap_samples=360_000,
+                        dup_window_fingerprints=day,
+                        saturation_limit=200,
+                        occ_limit=day // 100,
+                        max_pairs_per_block=4096,
+                        verify_jaccard=True)
+
+
+def stream_smoke_config() -> StreamConfig:
+    """CPU-scale streaming block matching ``smoke_config``.
+
+    Windows stay disabled: this is the parity configuration whose
+    accumulated pair set is held against the offline search.
+    """
+    return StreamConfig(block_fingerprints=64,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8),
+                        stats_warmup_blocks=2, reservoir_rows=1024)
+
+
+def stream_compact_smoke_config() -> StreamConfig:
+    """``stream_smoke_config`` + the emission epilogue.
+
+    Same index shape and warmup as the parity smoke config, with the
+    dense t=20 × 64 × cap 8 = 10 240-slot emission compacted to 512 and
+    every surviving candidate scored with exact Jaccard from a 4096-row
+    packed ring (covers the longest smoke trace; the smoke configs run
+    unwindowed, so the ring must span the whole stream). 512 sits well
+    above any smoke trace's real per-block pair count, so the pair set
+    is bit-identical to ``stream_smoke_config`` — the golden parity test
+    pins exactly that. ``verify_min_jaccard`` stays 0.0 here for the
+    same reason; thresholding tests set it explicitly.
+    """
+    return StreamConfig(block_fingerprints=64,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8,
+                                                pk_slots=4096),
+                        stats_warmup_blocks=2, reservoir_rows=1024,
+                        max_pairs_per_block=512,
+                        verify_jaccard=True)
+
+
+def stream_deferred_smoke_config() -> StreamConfig:
+    """Smoke streaming with the re-binarize-after-freeze warmup hook.
+
+    ``stats_warmup_blocks=0`` defers the MAD freeze to ``flush()``: every
+    block stays buffered while the reservoir absorbs the whole trace, and
+    the freeze then binarizes the buffered warmup fingerprints with the
+    matured statistics. On the smoke trace (reservoir ≥ total rows) the
+    self-computed statistics equal the offline two-pass statistics
+    exactly, closing the ~88% self-stats pair-recall gap to 100% (pinned
+    by the golden test). Host memory is O(trace) — a finite-trace /
+    backfill configuration, not an unbounded-stream one.
+    """
+    return StreamConfig(block_fingerprints=64,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8),
+                        stats_warmup_blocks=0, reservoir_rows=1024)
+
+
+def stream_dirty_smoke_config() -> StreamConfig:
+    """Quality-hardened smoke streaming: the dirty-data path.
+
+    On clean data this configuration is **bit-identical** to
+    ``stream_smoke_config`` (pinned by tests): the reorder horizon only
+    *delays* block emission by 3 000 samples (30 s) so late or duplicated
+    chunks can still be reconciled; the sample-exact duplicate detector
+    can only fire on bit-exact repeated windows (continuous noise never
+    repeats exactly); and ``saturation_limit=10`` sits at 2× the largest
+    lifetime bucket traffic any clean smoke trace produces (≈5, measured
+    across seeds — repeating events share buckets only a handful of
+    times, while a repeating glitch hammers the same buckets tens to
+    thousands of times).
+
+    ``dup_sig_tables`` stays 0 here: on the smoke LSH config (t=20, k=4)
+    the strongest legitimate repeating events can collide in up to all 20
+    tables on some seeds, so the signature-level duplicate guard is a
+    per-deployment knob rather than a default (see ``StreamConfig``).
+
+    ``occ_limit=30`` is the in-step §6.5 occurrence limiter. Its counter
+    is the raw partner-collision count (table×slot signature matches at
+    id distance ≥ ``min_dt`` — the §6.3 lookups-per-query skew signal):
+    the densest legitimate repeater on the parity-pinned smoke traces
+    accumulates ≤ 25 collisions over a whole trace (measured per station
+    across the test seeds), while the
+    fingerprints of an *additive* glitch train — pulses riding the live
+    noise floor, invisible to the sample-exact duplicate guard — collide
+    with their ring-resident siblings in most tables at once and land at
+    60–100+. 30 splits the regimes: clean bit-parity is pinned, and the
+    glitch-train spurious stream drops ≥ 10× (vs ~2–3× from the
+    saturation quarantine alone). The partner-count ring covers the
+    longest smoke trace so counts never recycle mid-test.
+    """
+    return StreamConfig(block_fingerprints=64,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8,
+                                                occ_slots=4096),
+                        stats_warmup_blocks=2, reservoir_rows=1024,
+                        reorder_horizon_samples=3000,
+                        saturation_limit=10,
+                        dup_window_fingerprints=512,
+                        occ_limit=30)
+
+
+def stream_bounded_smoke_config() -> StreamConfig:
+    """CPU-scale *bounded* streaming: sliding window + rolling filter.
+
+    Window lengths are sized to the smoke traces (hundreds of
+    fingerprints) so tests and benches exercise expiry and several window
+    closes without needing hours of synthetic data.
+    """
+    return StreamConfig(block_fingerprints=64,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8),
+                        stats_warmup_blocks=2, reservoir_rows=1024,
+                        window_fingerprints=128,
+                        filter_window_fingerprints=64)

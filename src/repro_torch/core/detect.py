@@ -16,6 +16,10 @@ finished work.
 
 ``detect_events`` runs on ``cuda`` unless ``device="cpu"`` is passed; it
 raises when CUDA is missing and the CPU was not asked for.
+
+The ``repro_torch.stream`` modules it drives are imported inside the
+functions: they import ``core`` themselves, so a module-level import here
+would make ``import repro_torch.stream.engine`` circular.
 """
 from __future__ import annotations
 
@@ -32,12 +36,6 @@ from repro_torch.core.align import AlignConfig, Events
 from repro_torch.core.fingerprint import FingerprintConfig
 from repro_torch.core.lsh import LSHConfig, Pairs
 from repro_torch.obsv.spans import SpanTracer
-from repro_torch.stream import fused as fused_mod
-from repro_torch.stream import index as index_mod
-from repro_torch.stream.engine import host_occurrence_filter, \
-    pairs_from_triplets
-from repro_torch.stream.index import StreamIndexConfig
-from repro_torch.stream.ingest import StreamConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +82,31 @@ def replay_config(lcfg: LSHConfig, block_fingerprints: int = 256,
                   n_buckets: int = 4096) -> StreamConfig:
     """Default ``StreamConfig`` for batch replay: the index bucket window
     matches the offline search's rank window (``bucket_cap``)."""
+    from repro_torch.stream.index import StreamIndexConfig
+    from repro_torch.stream.ingest import StreamConfig
     return StreamConfig(
         block_fingerprints=block_fingerprints,
         index=StreamIndexConfig(n_buckets=n_buckets,
                                 bucket_cap=lcfg.bucket_cap))
+
+
+def station_stats(wave: torch.Tensor, fcfg: FingerprintConfig
+                  ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """The §5.2 statistics ``detect_events`` freezes, per station of the
+    (S, T) waveforms: (meds, mads), each a list of (n_coeff,) tensors on
+    ``wave``'s device. Sampled rows (``mad_sample_rate`` < 1) come from a
+    CPU generator seeded ``stft_len + station``."""
+    meds, mads = [], []
+    for st in range(wave.shape[0]):
+        coeffs = fp_mod.coeffs_from_waveform(wave[st], fcfg)
+        rows = (None if fcfg.mad_sample_rate >= 1.0 else
+                fp_mod.sample_rows(coeffs.shape[0], fcfg.mad_sample_rate,
+                                   fcfg.stft_len + st))
+        med, mad = fp_mod.mad_stats(coeffs, fcfg.mad_sample_rate, rows)
+        del coeffs
+        meds.append(med)
+        mads.append(mad)
+    return meds, mads
 
 
 def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
@@ -108,6 +127,10 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     reference's ``jax.random.choice`` draw cannot be reproduced in torch,
     so sampled statistics differ from the reference's (exact at rate 1).
     """
+    from repro_torch.stream import fused as fused_mod
+    from repro_torch.stream import index as index_mod
+    from repro_torch.stream.engine import (host_occurrence_filter,
+                                           pairs_from_triplets)
     dev = utils.resolve_device(device)
     waveforms = np.atleast_2d(np.asarray(waveforms, np.float32))
     n_stations = waveforms.shape[0]
@@ -120,16 +143,7 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     wave_dev = torch.as_tensor(waveforms, device=dev)
 
     with tracer.span("fingerprint_stats"):
-        meds, mads = [], []
-        for st in range(n_stations):
-            coeffs = fp_mod.coeffs_from_waveform(wave_dev[st], fcfg)
-            rows = (None if fcfg.mad_sample_rate >= 1.0 else
-                    fp_mod.sample_rows(coeffs.shape[0], fcfg.mad_sample_rate,
-                                       fcfg.stft_len + st))
-            med, mad = fp_mod.mad_stats(coeffs, fcfg.mad_sample_rate, rows)
-            del coeffs
-            meds.append(med)
-            mads.append(mad)
+        meds, mads = station_stats(wave_dev, fcfg)
         _sync(dev)
     with tracer.span("hashgen"):
         mappings = lsh_mod.hash_mappings(fcfg.fp_dim, lcfg, dev)

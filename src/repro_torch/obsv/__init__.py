@@ -1,2 +1,6 @@
-"""Observability for the port: wall-clock spans (``obsv.spans``)."""
+"""Observability for the port: the host metrics registry
+(``obsv.metrics``) and wall-clock spans (``obsv.spans``)."""
+from repro_torch.obsv.metrics import (Counter, Gauge, Histogram,  # noqa: F401
+                                      MetricsRegistry, merge_counts,
+                                      render_prometheus)
 from repro_torch.obsv.spans import SpanTracer  # noqa: F401

@@ -108,11 +108,43 @@ def init_index(lcfg: LSHConfig, icfg: StreamIndexConfig,
         pk=zeros(s, max(icfg.pk_slots, 1), max(icfg.pk_words, 1)))
 
 
+def init_pool(lcfg: LSHConfig, icfg: StreamIndexConfig, n_stations: int,
+              device=None) -> IndexState:
+    """An empty pool of ``n_stations`` indexes (the reference stacks
+    ``n_stations`` copies of ``init_index``; here that is the S axis)."""
+    return init_index(lcfg, icfg, n_stations, device)
+
+
 def stack_states(states: list[IndexState]) -> IndexState:
     """Station-stacked states → one state with their stations in order."""
     return IndexState(**{
         f.name: torch.cat([getattr(s, f.name) for s in states])
         for f in dataclasses.fields(IndexState)})
+
+
+def slice_state(pool: IndexState, station: int) -> IndexState:
+    """One station's view of a pool state: a one-station ``IndexState``
+    (S = 1) sharing the pool's storage."""
+    return IndexState(**{
+        f.name: getattr(pool, f.name)[station:station + 1]
+        for f in dataclasses.fields(IndexState)})
+
+
+def index_stats(state: IndexState) -> dict:
+    """Occupancy / skew diagnostics of a one-station state, on the host
+    (the reference's keys and values)."""
+    if state.n_stations != 1:
+        raise ValueError(f"index_stats takes one station's state "
+                         f"(slice_state), got {state.n_stations} stations")
+    occupied = (state.ids[0] != INVALID).cpu().numpy()
+    per_bucket = occupied.sum(axis=2)
+    return {
+        "inserted": int(state.inserted[0]),
+        "resident": int(occupied.sum()),
+        "occupancy": float(occupied.mean()),
+        "full_buckets": int((per_bucket == state.ids.shape[-1]).sum()),
+        "max_bucket_fill": int(per_bucket.max()),
+    }
 
 
 def _by_table(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at small,
 ragged and large-shared-memory shapes; the batch golden, the offline
 golden and the offline search's card-equals-CPU parity on the card; the
-LM serving engine's tokens on the card equal to its CPU path's.
+streaming driver on the card (advance route equal to the block route,
+one launch of each kernel a pooled block, the stream golden, the
+detector's default device); the LM serving engine's tokens on the card
+equal to its CPU path's.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -476,6 +479,162 @@ def test_offline_golden_and_dedup_on_the_card(cuda):
     want_keep, want_stats = dedup.find_duplicates(docs, device="cpu")
     assert (keep == want_keep).all() and stats == want_stats
     assert not keep[20]
+
+
+def _paper_stream(cuda, n_stations, n_blocks):
+    """The paper widths, ``stream_config``'s index, a pool state frozen
+    with each station's statistics, and the waveforms of ``n_blocks``
+    consecutive blocks."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, fingerprint, lsh, make_dataset
+    from repro_torch.stream import fused, index
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    fcfg, b = cfg.fingerprint, scfg.block_fingerprints
+    n = fcfg.block_samples(b) + (n_blocks - 1) * b * fcfg.lag_samples
+    ds = make_dataset(SynthConfig(duration_s=n / fcfg.fs + 1.0,
+                                  n_stations=n_stations, n_sources=2,
+                                  events_per_source=4, event_snr=6.0,
+                                  seed=4))
+    wave = torch.from_numpy(ds.waveforms[:, :n]).to(cuda)
+    coeffs = fingerprint.coeffs_from_waveform(wave, fcfg)
+    stats = [fingerprint.mad_stats(c, 1.0) for c in coeffs]
+    icfg = scfg.effective_index(fcfg.fp_dim)
+
+    def state():
+        return fused.init_pool_state(
+            [index.init_index(cfg.lsh, icfg, n_stations, cuda)],
+            fcfg.halo_samples, [m for m, _ in stats], [d for _, d in stats])
+    knobs = dict(window=scfg.window_fingerprints,
+                 saturation=scfg.saturation_limit, occ_limit=scfg.occ_limit,
+                 counters=1, max_pairs=scfg.max_pairs_per_block,
+                 verify=scfg.verify_code)
+    return (cfg, scfg, wave, state, lsh.hash_mappings(fcfg.fp_dim, cfg.lsh,
+                                                       cuda), knobs)
+
+
+def test_pool_step_advance_equals_block_on_the_card(cuda):
+    """Five consecutive paper-width blocks of 4 stations: the advance
+    route (halo + new samples) and the block route give the same pairs,
+    qc, halo and index, bit for bit."""
+    from repro_torch.stream import fused
+    cfg, scfg, wave, state, mappings, knobs = _paper_stream(cuda, 4, 5)
+    fcfg, b = cfg.fingerprint, scfg.block_fingerprints
+    bs, adv_n = fcfg.block_samples(b), b * fcfg.lag_samples
+    valid = torch.ones((4, b), dtype=torch.bool, device=cuda)
+    adv, blk = state(), state()
+    emitted = 0
+    for k in range(5):
+        block = wave[:, k * adv_n:k * adv_n + bs].contiguous()
+        blk, bp, bq = fused.pool_step_block(blk, block, mappings, k * b,
+                                            valid, fcfg, cfg.lsh, **knobs)
+        if k == 0:
+            adv, ap, aq = fused.pool_step_block(adv, block, mappings, 0,
+                                                valid, fcfg, cfg.lsh,
+                                                **knobs)
+        else:
+            adv, ap, aq = fused.pool_step_advance(
+                adv, block[:, -adv_n:].contiguous(), mappings, k * b, fcfg,
+                cfg.lsh, **knobs)
+        assert torch.equal(aq, bq)
+        for f in ("idx1", "idx2", "sim", "valid", "jac"):
+            assert torch.equal(getattr(ap, f), getattr(bp, f)), f
+        assert torch.equal(adv.halo, blk.halo)
+        for f in ("sig", "ids", "cursor", "traffic", "occ", "pk"):
+            assert torch.equal(getattr(adv.index, f),
+                               getattr(blk.index, f)), f
+        emitted += int(aq[:, 3].sum())
+    assert emitted > 0
+
+
+def test_pooled_paper_block_launches_each_kernel_once(cuda):
+    """One pooled advance step at the paper widths (4 stations × 256
+    fingerprints, verify on) launches stft_mag, haar2d, minmax_sig_buckets
+    and jaccard_popcount once each: the wrappers' counts and the
+    profiler's device kernels agree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.stream import fused
+    cfg, scfg, wave, state, mappings, knobs = _paper_stream(cuda, 4, 2)
+    fcfg, b = cfg.fingerprint, scfg.block_fingerprints
+    adv_n = b * fcfg.lag_samples
+    st = state()
+    valid = torch.ones((4, b), dtype=torch.bool, device=cuda)
+    st, _, _ = fused.pool_step_block(st, wave[:, :fcfg.block_samples(b)]
+                                     .contiguous(), mappings, 0, valid,
+                                     fcfg, cfg.lsh, **knobs)
+    new = wave[:, -adv_n:].contiguous()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st, pairs, qc = fused.pool_step_advance(st, new, mappings, b, fcfg,
+                                                cfg.lsh, **knobs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    want = {"stft_mag": ("stft_mag",), "haar2d": ("haar2d",),
+            "minmax_sig_buckets": ("minmax_sig_buckets", "tiled_kernel"),
+            "jaccard_popcount": ("jaccard_popcount",)}
+    for name, keys in want.items():
+        assert ops.LAUNCHES[name] == 1, (name, ops.LAUNCHES)
+        hits = [n for n in names if any(k in n for k in keys)]
+        assert len(hits) == 1, (name, hits)
+
+
+def test_stream_golden_on_the_card(cuda):
+    """The two-pass and compact + verify runs of the stream golden, and a
+    bounded 3-station stream whose alerts and detections equal the
+    port's CPU path."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, fingerprint, make_dataset
+    from repro_torch.stream import StreamingDetector
+    gold = json.loads((ROOT / "tests" / "golden" / "stream_pairs.json")
+                      .read_text())
+    cfg = fast_seismic.smoke_config()
+    wf = make_dataset(SynthConfig(**gold["synth"])).waveforms[0]
+    med_mad = fingerprint.mad_stats(fingerprint.coeffs_from_waveform(
+        torch.from_numpy(wf), cfg.fingerprint), 1.0)
+    want = {tuple(p) for p in gold["stream_two_pass_pairs"]}
+    for scfg in (fast_seismic.stream_smoke_config(),
+                 fast_seismic.stream_compact_smoke_config()):
+        ops.reset_launches()
+        det = StreamingDetector(cfg, scfg, med_mad=med_mad, device=cuda)
+        for chunk in np.array_split(wf, gold["n_chunks"]):
+            det.push(chunk)
+        _, pairs, _ = det.stations[0].finalize()
+        v = pairs.valid.cpu().numpy()
+        assert set(zip(pairs.idx1.cpu().numpy()[v].tolist(),
+                       pairs.idx2.cpu().numpy()[v].tolist())) == want
+        assert ops.LAUNCHES["stft_mag"] > 0
+        assert (ops.LAUNCHES["jaccard_popcount"] > 0) == scfg.verify_jaccard
+    ds = make_dataset(SynthConfig(duration_s=600.0, n_stations=3,
+                                  n_sources=2, events_per_source=5,
+                                  event_snr=3.0, seed=11))
+    runs = []
+    for dev in (cuda, "cpu"):
+        det = StreamingDetector(cfg, fast_seismic.stream_bounded_smoke_config(),
+                                n_stations=3, device=dev)
+        for a in range(0, ds.waveforms.shape[1], 6000):
+            det.push(ds.waveforms[:, a:a + 6000])
+        dets, _, stats = det.finalize()
+        runs.append(([x.tolist() for x in det.alerts],
+                     {k: v.cpu().tolist() for k, v in dets.items()},
+                     stats["detections"]))
+    assert runs[0] == runs[1]
+    assert runs[0][2] >= 1
+
+
+def test_detector_defaults_to_the_card(cuda):
+    from repro_torch.configs import fast_seismic
+    from repro_torch.stream import StreamingDetector
+    cfg = fast_seismic.smoke_config()
+    det = StreamingDetector(cfg, fast_seismic.stream_smoke_config())
+    assert det.stations[0].state.sig.is_cuda
+    med = np.zeros(cfg.fingerprint.n_coeff, np.float32)
+    pool = StreamingDetector(cfg, fast_seismic.stream_smoke_config(),
+                             n_stations=2, med_mad=(med, med + 1))
+    assert pool.pooled and pool.pstate.index.sig.is_cuda
+    assert pool.stations[1].state.ids.is_cuda
 
 
 # fp32: summation order and the online-softmax rescale; bf16 output: one

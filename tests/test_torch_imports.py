@@ -1,8 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
 ``chip_smoke.py`` and no script of ``tools/`` imports JAX or the JAX
-package (``repro``)."""
+package (``repro``); and every module of the port imports as the first
+import of a process (no import cycle among its packages)."""
 import ast
+import importlib
 import pathlib
+import sys
 
 import pytest
 
@@ -10,6 +13,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
+SRC = ROOT / "src"
+MODULES = sorted(".".join(p.relative_to(SRC).with_suffix("").parts)
+                 .removesuffix(".__init__")
+                 for p in (SRC / "repro_torch").rglob("*.py"))
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -33,3 +40,24 @@ def test_the_guard_sees_every_import_form():
     src = "import jax.numpy\nfrom repro.models import x\nimport repro_torch\n"
     assert [n.split(".")[0] in BANNED for n in
             _imported(ast.parse(src))] == [True, True, False]
+
+
+def _port_modules() -> dict:
+    return {k: v for k, v in sys.modules.items()
+            if k == "repro_torch" or k.startswith("repro_torch.")}
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_first(name):
+    """Import ``name`` with no module of the port loaded yet (as a user's
+    first ``import repro_torch.stream.engine`` would), then put the
+    process's modules back."""
+    saved = _port_modules()
+    for key in saved:
+        del sys.modules[key]
+    try:
+        importlib.import_module(name)
+    finally:
+        for key in _port_modules():
+            del sys.modules[key]
+        sys.modules.update(saved)
