@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's batch FAST detection, streaming detection,
-offline Min-Max LSH search and LM serving on one NVIDIA GPU, end to end.
+offline Min-Max LSH search, LM serving, detection serving and detector
+snapshots on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -111,10 +112,35 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     before and read just after:
     ``flash_attention`` (qwen) and ``mamba_scan`` (falcon-mamba) launch
     exactly once per layer per request.
+16. Detection serving at full width over phase 7's pool (4 stations ×
+    24 h, taken through ``pool_serving_state()``), ``serve_config()`` (32
+    slots, queue 1,024, top-k 64): 64 request windows of 60 s starting on
+    corpus fingerprints, submitted at once, then 1,100 more at once (76
+    shed), launch counters zeroed just before and read just after
+    (``stft_mag``, ``haar2d`` and ``minmax_hash`` exactly once a
+    dispatched tick, none on an idle tick): requests per second, latency
+    p50 / p95 / p99, queue wait and service p50 / p99, served, shed,
+    hits, and the share of query fingerprints that find their own source
+    fingerprint in their station's top-k (at least 0.9). The CPU path on a
+    copy of the same state gives equal (station, id, sim) lists for the
+    first tick's 32 requests. The first tick's live work is printed
+    (``first_tick_live``: valid query fingerprints a slot of 256, raw
+    collisions and thresholded candidates a (station, slot) row). At the
+    serving batch's shapes, ``stft_mag`` (32 blocks) and ``haar2d`` are
+    held against their plain versions at the kernel tolerance and
+    ``minmax_hash`` (4 × 32 × 256 rows, 256 words, H = 400, the tiled
+    plan) bit-exact against its plain version, each timed and bounded
+    (``serving_shapes``; ``minmax_hash_serve_rate``).
+17. Snapshots: phase 7's stream again to push 720, ``snapshot`` into a
+    temporary directory (bytes on disk, write time), ``restore`` into a
+    new detector on the card (restore time), pushes 721–1,440: per-station
+    stats, events, alerts, detections and drops equal phase 7's
+    uninterrupted run. The directory is deleted.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
-device's busy and idle shares (``chiprun_out/profile.txt``).
+device's busy and idle shares (``chiprun_out/profile.txt``); it also
+profiles three serving ticks in phase 16 (``chiprun_out/serve_profile.txt``).
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Every kernel's ``launches`` is read
@@ -123,6 +149,10 @@ four kernels of the detection core, each with the batch replay's count
 (phase 5) beside it under ``launches_by_path``; the offline search (phase
 11) for ``minmax_hash``; the LM serve runs (phase 15) for
 ``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b).
+The serving phase's counts stand beside them under ``launches_by_path``
+(``serve``) for ``stft_mag``, ``haar2d`` and ``minmax_hash``, whose entries
+also carry their error, time and bound at the serving shapes
+(``serving_shape``).
 Without CUDA it exits 2 and prints no result. Writes
 ``chiprun_out/chip_smoke.json`` with everything printed.
 """
@@ -184,11 +214,30 @@ KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
                "minmax_hash": ("offline_paper",),
                "flash_attention": ("lm_serve", "qwen2.5-14b"),
                "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
+# every path whose launch counts a kernel's entry lists under
+# launches_by_path: the batch replay (phase 5), the streaming service
+# (phase 7), the offline search (phase 11) and detection serving (phase 16)
+KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve"),
+                "haar2d": ("paper", "stream_paper", "serve"),
+                "minmax_sig_buckets": ("paper", "stream_paper"),
+                "jaccard_popcount": ("paper", "stream_paper"),
+                "minmax_hash": ("offline_paper", "serve")}
+SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # kernel tolerance, a share of max|plain|: fp32 summation order and the
 # online-softmax rescale; one rounding of a bf16 output, plus P rounded to
 # bf16 before P·V (at most ~2⁻⁹·max|v|)
 LM_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
 LM_SERVE_LAYERS = 4
+# the serving phase: request windows of 60 s on the fingerprint grid, a
+# burst of SERVE_REQUESTS, then SERVE_OVERLOAD more at once (past the
+# serve_config() queue bound of 1,024, so SERVE_OVERLOAD - 1,024 shed); the
+# first tick's requests (every slot) are held against the port's CPU path
+SERVE_WINDOW_S = 60.0
+SERVE_REQUESTS = 64
+SERVE_OVERLOAD = 1100
+# wall-clock entries of a stream's ingest summaries
+WALL_KEYS = ("wall_s", "chunk_ms_p50", "chunk_ms_p95", "chunks_per_s",
+             "samples_per_s")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -315,6 +364,39 @@ def _close(got, want) -> float:
     return err
 
 
+def _stft_work(wave, spec, frame_len: int) -> tuple[int, int]:
+    """(bytes, operations) of one ``stft_mag`` call: the waveform, the
+    window and the two DFT matrices read once, the spectrogram written
+    once; a frame's window product, its 2K dot products and K
+    magnitudes."""
+    r, nf, k = spec.shape
+    return (4 * (wave.numel() + frame_len + 2 * frame_len * k
+                 + spec.numel()),
+            r * nf * (k * 4 * frame_len + frame_len + 3 * k))
+
+
+def _haar_work(imgs) -> tuple[int, int]:
+    """(bytes, operations) of one ``haar2d`` call: the images read and
+    written once with the two transform matrices; two matrix products an
+    image."""
+    n, h, w = imgs.shape
+    return (4 * (2 * imgs.numel() + h * h + w * w),
+            n * (2 * h * w * w + 2 * h * h * w))
+
+
+def _shape_case(call, plain, work: tuple[int, int]) -> dict:
+    """A kernel at one more shape of its path: held against its plain
+    version at ``_close``'s tolerance, timed, with its bound."""
+    import torch
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    err = _close(got, want)
+    bound, by = _bound_ms(*work)
+    return {"shape": list(got.shape), "max_abs_err": err,
+            "ms": _time_ms(call), "plain_ms": _time_ms(plain),
+            "bound_ms": bound, "bound_by": by}
+
+
 def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
     """Every kernel against its plain version at one paper block's shapes;
     returns their entries and the Jaccard slots for the replay's shape."""
@@ -350,8 +432,7 @@ def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
         -1, frame_len, fcfg.stft_hop)
     xw = (frames * c["window"]).reshape(-1, frame_len).contiguous()
     dft_cat = torch.cat([c["dft_r"], c["dft_i"]], dim=1).contiguous()
-    n_bytes = 4 * (wave.numel() + frame_len + 2 * frame_len * k + got.numel())
-    n_ops = r * nf * (k * 4 * frame_len + frame_len + 3 * k)
+    n_bytes, n_ops = _stft_work(wave, got, frame_len)
     bound, by = _bound_ms(n_bytes, n_ops)
     ms = _time_ms(lambda: ops.stft_mag(*args))
     out.append({"name": "stft_mag", "route": "cuda",
@@ -378,8 +459,8 @@ def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
     torch.cuda.synchronize()
     err = _close(got, want)
     n, h, w = imgs.shape
-    n_ops = n * (2 * h * w * w + 2 * h * h * w)
-    bound, by = _bound_ms(4 * (2 * imgs.numel() + h * h + w * w), n_ops)
+    n_bytes, n_ops = _haar_work(imgs)
+    bound, by = _bound_ms(n_bytes, n_ops)
     ms = _time_ms(lambda: ops.haar2d(imgs))
     out.append({"name": "haar2d", "route": "cuda",
                 "source": "src/repro_torch/csrc/haar2d.cu",
@@ -816,11 +897,30 @@ def stream_golden_phase(dev) -> dict:
     return out
 
 
-def stream_paper_phase(ds, dev) -> dict:
+def _stream_record(det, dets, events, stats) -> dict:
+    """What a finished stream leaves, to hold one run against another:
+    per-station stats (wall times dropped), events, every alert row,
+    detections and the drop counters."""
+    import numpy as np
+    stats = json.loads(json.dumps(stats))
+    for s in stats["ingest"]:
+        for k in WALL_KEYS:
+            s.pop(k)
+    return {"stats": stats,
+            "events": [_event_rows(e) for e in events],
+            "alerts": (np.concatenate(det.alerts).tolist() if det.alerts
+                       else []),
+            "detections": {k: v.cpu().tolist() for k, v in dets.items()},
+            "drops": det.telemetry.drop_breakdown()}
+
+
+def stream_paper_phase(ds, dev) -> tuple[dict, object, dict]:
     """The paper streaming service on phase 5's 4 stations × 24 h:
     ``fast_seismic.config()`` with ``stream_config()``, pooled, pushed in
     ``STREAM_CHUNK``-sample chunks, self-computed statistics, launch
-    counters zeroed just before and read just after."""
+    counters zeroed just before and read just after. Returns the report,
+    the finished detector (phase 16 serves its pool) and its record
+    (phase 17 holds a restored stream to it)."""
     import numpy as np
     import torch
     from repro_torch.configs import fast_seismic
@@ -885,7 +985,7 @@ def stream_paper_phase(ds, dev) -> dict:
           f"stream: {n_fp} fingerprints, not every station's whole trace")
     _need(all(dets[k].shape == dets["valid"].shape for k in dets),
           "stream: detections columns differ in shape")
-    return out
+    return out, det, _stream_record(det, dets, events, stats)
 
 
 def stream_parity_phase(ds, dev) -> dict:
@@ -930,6 +1030,260 @@ def stream_parity_phase(ds, dev) -> dict:
     _need(all(same_pairs) and all(same_events),
           "stream parity: the stream's pairs or events differ from "
           "detect_events' on the same StreamConfig")
+    return out
+
+
+def _serve_windows(ds, fcfg, n: int, seed: int) -> list:
+    """``n`` request windows of ``SERVE_WINDOW_S`` seconds, station by
+    station in turn, each starting on a corpus fingerprint (a random one,
+    from ``seed``): (station, first fingerprint id, samples)."""
+    import numpy as np
+    wave = ds.waveforms
+    win = int(SERVE_WINDOW_S * fcfg.fs)
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, (wave.shape[1] - win) // fcfg.lag_samples, n)
+    return [(i % wave.shape[0], int(f),
+             wave[i % wave.shape[0],
+                  f * fcfg.lag_samples:f * fcfg.lag_samples + win])
+            for i, f in enumerate(starts)]
+
+
+def serve_phase(det, ds, dev) -> tuple[dict, dict]:
+    """Detection serving at full width over phase 7's pool (4 stations ×
+    24 h, ``pool_serving_state()``), ``serve_config()`` (32 slots, queue
+    1,024, top-k 64): a burst of ``SERVE_REQUESTS`` 60 s windows, then
+    ``SERVE_OVERLOAD`` more at once, launch counters zeroed just before
+    and read just after (``stft_mag``, ``haar2d`` and ``minmax_hash`` once
+    a dispatched tick, none on an idle tick). Then the share of query
+    fingerprints that find their own source fingerprint in their
+    station's top-k, the CPU path's match lists on the same state for the
+    first tick's requests (every slot), the first tick's live work (valid
+    query fingerprints a slot, raw collisions and thresholded candidates
+    a (station, slot) row), and ``stft_mag``, ``haar2d`` and
+    ``minmax_hash`` at the serving batch's shapes against their plain
+    versions, timed and bounded. Returns the report and the kernels'
+    serving-shape entries by name."""
+    import numpy as np
+    import torch
+    from repro_torch import utils
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import fingerprint as fp_mod
+    from repro_torch.core import lsh as lsh_mod
+    from repro_torch.kernels import haar2d as haar_k
+    from repro_torch.kernels import minmax_hash as mm_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stft_mag as stft_k
+    from repro_torch.launch.serve_detect import (QueryRequest,
+                                                 ServeDetectEngine)
+    from repro_torch.stream import index as index_mod
+    from repro_torch.stream.index import IndexState
+    cfg, scfg, sv = det.cfg, det.scfg, fast_seismic.serve_config()
+    fcfg = cfg.fingerprint
+    state, med, mad = det.pool_serving_state()
+
+    def engine(d, n_slots=sv.n_slots, st=state, mm=(med, mad)):
+        return ServeDetectEngine(cfg, scfg, st, mm, n_slots=n_slots,
+                                 top_k=sv.top_k, max_queue=sv.max_queue,
+                                 device=d)
+
+    def requests(windows):
+        return [QueryRequest(rid=i, window=w)
+                for i, (_, _, w) in enumerate(windows)]
+
+    burst = _serve_windows(ds, fcfg, SERVE_REQUESTS, 0)
+    overload = _serve_windows(ds, fcfg, SERVE_OVERLOAD, 1)
+    engine(dev).run(requests(burst[:sv.n_slots]))     # warm-up, not counted
+    eng = engine(dev)
+    reqs, more = requests(burst), requests(overload)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    first = eng.run(reqs)
+    ticks_first = eng.dispatches
+    second = eng.run(more)
+    idle = eng.tick()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    # own-fingerprint recall: query fingerprint i of a window starting at
+    # corpus fingerprint f is corpus fingerprint f + i of its station
+    n_q = (int(SERVE_WINDOW_S * fcfg.fs) - fcfg.window_samples) \
+        // fcfg.lag_samples + 1
+    found = 0
+    for (st, f, _), r in zip(burst, reqs):
+        ids = {i for s, i, _ in r.matches if s == st}
+        found += sum(f + i in ids for i in range(n_q))
+    # the CPU path on a copy of the same serving state, over the first
+    # tick's requests: every slot of the batch
+    cpu_state = IndexState(**{k: getattr(state, k).cpu()
+                              for k in IndexState.__dataclass_fields__})
+    cpu_reqs = requests(burst[:sv.n_slots])
+    t0 = time.perf_counter()
+    engine("cpu", sv.n_slots, cpu_state,
+           (med.cpu(), mad.cpu())).run(cpu_reqs)
+    cpu_s = time.perf_counter() - t0
+    equal_cpu = [a.matches == b.matches for a, b in zip(reqs, cpu_reqs)]
+    out = {
+        "stations": state.n_stations, "slots": sv.n_slots,
+        "top_k": sv.top_k, "max_queue": sv.max_queue,
+        "window_s": SERVE_WINDOW_S, "query_fingerprints": n_q,
+        "burst": first, "overload": second,
+        "dispatches": eng.dispatches, "ticks": eng.ticks,
+        "idle_tick_served": idle, "launches": launches,
+        "self_match_share": found / (n_q * len(burst)),
+        "cpu_requests": len(cpu_reqs), "cpu_s": cpu_s,
+        "equal_cpu": all(equal_cpu),
+        "matches_first": len(reqs[0].matches),
+    }
+    # the first tick's batch (every slot's first block and fingerprint
+    # mask), after the counts: stft_mag and haar2d at its shapes
+    first_blocks = [eng._split_blocks(w)[0] for _, _, w in burst[:sv.n_slots]]
+    blocks = torch.as_tensor(np.stack([b for b, _ in first_blocks]),
+                             device=dev)
+    slot_valid = torch.as_tensor(np.stack([m for _, m in first_blocks]),
+                                 device=dev)
+    c = fp_mod._consts(fcfg, dev)
+    args = (blocks, c["window"], c["dft_r"], c["dft_i"], fcfg.stft_hop)
+    spec = stft_k.plain(*args)
+    imgs = fp_mod.spectral_images(spec, fcfg).reshape(
+        -1, fcfg.img_freq, fcfg.img_time).contiguous()
+    th, tw, _ = ops.haar_mats(fcfg.img_freq, fcfg.img_time, dev)
+    shapes = {
+        "stft_mag": _shape_case(lambda: ops.stft_mag(*args),
+                                lambda: stft_k.plain(*args),
+                                _stft_work(blocks, spec, fcfg.stft_len)),
+        "haar2d": _shape_case(lambda: ops.haar2d(imgs),
+                              lambda: haar_k.plain(imgs, th, tw),
+                              _haar_work(imgs))}
+    # its live work: a (station, slot) row holds t·N·C candidate slots
+    _, packed = fp_mod.binarize_coeffs(
+        fp_mod.coeffs_from_waveform(blocks, fcfg), fcfg,
+        (med[:, None], mad[:, None]))                    # (S, Q, N, W)
+    s_, q_, n_ = packed.shape[:3]
+    sigs = lsh_mod.signatures(packed, eng.mappings, cfg.lsh,
+                              valid=slot_valid.expand(s_, -1, -1))
+    qids = (index_mod.INVALID - 1 - n_) + torch.arange(
+        n_, dtype=torch.int32, device=dev)
+    pairs, qc = index_mod.query(state, sigs, qids, cfg.lsh, counts=1)
+    per_row = pairs.valid.sum(dim=-1).float()
+    t_, c_ = state.sig.shape[1], state.sig.shape[-1]
+    out["first_tick_live"] = {
+        "valid_fingerprints_per_slot": int(slot_valid.sum(dim=-1).max()),
+        "block_fingerprints": n_,
+        "candidate_slots_per_row": t_ * n_ * c_,
+        "raw_collisions_per_row": float(qc[:, 0].sum()) / (s_ * q_),
+        "pairs_per_row_mean": float(per_row.mean()),
+        "pairs_per_row_max": int(per_row.max())}
+    # minmax_hash at the serving batch's shape: the packed fingerprints of
+    # every slot of every station
+    packed = packed.reshape(-1, packed.shape[-1]).contiguous()
+    mp = eng.mappings
+    n, words = packed.shape
+    h = mp.shape[1]
+    got = ops.minmax_hash(packed, mp)
+    want = mm_k.plain_raw(packed, mp)
+    torch.cuda.synchronize()
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    nnz = int(utils.popcount(packed).sum())
+    dims = int(utils.unpack_bits(packed, 32 * words).any(dim=0).sum())
+    bound, by = _minmax_bound(4 * (packed.numel() + dims * h + 2 * n * h),
+                              2 * nnz * h)
+    ms = _time_ms(lambda: ops.minmax_hash(packed, mp))
+    rate = _minmax_rate("minmax_hash_serve", packed, mp, nnz, ms)
+    shapes["minmax_hash"] = {
+        "shape": [n, words, h], "set_bits": nnz, "exact": exact,
+        "ms": ms, "plan": rate["plan"],
+        **{k: v for k, v in rate.items() if k.endswith("_tb_s")},
+        "plain_ms": _time_ms(lambda: mm_k.plain_raw(packed, mp),
+                             iters=3, warmup=1),
+        "bound_ms": bound, "bound_by": by}
+    out["serving_shapes"] = shapes
+    if "--profile" in sys.argv[1:]:
+        # three full ticks of the burst's windows under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        prof_eng = engine(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_eng.run(requests(burst[:sv.n_slots] * 3))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["profile"] = {"ticks": prof_eng.dispatches,
+                          **_device_breakdown(prof, wall,
+                                              "serve_profile.txt")}
+    print("serve", json.dumps(out), flush=True)
+    n_disp = eng.dispatches
+    for name in SERVE_KERNELS:
+        _need(launches[name] == n_disp,
+              f"serve: {name} launched {launches[name]} times in "
+              f"{n_disp} dispatched ticks")
+    _need(launches["minmax_sig_buckets"] == 0
+          and launches["jaccard_popcount"] == 0,
+          f"serve: a kernel of the stream launched: {launches}")
+    _need(idle == 0 and eng.ticks == n_disp + 1,
+          "serve: an idle tick served or a tick did not dispatch")
+    _need(first["served"] == SERVE_REQUESTS and first["shed"] == 0
+          and ticks_first == -(-SERVE_REQUESTS // sv.n_slots),
+          f"serve: the burst was not served in full: {first}")
+    _need(second["shed"] == SERVE_OVERLOAD - sv.max_queue
+          and second["served"] == sv.max_queue,
+          f"serve: the overload did not shed deterministically: {second}")
+    _need(all(equal_cpu), "serve: the card's match lists differ from the "
+          f"CPU path's: {equal_cpu}")
+    _need(out["self_match_share"] >= 0.9,
+          f"serve: only {out['self_match_share']:.3f} of the query "
+          "fingerprints found their own source fingerprint")
+    _need(exact and rate["plan"]["tiled"],
+          "serve: minmax_hash at the serving shape is not bit-exact or "
+          "did not take the tiled plan")
+    return out, shapes
+
+
+def snapshot_phase(ds, dev, want: dict) -> dict:
+    """Phase 7's stream again to its halfway push, snapshotted to a
+    temporary directory (size on disk, write time), restored into a new
+    detector on the card (restore time), and pushed to the end: the
+    record (per-station stats, events, alerts, detections, drops) must
+    equal phase 7's uninterrupted run."""
+    import pathlib as pl
+    import tempfile
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.stream import StreamingDetector
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    wave = ds.waveforms
+    starts = list(range(0, wave.shape[1], STREAM_CHUNK))
+    half = len(starts) // 2
+    det = StreamingDetector(cfg, scfg, n_stations=wave.shape[0], device=dev)
+    for a in starts[:half]:
+        det.push(wave[:, a:a + STREAM_CHUNK])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.snapshot(tmp, step=half)
+        write_s = time.perf_counter() - t0
+        files = [f for f in pl.Path(tmp).rglob("*") if f.is_file()]
+        size = sum(f.stat().st_size for f in files)
+        del det
+        t0 = time.perf_counter()
+        restored, step = StreamingDetector.restore(tmp, cfg, scfg,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a in starts[half:]:
+        restored.push(wave[:, a:a + STREAM_CHUNK])
+    dets, events, stats = restored.finalize()
+    rest_s = time.perf_counter() - t0
+    got = _stream_record(restored, dets, events, stats)
+    same = {k: got[k] == want[k] for k in got}
+    out = {"snapshot_push": half, "step": step, "bytes": size,
+           "files": len(files), "write_s": write_s, "restore_s": restore_s,
+           "pushes_after": len(starts) - half, "rest_s": rest_s,
+           "pooled": restored.pooled, "equal": same}
+    print("snapshot", json.dumps(out), flush=True)
+    _need(all(same.values()), f"snapshot: the restored stream differs from "
+          f"the uninterrupted run: {same}")
+    _need(step == half and restored.pooled, "snapshot: wrong step or pool")
     return out
 
 
@@ -1473,6 +1827,18 @@ def profile_phase(ds, dev) -> dict:
         t0 = time.perf_counter()
         _, _, times, _ = detect_events(wave, cfg, scfg=scfg, device=dev)
         wall = time.perf_counter() - t0
+    out = {"hours": 2, "blocks": -(-n_fp // scfg.block_fingerprints),
+           "fused_step_s": times.fused_step_s,
+           **_device_breakdown(prof, wall, "profile.txt")}
+    print("profile", json.dumps(out), flush=True)
+    return out
+
+
+def _device_breakdown(prof, wall: float, name: str) -> dict:
+    """A profiled window's device busy time (union of its kernels'
+    spans), idle share of ``wall`` and the 15 longest kernels by total
+    device time; the profiler's table goes to ``chiprun_out/<name>``."""
+    import torch
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1486,18 +1852,14 @@ def profile_phase(ds, dev) -> dict:
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    out = {"hours": 2, "blocks": -(-n_fp // scfg.block_fingerprints),
-           "wall_s": wall, "fused_step_s": times.fused_step_s,
-           "device_busy_s": busy * 1e-6,
-           "idle_share": 1.0 - busy * 1e-6 / wall,
-           "device_ops": len(spans),
-           "top_device_us": [[k[:60], v] for k, v in top]}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "profile.txt").write_text(
+    (ROOT / "chiprun_out" / name).write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=40))
-    print("profile", json.dumps(out), flush=True)
-    return out
+    return {"wall_s": wall, "device_busy_s": busy * 1e-6,
+            "idle_share": 1.0 - busy * 1e-6 / wall,
+            "device_ops": len(spans),
+            "top_device_us": [[k[:60], v] for k, v in top]}
 
 
 def main() -> int:
@@ -1547,7 +1909,7 @@ def main() -> int:
         next(k for k in kernels if k["name"] == "jaccard_popcount"))
     del jac
     report["stream_golden"] = stream_golden_phase(dev)
-    report["stream_paper"] = stream_paper_phase(ds, dev)
+    report["stream_paper"], det7, record7 = stream_paper_phase(ds, dev)
     report["stream_parity"] = stream_parity_phase(ds, dev)
     report["offline_golden"] = offline_golden_phase(dev)
     report["offline_parity"] = offline_parity_phase(dev)
@@ -1557,6 +1919,9 @@ def main() -> int:
     kernels += lm_kernel_phase(dev)
     report["lm_parity"] = lm_parity_phase(dev)
     report["lm_serve"] = lm_serve_phase(dev)
+    report["serve"], serve_shapes = serve_phase(det7, ds, dev)
+    del det7
+    report["snapshot"] = snapshot_phase(ds, dev, record7)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:
@@ -1564,15 +1929,18 @@ def main() -> int:
         for key in KERNEL_PATH[k["name"]]:
             node = node[key]
         k["launches"] = node["launches"][k["name"]]
-        if k["name"] in BATCH_KERNELS:
+        if k["name"] in KERNEL_PATHS:
             k["launches_by_path"] = {
                 path: report[path]["launches"][k["name"]]
-                for path in ("paper", "stream_paper")}
+                for path in KERNEL_PATHS[k["name"]]}
+        if k["name"] in serve_shapes:
+            k["serving_shape"] = serve_shapes[k["name"]]
     report["kernels"] = kernels
     # the Min-Max kernels also carry the plan of each shape they ran at,
     # the detection core's kernels their launches on each driver's path
     line = [{**{key: k[key] for key in KERNEL_KEYS},
-             **{x: k[x] for x in ("plans", "launches_by_path") if x in k}}
+             **{x: k[x] for x in ("plans", "launches_by_path",
+                                  "serving_shape") if x in k}}
             for k in kernels]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(

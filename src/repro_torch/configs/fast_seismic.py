@@ -4,8 +4,10 @@ Paper-faithful knobs: 100 Hz input, 8192-dim fingerprints (32×128 spectral
 images, 2-bit sign encoding), t=100 tables / k=8 funcs / m=2 matches (the
 optimized §6.3 setting), 1% occurrence filter, 3–20 Hz band. The values
 are those of ``repro.configs.fast_seismic``, the streaming configs'
-(``stream_config`` and the five smoke variants) included; their comments
-are the reference's reasons for each value.
+(``stream_config`` and the five smoke variants), the real-time alerting
+pair (``latency_config``, ``stream_latency_smoke_config``) and the serving
+tier's (``serve_config``, ``serve_smoke_config``) included; their
+comments are the reference's reasons for each value.
 """
 from __future__ import annotations
 
@@ -218,3 +220,51 @@ def stream_bounded_smoke_config() -> StreamConfig:
                         stats_warmup_blocks=2, reservoir_rows=1024,
                         window_fingerprints=128,
                         filter_window_fingerprints=64)
+
+
+def latency_config() -> DetectConfig:
+    """Real-time alerting detection config (the e2e hot-path benchmark).
+
+    Small spectral images (8×8) at a 1 s fingerprint lag: per-block
+    compute shrinks until the dispatch pipeline — not FLOPs — bounds
+    end-to-end throughput, the regime of a monitoring network pushing
+    short blocks for low alert latency.
+    """
+    fp = FingerprintConfig(stft_len=100, stft_hop=25, img_freq=8, img_time=8,
+                           img_hop=4, top_k=16, mad_sample_rate=1.0)
+    return DetectConfig(
+        fingerprint=fp,
+        lsh=LSHConfig(n_tables=8, n_funcs=4, n_matches=2, bucket_cap=4,
+                      min_dt=fp.overlap_fingerprints, occurrence_frac=0.0),
+        align=AlignConfig(min_cluster_size=1, min_cluster_sim=4),
+    )
+
+
+def stream_latency_smoke_config() -> StreamConfig:
+    """Streaming block for ``latency_config``: 4 fingerprints per step =
+    4 s alert latency at the 1 s lag."""
+    return StreamConfig(block_fingerprints=4,
+                        index=StreamIndexConfig(n_buckets=256, bucket_cap=4),
+                        stats_warmup_blocks=4, reservoir_rows=512)
+
+
+def serve_config():
+    """Paper-scale serving tier: slots sized so one batched serving step
+    amortizes across a rack of concurrent clients, with the admission
+    queue bounded at ~2 s of queue wait at the expected service rate —
+    beyond it requests shed instead of growing host state without bound.
+    The serving pool refreshes every ingest chunk (~9 min of stream per
+    block at the paper lag), so a served query never lags the corpus by
+    more than one block."""
+    from repro_torch.launch.serve_detect import ServeConfig
+    return ServeConfig(n_slots=32, max_queue=1024, top_k=64,
+                       refresh_every_chunks=1)
+
+
+def serve_smoke_config():
+    """CPU-scale serving tier matching the smoke streaming configs: a
+    handful of slots and a queue bound small enough that overload tests
+    shed on smoke-sized bursts."""
+    from repro_torch.launch.serve_detect import ServeConfig
+    return ServeConfig(n_slots=4, max_queue=8, top_k=32,
+                       refresh_every_chunks=4)

@@ -4,4 +4,6 @@ from repro_torch.core.align import AlignConfig, Events  # noqa: F401
 from repro_torch.core.detect import DetectConfig, detect_events  # noqa: F401
 from repro_torch.core.fingerprint import FingerprintConfig  # noqa: F401
 from repro_torch.core.lsh import LSHConfig, Pairs  # noqa: F401
-from repro_torch.core.synth import SynthConfig, make_dataset  # noqa: F401
+from repro_torch.core.synth import (ScenarioConfig,  # noqa: F401
+                                    SynthConfig, make_dataset,
+                                    make_scenario_dataset)

@@ -1,12 +1,14 @@
 """Synthetic seismic data generator (numpy only).
 
-A copy of the clean-dataset half of ``repro.core.synth`` (``SynthConfig``,
-``SynthDataset``, ``make_dataset``), so the port and ``chip_smoke.py``
-need nothing of the JAX package. The same config gives the same traces,
-draw for draw: reoccurring earthquakes with per-station travel-time
-delays, P/S structure, correlated repeating noise (paper Figure 7),
-out-of-band hum bursts and band-limited background noise. The dirty-data
-scenario layer comes with a later slice.
+A copy of ``repro.core.synth``, so the port and ``chip_smoke.py`` need
+nothing of the JAX package. The same config gives the same arrays, draw
+for draw: reoccurring earthquakes with per-station travel-time delays,
+P/S structure, correlated repeating noise (paper Figure 7), out-of-band
+hum bursts and band-limited background noise (``make_dataset``), and the
+deployment pathologies layered on a clean trace by
+``make_scenario_dataset``: telemetry gaps and station dropouts (NaN),
+duplicated data blocks, repeating instrument glitch trains and
+clock-drifted copies, with masks of the missing and the altered samples.
 """
 from __future__ import annotations
 
@@ -86,6 +88,21 @@ def _source_template(rng: np.random.Generator, cfg: SynthConfig) -> np.ndarray:
          * (t >= s_delay) * rng.uniform(1.5, 2.5))
     return (p + s).astype(np.float32)
 
+
+def _colored_noise(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    w = rng.standard_normal(n).astype(np.float32)
+    # cheap band-shaping: first-order smoothing + diff mix ≈ mid-band noise
+    sm = np.empty_like(w)
+    acc = 0.0
+    a = 0.7
+    for start in range(0, n, 1 << 20):  # chunked to keep it vectorizable
+        chunk = w[start:start + (1 << 20)]
+        out = np.empty_like(chunk)
+        for i, x in enumerate(chunk):
+            acc = a * acc + (1 - a) * x
+            out[i] = acc
+        sm[start:start + (1 << 20)] = out
+    return (0.6 * w + 0.8 * sm) * sigma
 
 def _colored_noise_fast(rng: np.random.Generator, n: int,
                         sigma: float) -> np.ndarray:
@@ -196,3 +213,191 @@ def make_dataset(cfg: SynthConfig) -> SynthDataset:
                         event_times=ev_times, event_sources=ev_src,
                         arrival_delays=delays, cfg=cfg,
                         station_xy=station_xy, source_xy=source_xy)
+
+
+# ---------------------------------------------------------------------------
+# dirty-data scenarios: the deployment pathologies layered on a clean trace
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioConfig:
+    """Fault-injection knobs over a clean ``SynthConfig`` trace.
+
+    Missing data (gaps, dropouts) is marked with NaN — the wire format the
+    streaming ingest treats as "sample never arrived". Corrupted-but-
+    present data (duplicated blocks, glitch trains, drift) stays finite;
+    the ``corrupt`` mask records where it lives so tests can separate the
+    clean portion from the injected one.
+    """
+
+    base: SynthConfig = SynthConfig()
+    # telemetry gaps: short spans of missing samples (NaN)
+    n_gaps: int = 0
+    gap_dur_s: tuple[float, float] = (2.0, 8.0)
+    gap_stations: tuple[int, ...] | None = None   # None = any station
+    # station dropout: one long missing span per listed station
+    dropout_stations: tuple[int, ...] = ()
+    dropout_start_frac: float = 0.45
+    dropout_dur_s: float = 60.0
+    # duplicated data blocks: an earlier span re-appears verbatim later
+    # (telemetry repeat). dst - src is aligned to ``dup_align_samples`` so
+    # the copy lands on the fingerprint lag grid (bit-exact duplicate
+    # fingerprints, the worst case for the duplicate guard).
+    n_dup_blocks: int = 0
+    dup_block_dur_s: float = 20.0
+    dup_spacing_s: float = 60.0
+    dup_align_samples: int = 200
+    # repeating instrument glitch trains: identical pulses at a fixed
+    # period, in episodes. period = fingerprint lag makes consecutive
+    # fingerprints inside a train near-identical — the mega-bucket /
+    # spurious-pair generator the paper's §6.5 quality controls target.
+    # ``glitch_replace=True`` models digital-origin artifacts (calibration
+    # pulses, electronics steps) that *clobber* the sensor output — the
+    # train is then sample-exact periodic, the worst duplicate case;
+    # False adds the pulses on top of the live noise floor (near-exact at
+    # the fingerprint level only — the saturation guard's case).
+    glitch_stations: tuple[int, ...] = ()
+    glitch_trains: int = 3
+    glitch_train_dur_s: float = 24.0
+    glitch_period_s: float = 2.0
+    glitch_amp: float = 25.0
+    glitch_replace: bool = True
+    glitch_jitter: float = 0.0    # per-pulse amplitude jitter (0 = exact)
+    # clock drift: the station's timeline resampled by (1 + ppm * 1e-6)
+    clock_drift_stations: tuple[int, ...] = ()
+    clock_drift_ppm: float = 0.0
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class ScenarioDataset:
+    """A dirty stream plus everything needed to judge a detector on it."""
+
+    clean: SynthDataset            # the underlying clean dataset
+    waveforms: np.ndarray          # (S, T) float32, NaN where missing
+    missing: np.ndarray            # (S, T) bool — samples that never arrived
+    corrupt: np.ndarray            # (S, T) bool — samples altered in place
+    injections: dict               # per-pathology logs (spans, stations)
+    cfg: ScenarioConfig
+
+    @property
+    def station_xy(self) -> np.ndarray | None:
+        """Ground-truth station geometry (physical-geometry bases only)."""
+        return self.clean.station_xy
+
+    @property
+    def source_xy(self) -> np.ndarray | None:
+        return self.clean.source_xy
+
+    def clean_fp_ids(self, station: int, window_samples: int,
+                     lag_samples: int) -> np.ndarray:
+        """Fingerprint ids whose analysis window touches no injected
+        pathology (neither missing nor corrupted samples) — the ids on
+        which a guarded dirty run must match the clean golden exactly."""
+        bad = self.missing[station] | self.corrupt[station]
+        t = bad.shape[0]
+        n = max(0, (t - window_samples) // lag_samples + 1)
+        csum = np.concatenate([[0], np.cumsum(bad)])
+        starts = np.arange(n) * lag_samples
+        ok = (csum[starts + window_samples] - csum[starts]) == 0
+        return np.nonzero(ok)[0].astype(np.int64)
+
+
+def _glitch_template(fs: float) -> np.ndarray:
+    """Repeating instrument glitch: a strong damped in-band oscillation
+    (~1.5 s, 8 Hz). At the default amplitude it dominates the top-K
+    anomalous coefficients of every window it lands in, so train
+    fingerprints become near-identical (Jaccard ≳ 0.95) and collide in
+    nearly all hash tables — the paper's mega-bucket pathology."""
+    n = int(1.5 * fs)
+    t = np.arange(n) / fs
+    return (np.exp(-t / 0.5) * np.sin(2 * np.pi * 8.0 * t)).astype(
+        np.float32)
+
+
+def make_scenario_dataset(cfg: ScenarioConfig) -> ScenarioDataset:
+    """Clean dataset + injected pathologies → a dirty stream with masks."""
+    clean = make_dataset(cfg.base)
+    rng = np.random.default_rng(cfg.seed ^ 0x5C3A51)
+    wf = clean.waveforms.copy()
+    s_n, t_n = wf.shape
+    fs = cfg.base.fs
+    missing = np.zeros((s_n, t_n), bool)
+    corrupt = np.zeros((s_n, t_n), bool)
+    inj: dict[str, list] = {"gaps": [], "dropouts": [], "dup_blocks": [],
+                            "glitch_trains": [], "drift": []}
+
+    gap_st = (tuple(range(s_n)) if cfg.gap_stations is None
+              else cfg.gap_stations)
+    for _ in range(cfg.n_gaps):
+        st = int(gap_st[int(rng.integers(0, len(gap_st)))])
+        dur = int(rng.uniform(*cfg.gap_dur_s) * fs)
+        i0 = int(rng.integers(0, max(1, t_n - dur)))
+        missing[st, i0:i0 + dur] = True
+        inj["gaps"].append({"station": st, "start": i0, "len": dur})
+
+    for st in cfg.dropout_stations:
+        i0 = int(cfg.dropout_start_frac * t_n)
+        dur = int(cfg.dropout_dur_s * fs)
+        missing[st, i0:i0 + dur] = True
+        inj["dropouts"].append({"station": st, "start": i0, "len": dur})
+
+    blk = int(cfg.dup_block_dur_s * fs)
+    align = max(1, int(cfg.dup_align_samples))
+    spacing = (int(cfg.dup_spacing_s * fs) // align) * align
+    for _ in range(cfg.n_dup_blocks):
+        st = int(rng.integers(0, s_n))
+        hi = max(align, t_n - blk - spacing)
+        src = (int(rng.integers(0, hi)) // align) * align
+        dst = src + spacing
+        span = min(blk, t_n - dst)
+        if span <= 0:      # trace too short for this spacing: no copy
+            continue       # lands, so don't log a phantom injection
+        wf[st, dst:dst + span] = wf[st, src:src + span]
+        corrupt[st, dst:dst + span] = True
+        inj["dup_blocks"].append({"station": st, "src": src, "dst": dst,
+                                  "len": span})
+
+    tpl = _glitch_template(fs)
+    period = int(cfg.glitch_period_s * fs)
+    train_n = int(cfg.glitch_train_dur_s * fs)
+    for st in cfg.glitch_stations:
+        for k in range(cfg.glitch_trains):
+            # trains spaced evenly, start phase-locked to the pulse clock
+            # (digital-origin artifacts fire on the instrument's clock, so
+            # every repeat lands at the same phase mod period)
+            slot = t_n / (cfg.glitch_trains + 1)
+            i0 = int((k + 1) * slot - train_n / 2)
+            i0 = max(0, min(i0, t_n - train_n - period))
+            i0 = (i0 // period) * period
+            for t0 in range(i0, i0 + train_n, period):
+                amp = cfg.glitch_amp * cfg.base.noise_sigma
+                if cfg.glitch_jitter > 0:
+                    amp *= 1.0 + cfg.glitch_jitter * rng.uniform(-1.0, 1.0)
+                seg = wf[st, t0:t0 + period]
+                pulse = np.zeros(period, np.float32)
+                pulse[: min(tpl.size, period)] = \
+                    amp * tpl[: min(tpl.size, period)]
+                if cfg.glitch_replace:
+                    seg[:] = pulse[: seg.size]
+                else:
+                    seg += pulse[: seg.size]
+            corrupt[st, i0:i0 + train_n + period] = True
+            inj["glitch_trains"].append({"station": st, "start": i0,
+                                         "len": train_n + period,
+                                         "period": period})
+
+    for st in cfg.clock_drift_stations:
+        f = 1.0 + cfg.clock_drift_ppm * 1e-6
+        src_t = np.clip(np.arange(t_n) * f, 0, t_n - 1)
+        wf[st] = np.interp(src_t, np.arange(t_n), wf[st]).astype(np.float32)
+        # the resample alters the station's entire timeline — nothing on
+        # it is sample-comparable to the clean trace
+        corrupt[st, :] = cfg.clock_drift_ppm != 0
+        inj["drift"].append({"station": st, "ppm": cfg.clock_drift_ppm})
+
+    dirty = wf.astype(np.float32).copy()
+    dirty[missing] = np.nan
+    return ScenarioDataset(clean=clean, waveforms=dirty, missing=missing,
+                           corrupt=corrupt, injections=inj, cfg=cfg)

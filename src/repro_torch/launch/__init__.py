@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack."""
+"""Entry points of the port: LM serving (``launch.serve``) and detection
+serving over the streaming index (``launch.serve_detect``)."""

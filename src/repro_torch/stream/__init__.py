@@ -21,4 +21,5 @@ from repro_torch.stream.index import (QC_FIELDS, IndexState,  # noqa: F401
                                       stack_states, verify_pairs)
 from repro_torch.stream.ingest import (StreamConfig,  # noqa: F401
                                        StreamingMAD, WaveformRing)
-from repro_torch.stream.telemetry import StreamTelemetry  # noqa: F401
+from repro_torch.stream.telemetry import (METRICS_SCHEMA,  # noqa: F401
+                                          StreamTelemetry, metrics_snapshot)

@@ -44,12 +44,21 @@ Host-side clustering (the rolling filter, ``poll_detections``,
 device. Entries run on ``cuda`` unless ``device`` names another
 (``utils.resolve_device``).
 
+``StreamingDetector.snapshot`` / ``restore`` checkpoint the whole
+detector through ``train.checkpoint`` in the reference's on-disk layout
+(each station's index leaves, ring, reservoir, duplicate-guard history,
+pending blocks, rolling filter or triplets and counters, plus the alert
+keys and the telemetry registry), so either package restores the other's
+snapshot and continues the stream bit for bit. ``pool_serving_state``
+hands the serving tier (``launch.serve_detect``) a copy of the pooled
+index and statistics; ``serving_version`` counts the pushes and flushes
+that may have changed it.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): detector snapshots and restore, ``pool_serving_state`` and
-``metrics_snapshot`` (queue 1 item 2); the location/magnitude tier (item
-3); elastic ``add_station`` / ``remove_station`` (item 7). There is one
-card, so the reference's mesh-sharded pool has no counterpart:
-``StreamConfig.sharded`` changes nothing.
+item): the location/magnitude tier (queue 1 item 3); elastic
+``add_station`` / ``remove_station`` (item 7). There is one card, so the
+reference's mesh-sharded pool has no counterpart: ``StreamConfig.sharded``
+changes nothing.
 """
 from __future__ import annotations
 
@@ -62,7 +71,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from repro_torch import utils
+from repro_torch import convert, utils
 from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import lsh as lsh_mod
@@ -76,6 +85,7 @@ from repro_torch.stream import telemetry as tele_mod
 from repro_torch.stream.index import IndexState
 from repro_torch.stream.ingest import StreamConfig, StreamingMAD, WaveformRing
 from repro_torch.stream.telemetry import StreamTelemetry
+from repro_torch.train import checkpoint as ckpt_mod
 
 if TYPE_CHECKING:
     from repro_torch.core.detect import DetectConfig
@@ -86,8 +96,8 @@ if TYPE_CHECKING:
 LOC_NONE = -1
 MAG_NONE = -(1 << 31)
 
-_SNAPSHOT = ("detector snapshots are not ported to repro_torch yet "
-             "(ROADMAP queue 1 item 2)")
+_LOCATE = ("the location/magnitude tier is not ported to repro_torch yet "
+           "(ROADMAP queue 1 item 3)")
 
 
 def block_coeffs(block: torch.Tensor, fcfg: FingerprintConfig) -> torch.Tensor:
@@ -409,6 +419,30 @@ class RollingPairFilter:
             [(pairs.dt, pairs.idx1, pairs.sim, pairs.valid)],
             acfg.channel_threshold)
         return events_to_rows(align_mod.cluster_station(merged, acfg))
+
+    def snapshot(self) -> tuple[dict, dict]:
+        buf = (np.concatenate(self.buf, axis=0).astype(np.int64)
+               if self.buf else np.zeros((0, 3), np.int64))
+        rows = self.archive_rows + self.event_rows
+        raw = (np.concatenate(rows, axis=0) if rows
+               else np.zeros((0, 5), np.int64))
+        return ({"buf": buf, "events": raw},
+                {"w_start": self.w_start, "windows_closed":
+                 self.windows_closed, "pairs_seen": self.pairs_seen,
+                 "pairs_kept": self.pairs_kept, "peak_rows": self.peak_rows})
+
+    def restore(self, arrays: dict, scalars: dict) -> None:
+        buf = np.asarray(arrays["buf"], np.int64).reshape(-1, 3)
+        self.buf = [buf] if buf.shape[0] else []
+        self.buf_rows = int(buf.shape[0])
+        rows = np.asarray(arrays["events"], np.int64).reshape(-1, 5)
+        self.archive_rows = []
+        self.event_rows = [rows] if rows.shape[0] else []
+        self.w_start = int(scalars["w_start"])
+        self.windows_closed = int(scalars["windows_closed"])
+        self.pairs_seen = int(scalars["pairs_seen"])
+        self.pairs_kept = int(scalars["pairs_kept"])
+        self.peak_rows = int(scalars["peak_rows"])
 
 
 # per-chunk wall samples retained for the percentile view; older samples
@@ -872,11 +906,155 @@ class StationStream:
         fstats["peak_buffered_triplets"] = self.peak_tri_rows
         return events, pairs, fstats
 
-    def snapshot_state(self):
-        raise NotImplementedError(_SNAPSHOT)
+    # -- snapshot / restore -------------------------------------------------
 
-    def restore_state(self, arrays: dict, extra: dict):
-        raise NotImplementedError(_SNAPSHOT)
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """(flat host arrays, json-able extra) capturing this station
+        exactly, in the reference's layout: the index leaves without the
+        station axis (uint32 where the reference's are), every array an
+        owned copy (a background write never sees a later step)."""
+        index = convert.index_state_to_numpy(self.state)
+        arrays = {f"index/{k}": np.array(v[0]) for k, v in index.items()}
+        ring_a, ring_s = self.ring.snapshot()
+        arrays["ring/buf"] = ring_a["buf"]
+        arrays["ring/vbuf"] = ring_a["vbuf"]
+        mad_a, mad_s = self.mad.snapshot()
+        arrays["mad/rows"] = mad_a["rows"]
+        arrays["stats/chunk_wall_s"] = np.asarray(self.stats.chunk_wall_s,
+                                                  np.float64)
+        extra = {
+            "ring": ring_s, "mad": mad_s,
+            "frozen": self.stats_frozen,
+            "processed_fp": self.processed_fp,
+            "peak_tri_rows": self.peak_tri_rows,
+            "qc": dict(self.qc),
+            "stats": {"chunks": self.stats.chunks,
+                      "blocks": self.stats.blocks,
+                      "samples": self.stats.samples,
+                      "fingerprints": self.stats.fingerprints,
+                      "pairs": self.stats.pairs,
+                      "wall_total_s": self.stats.wall_total_s},
+        }
+        if self.stats_frozen:
+            arrays["med"] = np.array(self._med_mad[0].cpu().numpy())
+            arrays["mad_stat"] = np.array(self._med_mad[1].cpu().numpy())
+        if self.dup_window > 0:
+            arrays["dup/ids"] = np.asarray(
+                [i for i, _ in self._dup_hist], np.int64)
+            arrays["dup/hash"] = np.asarray(
+                [h for _, h in self._dup_hist], np.uint64)
+        if self.pending:
+            n = self.scfg.block_fingerprints
+            arrays["pending/base"] = np.asarray(
+                [b for b, _, _, _ in self.pending], np.int64)
+            arrays["pending/blocks"] = np.stack(
+                [b for _, b, _, _ in self.pending]).astype(np.float32)
+            # gap masks; an all-True row restores to None (clean block)
+            arrays["pending/valid"] = np.stack(
+                [np.ones(n, bool) if m is None else np.asarray(m, bool)
+                 for _, _, _, m in self.pending])
+            if not self.fused:      # unfused drains replay exact coeffs
+                arrays["pending/coeffs"] = np.stack(
+                    [c.cpu().numpy() for _, _, c, _ in self.pending]) \
+                    .astype(np.float32)
+        if self.rolling:
+            f_a, f_s = self.filter.snapshot()
+            arrays["filter/buf"] = f_a["buf"]
+            arrays["filter/events"] = f_a["events"]
+            extra["filter"] = f_s
+        else:
+            arrays["triplets"] = (
+                np.concatenate(self.triplets, axis=0).astype(np.int64)
+                if self.triplets else np.zeros((0, 3), np.int64))
+        return arrays, extra
+
+    def restore_state(self, arrays: dict, extra: dict) -> None:
+        """Load ``snapshot_state``'s arrays and extra (this package's or
+        the reference's). Snapshots that lack the guard leaves get the
+        reference's defaults: the traffic counter from the cursor, the
+        decay epoch from the processed frontier, empty occurrence and
+        packed rings."""
+        init = convert.index_state_to_numpy(
+            index_mod.init_index(self.cfg.lsh, self.icfg, 1, "cpu"))
+        window = self.scfg.window_fingerprints
+        leaves = {
+            "sig": arrays["index/sig"], "ids": arrays["index/ids"],
+            "cursor": arrays["index/cursor"],
+            "inserted": arrays["index/inserted"],
+            "traffic": arrays.get("index/traffic", arrays["index/cursor"]),
+            "occ": arrays.get("index/occ", init["occ"][0]),
+            "epoch": arrays.get("index/epoch", np.int32(
+                max(0, int(extra["processed_fp"]) - window)
+                // max(window, 1))),
+            "pk": arrays.get("index/pk", init["pk"][0])}
+        for k in ("sig", "occ", "pk"):
+            if np.shape(leaves[k]) != init[k].shape[1:]:
+                raise ValueError(
+                    f"snapshot index/{k} has shape {np.shape(leaves[k])}, "
+                    f"this StreamConfig's is {init[k].shape[1:]}")
+        self._state = convert.index_state(leaves, self.device)
+        self.fstate = None
+        self._halo_ok = False
+        ring_a = {"buf": arrays["ring/buf"]}
+        if "ring/vbuf" in arrays:
+            ring_a["vbuf"] = arrays["ring/vbuf"]
+        self.ring.restore(ring_a, extra["ring"])
+        self.mad.restore({"rows": arrays["mad/rows"]}, extra["mad"])
+        self.qc.update(extra.get("qc", {}))
+        self._dup_hist.clear()
+        self._dup_map = {}
+        if "dup/ids" in arrays:
+            ids = np.asarray(arrays["dup/ids"], np.int64)
+            hashes = np.asarray(arrays["dup/hash"], np.uint64)
+            for i in range(ids.shape[0]):
+                fid, h = int(ids[i]), int(hashes[i])
+                self._dup_hist.append((fid, h))
+                self._dup_map[h] = fid
+        self._med_mad = None
+        if extra["frozen"]:
+            self._set_frozen(arrays["med"], arrays["mad_stat"])
+        self.pending = []
+        if "pending/base" in arrays:
+            bases = np.asarray(arrays["pending/base"], np.int64)
+            blocks = np.asarray(arrays["pending/blocks"], np.float32)
+            coeffs = (np.asarray(arrays["pending/coeffs"], np.float32)
+                      if "pending/coeffs" in arrays else None)
+            masks = (np.asarray(arrays["pending/valid"], bool)
+                     if "pending/valid" in arrays else None)
+
+            def _mask(i):
+                if masks is None or masks[i].all():
+                    return None
+                return masks[i]
+
+            self.pending = [
+                (int(bases[i]), blocks[i],
+                 None if coeffs is None else self._on_device(coeffs[i]),
+                 _mask(i))
+                for i in range(bases.shape[0])]
+        if self.rolling:
+            self.filter.restore(
+                {"buf": arrays["filter/buf"],
+                 "events": arrays["filter/events"]}, extra["filter"])
+            self.triplets = []
+            self._tri_rows = 0
+        else:
+            tri = np.asarray(arrays["triplets"], np.int64).reshape(-1, 3)
+            self.triplets = [tri] if tri.shape[0] else []
+            self._tri_rows = int(tri.shape[0])
+        self.processed_fp = int(extra["processed_fp"])
+        self.peak_tri_rows = int(extra["peak_tri_rows"])
+        s = extra["stats"]
+        wall = np.asarray(arrays["stats/chunk_wall_s"], np.float64)
+        self.stats = StreamStats(
+            chunks=int(s["chunks"]), blocks=int(s["blocks"]),
+            samples=int(s["samples"]),
+            fingerprints=int(s["fingerprints"]), pairs=int(s["pairs"]),
+            # snapshots without the running total keep the exact total
+            # through the stored sum
+            wall_total_s=float(s.get("wall_total_s", wall.sum())),
+            chunk_wall_s=collections.deque(wall.tolist(),
+                                           maxlen=WALL_WINDOW))
 
 
 def _station_stats(med_mad, n_stations: int) -> list:
@@ -932,9 +1110,7 @@ class StreamingDetector:
                              f"got {self.station_xy.shape}")
         if getattr(cfg, "locate", None) is not None \
                 and self.station_xy is not None:
-            raise NotImplementedError(
-                "the location/magnitude tier is not ported to repro_torch "
-                "yet (ROADMAP queue 1 item 3)")
+            raise NotImplementedError(_LOCATE)
         self.pooled = (self.scfg.fused and self.scfg.pooled
                        and n_stations >= 2)
         self.telemetry = StreamTelemetry(n_stations)
@@ -958,6 +1134,10 @@ class StreamingDetector:
         self._emitted = np.zeros((0, 3), np.int64)
         self._assoc_lo = 0
         self._polled_windows = 0  # window closes seen by the last poll
+        # monotonic corpus version: bumps whenever ingestion may have
+        # changed the index pool, so a serving engine can gate its
+        # pool_serving_state() refreshes on "did anything arrive?"
+        self.serving_version = 0
 
     def push(self, chunk: np.ndarray, offset: int | None = None) -> int:
         """Ingest one network chunk; ``offset`` places it at an absolute
@@ -980,6 +1160,7 @@ class StreamingDetector:
             new = self.poll_detections()
             if new.shape[0]:
                 self.alerts.append(new)
+        self.serving_version += 1
         return emitted
 
     # -- pooled stepping ----------------------------------------------------
@@ -1164,6 +1345,7 @@ class StreamingDetector:
 
     def flush(self) -> int:
         """Process buffered tails on every station (pool-aware)."""
+        self.serving_version += 1
         if self.pooled:
             return self._pool_flush()
         return sum(st.flush() for st in self.stations)
@@ -1267,25 +1449,159 @@ class StreamingDetector:
         ``StationStream.quality_summary``)."""
         return merge_counts(st.quality_summary() for st in self.stations)
 
-    # -- not ported yet ------------------------------------------------------
-
     def metrics_snapshot(self) -> dict:
-        raise NotImplementedError(
-            "metrics_snapshot is not ported to repro_torch yet (ROADMAP "
-            "queue 1 item 2)")
+        """The one structured telemetry view of this detector (schema
+        ``stream-metrics/v1``): ``telemetry.metrics_snapshot``."""
+        return tele_mod.metrics_snapshot(self)
 
-    def pool_serving_state(self):
-        raise NotImplementedError(
-            "pool_serving_state (the serving tier's index view) is not "
-            "ported to repro_torch yet (ROADMAP queue 1 item 2)")
+    # -- serving -------------------------------------------------------------
 
-    def snapshot(self, ckpt_dir: str, step: int | None = None, **kw):
-        raise NotImplementedError(_SNAPSHOT)
+    def pool_serving_state(self) -> tuple[IndexState, torch.Tensor,
+                                          torch.Tensor]:
+        """(stacked index, med (S, C), mad (S, C)) for the serving tier,
+        pooled or not. Returns **copies**: the pooled step updates the
+        pool's tensors in place on the next push, so a serving engine
+        keeps a stable read-only view of the index at call time."""
+        if not all(st.stats_frozen for st in self.stations):
+            raise RuntimeError("pool_serving_state needs every station's "
+                               "statistics frozen")
+        if self.pstate is not None:
+            index = self.pstate.index
+            return (IndexState(**{f.name: getattr(index, f.name).clone()
+                                  for f in dataclasses.fields(IndexState)}),
+                    self.pstate.med.clone(), self.pstate.mad.clone())
+        return (index_mod.stack_states([st.state for st in self.stations]),
+                torch.stack([st.med_mad[0] for st in self.stations]),
+                torch.stack([st.med_mad[1] for st in self.stations]))
+
+    # -- snapshot / restore -------------------------------------------------
+
+    def snapshot(self, ckpt_dir: str, step: int | None = None, *,
+                 background: bool = False, keep: int = 3):
+        """Checkpoint the whole detector through ``train.checkpoint``.
+
+        One ``step_<N>`` directory holds every station's
+        ``snapshot_state`` (``s<i>/…``), the alert rows and their dedup
+        keys, empty ``detector/amp<i>`` timelines (no location tier), the
+        association floor, the telemetry and the ``StreamConfig`` fields
+        that shape the station state — the reference's layout, so either
+        package restores it. Pooled detectors write per-station slices.
+        ``step`` defaults to the chunks pushed.
+        """
+        arrays: dict[str, np.ndarray] = {}
+        st_extra = []
+        for i, st in enumerate(self.stations):
+            a, e = st.snapshot_state()
+            arrays.update({f"s{i}/{k}": v for k, v in a.items()})
+            st_extra.append(e)
+        arrays["detector/emitted"] = self._emitted.copy()
+        arrays["detector/alerts"] = (
+            np.concatenate(self.alerts, axis=0).astype(np.int64)
+            if self.alerts else np.zeros((0, ALERT_COLS), np.int64))
+        for i in range(len(self.stations)):
+            arrays[f"detector/amp{i}"] = np.zeros((0, 2), np.float64)
+        extra = {"n_stations": len(self.stations), "stations": st_extra,
+                 "assoc_lo": self._assoc_lo,
+                 "telemetry": self.telemetry.snapshot(),
+                 "scfg": {
+                     "block_fingerprints": self.scfg.block_fingerprints,
+                     "window_fingerprints": self.scfg.window_fingerprints,
+                     "filter_window_fingerprints":
+                         self.scfg.filter_window_fingerprints,
+                     "reorder_horizon_samples":
+                         self.scfg.reorder_horizon_samples,
+                     "saturation_limit": self.scfg.saturation_limit,
+                     "dup_window_fingerprints":
+                         self.scfg.dup_window_fingerprints,
+                     "dup_sig_tables": self.scfg.dup_sig_tables,
+                     "occ_limit": self.scfg.occ_limit,
+                     "max_pairs_per_block": self.scfg.max_pairs_per_block,
+                     "verify_jaccard": int(self.scfg.verify_jaccard),
+                 }}
+        if step is None:
+            step = self.stations[0].stats.chunks
+        return ckpt_mod.save_checkpoint(ckpt_dir, step, arrays, extra=extra,
+                                        background=background, keep=keep)
 
     @classmethod
     def restore(cls, ckpt_dir: str, cfg: DetectConfig,
-                scfg: StreamConfig | None = None, **kw):
-        raise NotImplementedError(_SNAPSHOT)
+                scfg: StreamConfig | None = None, *,
+                step: int | None = None,
+                station_xy: np.ndarray | None = None, device=None,
+                ) -> tuple["StreamingDetector", int]:
+        """Rebuild a detector on ``device`` from its latest (or given)
+        snapshot, this package's or the reference's; returns (detector,
+        step). A ``scfg`` whose block size, windows or guard knobs differ
+        from the snapshot's is refused with the reference's message (the
+        station layouts are not interchangeable). A pooled detector's
+        pool is rebuilt from the restored stations once all are frozen,
+        with a cold halo, as the reference rebuilds it.
+        """
+        arrays, extra, step = ckpt_mod.restore_flat(ckpt_dir, step=step)
+        det = cls(cfg, scfg, n_stations=int(extra["n_stations"]),
+                  station_xy=station_xy, device=device)
+        saved = extra.get("scfg", {})
+        for key, have in (
+                ("block_fingerprints", det.scfg.block_fingerprints),
+                ("window_fingerprints", det.scfg.window_fingerprints),
+                ("filter_window_fingerprints",
+                 det.scfg.filter_window_fingerprints),
+                ("reorder_horizon_samples",
+                 det.scfg.reorder_horizon_samples),
+                ("saturation_limit", det.scfg.saturation_limit),
+                ("dup_window_fingerprints",
+                 det.scfg.dup_window_fingerprints),
+                ("dup_sig_tables", det.scfg.dup_sig_tables),
+                ("occ_limit", det.scfg.occ_limit),
+                # verify toggles the packed ring, part of the station
+                # layout (max_pairs only shapes the step's output)
+                ("verify_jaccard", det.scfg.verify_jaccard)):
+            if key in saved and int(saved[key]) != int(have):
+                raise ValueError(
+                    f"snapshot was taken with {key}={saved[key]} but the "
+                    f"restoring StreamConfig has {have}; pass a matching "
+                    f"config (e.g. the same --window-fp/--filter-window-fp "
+                    f"flags the snapshotting service ran with)")
+        if any(np.asarray(arrays.get(f"detector/amp{i}", ())).size
+               for i in range(len(det.stations))):
+            # amplitude timelines: the location tier wrote this snapshot
+            raise NotImplementedError(_LOCATE)
+        for i, st in enumerate(det.stations):
+            prefix = f"s{i}/"
+            sub = {k[len(prefix):]: v for k, v in arrays.items()
+                   if k.startswith(prefix)}
+            st.restore_state(sub, extra["stations"][i])
+        if det.pooled and all(st.stats_frozen for st in det.stations):
+            det._build_pool()
+        emitted = np.asarray(arrays["detector/emitted"], np.int64)
+        if emitted.ndim == 2 and emitted.shape[1] == 2:
+            # keys without the best-multiplicity column: seed it at the
+            # floor, so any growth past min_stations re-emits as an
+            # upgrade (the reference's rule for such snapshots)
+            emitted = np.concatenate(
+                [emitted, np.full((emitted.shape[0], 1),
+                                  cfg.align.min_stations, np.int64)],
+                axis=1)
+        det._emitted = emitted.reshape(-1, 3)
+        alerts = np.asarray(arrays["detector/alerts"], np.int64)
+        if alerts.ndim == 2 and alerts.shape[1] == 4:
+            # 4-column rows: pad the upgrade / location / magnitude
+            # columns with their sentinels
+            pad = np.zeros((alerts.shape[0], ALERT_COLS - 4), np.int64)
+            pad[:, 1:3] = LOC_NONE
+            pad[:, 3] = MAG_NONE
+            alerts = np.concatenate([alerts, pad], axis=1)
+        alerts = alerts.reshape(-1, ALERT_COLS)
+        det.alerts = [alerts] if alerts.shape[0] else []
+        det._assoc_lo = int(extra["assoc_lo"])
+        if "telemetry" in extra:    # older snapshots: a fresh registry
+            det.telemetry.restore(extra["telemetry"])
+        if det.rolling:
+            det._polled_windows = sum(st.filter.windows_closed
+                                      for st in det.stations)
+        return det, step
+
+    # -- not ported yet ------------------------------------------------------
 
     def add_station(self, med_mad=None) -> int:
         raise NotImplementedError(
@@ -1305,28 +1621,22 @@ def ingest_chunks(det: StreamingDetector, waveforms: np.ndarray,
                   metrics_every: int = 0,
                   metrics_file: str | None = None,
                   heartbeat=print, on_chunk=None) -> dict:
-    """Push a trace through a detector in equal chunks — the shared ingest
-    loop of the reference's serving, benchmarks and examples.
+    """Push a trace through a detector in equal chunks — the one ingest
+    loop behind serving (``launch.serve_detect``) and ``chip_smoke.py``.
 
     ``waveforms``: (T,) or (n_stations, T). ``skip`` resumes mid-stream
     (samples already ingested are not re-pushed; a partially covered chunk
     is trimmed). ``warmup_chunks`` excludes the first chunks (statistics
     freeze, first kernel builds) from the timed span. ``metrics_every`` > 0
     sends a heartbeat line (real-time factor, throughput, drop rates,
-    quality counters) to ``heartbeat`` every N pushed chunks.
-    ``on_chunk(ci)`` runs after each pushed chunk. Returns {"chunks",
+    quality counters, serving view) to ``heartbeat`` every N pushed chunks and, with
+    ``metrics_file``, rewrites the Prometheus exposition there atomically
+    at the same cadence. ``snapshot_every`` > 0 checkpoints the detector
+    into ``snapshot_dir`` after every N-th chunk of the trace (step = the
+    chunk's 1-based index). ``on_chunk(ci)`` runs after each pushed chunk
+    (the serving tier's interleave hook). Returns {"chunks",
     "timed_chunks", "wall_s", "warmup_wall_s", "samples"}.
-
-    Snapshots (``snapshot_every``) and the Prometheus file
-    (``metrics_file``) are not ported yet (ROADMAP queue 1 item 2) and
-    raise.
     """
-    if snapshot_every or snapshot_dir is not None:
-        raise NotImplementedError(_SNAPSHOT)
-    if metrics_file is not None:
-        raise NotImplementedError(
-            "the Prometheus metrics file is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 2)")
     waveforms = np.atleast_2d(np.asarray(waveforms, np.float32))
     chunks = np.array_split(waveforms, n_chunks, axis=1)
     seen = 0
@@ -1347,8 +1657,12 @@ def ingest_chunks(det: StreamingDetector, waveforms: np.ndarray,
         if pushed > warmup_chunks:
             timed += 1
             samples += int(chunk.size)
+        if snapshot_every and (ci + 1) % snapshot_every == 0:
+            det.snapshot(snapshot_dir, step=ci + 1)
         if metrics_every and pushed % metrics_every == 0:
             heartbeat(det.telemetry.heartbeat_line(det))
+            if metrics_file:
+                det.telemetry.write_prometheus(metrics_file, det)
         if on_chunk is not None:
             on_chunk(ci)
     t_end = time.perf_counter()

@@ -209,15 +209,31 @@ def query(state: IndexState, sigs: torch.Tensor, qids: torch.Tensor,
     suppresses emission for flagged rows; ``saturation`` > 0 drops hits in
     buckets whose traffic exceeds it. ``counts`` also returns the (S, 2)
     [raw collisions, quarantined collisions]; ``max_pairs`` > 0 compacts.
+
+    sigs may carry a slot axis, (S, Q, N, t) with ``qids`` (N,) shared by
+    every slot (the serving tier's batches): the slots fold into one
+    gather (the index is never copied once a slot), and each (station,
+    slot) row keeps its own id test, m-of-t count and compaction, giving
+    Pairs (S, Q, M) equal to Q separate calls. ``buckets`` and ``qvalid``
+    then carry the same slot axis.
     """
     s, t, b, c = state.sig.shape
+    q = sigs.shape[1] if sigs.dim() == 4 else 0
+    if q:
+        n = sigs.shape[2]
+        sigs = sigs.reshape(s, q * n, t)
+        if buckets is not None:
+            buckets = buckets.reshape(s, q * n, t)
+        if qvalid is not None:
+            qvalid = qvalid.reshape(s, q * n)
+        qids = qids.repeat(q)
     if buckets is None:
         buckets = lsh_mod.bucket_ids(sigs, b, cfg.seed)
     bk = _by_table(buckets)
     occ_sig, occ_id = _bucket_rows(state, bk)
-    q = qids.to(torch.int32)[None, None, :, None]
+    qid = qids.to(torch.int32)[None, None, :, None]
     raw = ((occ_sig == _by_table(sigs)[..., None]) & (occ_id != INVALID)
-           & (occ_id < q))
+           & (occ_id < qid))
     hit = raw
     n_quar = torch.zeros(s, dtype=torch.int32, device=raw.device)
     if saturation > 0:
@@ -228,11 +244,18 @@ def query(state: IndexState, sigs: torch.Tensor, qids: torch.Tensor,
             n_quar = (raw & ~ok).sum(dim=(1, 2, 3), dtype=torch.int32)
     if qvalid is not None:
         hit = hit & qvalid[:, None, :, None]
-    lo = torch.where(hit, occ_id, INVALID).reshape(s, -1)
-    hi = torch.where(hit, q, INVALID).reshape(s, -1)
-    pairs = lsh_mod.finalize_pairs(lo, hi, cfg)
+    lo = torch.where(hit, occ_id, INVALID)
+    hi = torch.where(hit, qid, INVALID)
+    if q:   # (S, t, Q·N, C) → one row a (station, slot), ordered (t, N, C)
+        lo, hi = (x.view(s, t, q, n, c).transpose(1, 2) for x in (lo, hi))
+    rows = s * max(q, 1)
+    pairs = lsh_mod.finalize_pairs(lo.reshape(rows, -1),
+                                   hi.reshape(rows, -1), cfg)
     if max_pairs > 0:
         pairs, _ = compact_pairs(pairs, max_pairs)
+    if q:
+        pairs = Pairs(*(getattr(pairs, f.name).reshape(s, q, -1)
+                        for f in dataclasses.fields(Pairs)))
     if not counts:
         return pairs
     n_raw = raw.sum(dim=(1, 2, 3), dtype=torch.int32)

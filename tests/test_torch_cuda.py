@@ -3,8 +3,12 @@ ragged and large-shared-memory shapes; the batch golden, the offline
 golden and the offline search's card-equals-CPU parity on the card; the
 streaming driver on the card (advance route equal to the block route,
 one launch of each kernel a pooled block, the stream golden, the
-detector's default device); the LM serving engine's tokens on the card
-equal to its CPU path's.
+detector's default device); detection serving on the card (one launch of
+``stft_mag``, ``haar2d`` and ``minmax_hash`` a dispatched tick, none on an
+idle tick, match lists equal to the CPU's; ``pool_serving_state`` copies
+that survive a push) and a detector snapshot taken on the card restoring
+on the card and the CPU to the CPU's uninterrupted run; the LM serving
+engine's tokens on the card equal to its CPU path's.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -635,6 +639,108 @@ def test_detector_defaults_to_the_card(cuda):
                              n_stations=2, med_mad=(med, med + 1))
     assert pool.pooled and pool.pstate.index.sig.is_cuda
     assert pool.stations[1].state.ids.is_cuda
+
+
+def _bounded_stream(dev, n_pushes=None):
+    """The bounded 3-station smoke stream (600 s, 6,000-sample pushes) on
+    ``dev``; returns the detector, the trace and the push bounds."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.stream import StreamingDetector
+    ds = make_dataset(SynthConfig(duration_s=600.0, n_stations=3,
+                                  n_sources=2, events_per_source=5,
+                                  event_snr=3.0, seed=11))
+    wf = ds.waveforms
+    bounds = [(a, a + 6000) for a in range(0, wf.shape[1], 6000)]
+    det = StreamingDetector(fast_seismic.smoke_config(),
+                            fast_seismic.stream_bounded_smoke_config(),
+                            n_stations=3, device=dev)
+    for a, b in bounds[:n_pushes]:
+        det.push(wf[:, a:b])
+    return det, wf, bounds
+
+
+def test_serving_tick_launches_each_kernel_once(cuda):
+    """A dispatched serving tick launches stft_mag, haar2d and
+    minmax_hash once each; an idle tick launches nothing; the card's
+    match lists equal the CPU's on the same serving state."""
+    from repro_torch.launch.serve_detect import (QueryRequest,
+                                                 ServeDetectEngine)
+    det, wf, _ = _bounded_stream(cuda)
+    det.flush()
+    state, med, mad = det.pool_serving_state()
+    reqs = {}
+    for dev in (cuda, "cpu"):
+        eng = ServeDetectEngine(det.cfg, det.scfg, state, (med, mad),
+                                n_slots=4, top_k=32, device=dev)
+        reqs[str(dev)] = [QueryRequest(rid=i, window=wf[i % 3, a:a + 3000])
+                          for i, a in enumerate(range(0, 42_000, 6000))]
+        if dev == "cpu":
+            eng.run(reqs["cpu"])
+            continue
+        for r in reqs[str(cuda)]:
+            eng.submit(r)
+        while eng.pending():
+            ops.reset_launches()
+            served = eng.tick()
+            torch.cuda.synchronize()
+            for name in ("stft_mag", "haar2d", "minmax_hash"):
+                assert ops.LAUNCHES[name] == (1 if served else 0), name
+        ops.reset_launches()
+        assert eng.tick() == 0
+        assert sum(ops.LAUNCHES.values()) == 0
+    assert [r.matches for r in reqs[str(cuda)]] == \
+        [r.matches for r in reqs["cpu"]]
+    assert any(r.matches for r in reqs["cpu"])
+
+
+def test_pool_serving_state_clones_survive_a_push(cuda):
+    det, wf, bounds = _bounded_stream(cuda, 6)
+    assert det.pstate is not None
+    state, med, _ = det.pool_serving_state()
+    before = {k: getattr(state, k).clone() for k in ("sig", "ids", "pk")}
+    for a, b in bounds[6:]:
+        det.push(wf[:, a:b])
+    torch.cuda.synchronize()
+    for k, v in before.items():
+        assert torch.equal(getattr(state, k), v), k
+        assert getattr(state, k).data_ptr() != \
+            getattr(det.pstate.index, k).data_ptr()
+    assert not torch.equal(state.ids, det.pstate.index.ids)
+    assert med.device == det.pstate.med.device
+
+
+def test_snapshot_round_trip_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """Snapshot the bounded stream on the card mid-way, restore it on the
+    card, finish it: alerts, detections and events equal the CPU's
+    uninterrupted run; the card's snapshot restores on the CPU too."""
+    from repro_torch.stream import StreamingDetector
+    from repro_torch.stream.engine import events_to_rows
+    det, wf, bounds = _bounded_stream(cuda, 5)
+    det.snapshot(str(tmp_path))
+    runs = []
+    for dev in (cuda, "cpu"):
+        restored, step = StreamingDetector.restore(
+            str(tmp_path), det.cfg, det.scfg, device=dev)
+        assert step == 5 and restored.pstate.index.sig.device.type == \
+            torch.device(dev).type
+        for a, b in bounds[5:]:
+            restored.push(wf[:, a:b])
+        runs.append(restored)
+    whole, _, _ = _bounded_stream("cpu")
+
+    def result(d):
+        dets, events, stats = d.finalize()
+        alerts = np.concatenate(d.alerts) if d.alerts else np.zeros((0, 8))
+        return (alerts.tolist(),
+                {k: v.cpu().tolist() for k, v in dets.items()},
+                [events_to_rows(e).tolist() for e in events],
+                stats["detections"], d.quality_summary())
+
+    want = result(whole)
+    assert result(runs[0]) == want
+    assert result(runs[1]) == want
+    assert want[3] >= 1
 
 
 # fp32: summation order and the online-softmax rescale; bf16 output: one

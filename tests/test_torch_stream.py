@@ -323,8 +323,7 @@ def test_ingest_chunks_counts_match_reference(bounded):
                                                       "quality")},
                     sorted(beat))
     assert out["port"][:3] == out["ref"][:3]
-    # the heartbeat's serve entry waits for the serving tier
-    assert out["port"][3] == sorted(set(out["ref"][3]) - {"serve"})
+    assert out["port"][3] == out["ref"][3]
 
 
 def test_station_stream_and_solo_detector_agree(golden):
@@ -376,18 +375,8 @@ def _raises(call):
 
 
 UNPORTED = {
-    "snapshot": lambda d: d.snapshot("unused"),
-    "restore": lambda d: type(d).restore("unused", d.cfg, d.scfg),
     "add_station": lambda d: d.add_station(),
     "remove_station": lambda d: d.remove_station(0),
-    "pool_serving_state": lambda d: d.pool_serving_state(),
-    "metrics_snapshot": lambda d: d.metrics_snapshot(),
-    "station_snapshot": lambda d: d.stations[0].snapshot_state(),
-    "station_restore": lambda d: d.stations[0].restore_state({}, {}),
-    "ingest_snapshots": lambda d: tengine.ingest_chunks(
-        d, np.zeros((2, 100)), snapshot_every=1, snapshot_dir="unused"),
-    "ingest_metrics_file": lambda d: tengine.ingest_chunks(
-        d, np.zeros((2, 100)), metrics_file="unused"),
 }
 
 
