@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's batch FAST detection, streaming detection,
-offline Min-Max LSH search, LM serving, detection serving and detector
-snapshots on one NVIDIA GPU, end to end.
+offline Min-Max LSH search, LM serving, detection serving, detector
+snapshots, elastic pool membership and the location / magnitude tier on
+one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -135,7 +136,40 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     temporary directory (bytes on disk, write time), ``restore`` into a
     new detector on the card (restore time), pushes 721–1,440: per-station
     stats, events, alerts, detections and drops equal phase 7's
-    uninterrupted run. The directory is deleted.
+    uninterrupted run.
+18. Elastic membership at full width: phase 17's snapshot restored again,
+    ``add_station()`` (a fifth station at the frontier, seeded noise), 60
+    pushes to all five, ``remove_station(4)``, the rest of the stream,
+    launch counters zeroed just before and read just after: stations
+    0–3's per-station stats and events and the detections equal phase 7's
+    record; the two re-pack walls. The snapshot directory is then deleted.
+19. The located batch scenario at the paper's location width
+    (``locate_config()``) on ``tests/golden/located_scenario.json``'s
+    6-station, 600 s network (written from the JAX reference by
+    ``tools/located_golden.py``): clean, pairwise and gated runs of
+    ``detect_events``, launch counters around the three; every associated
+    group's integer columns (``dt``, ``onset``, ``n_stations``, ``valid``,
+    ``n_used``, ``consistent``) exact, origins within one finest cell
+    (``cell_km``, + 1e-4 km of float32 spacing), magnitudes within 1e-5,
+    the summary counts equal and the median origin error within 0.01 km;
+    the three walls and the migration stack's share of each.
+20. The location stack at scale: ``locate_groups`` with ``locate_config()``
+    on 4,096 groups × 16 stations (onsets from known origins, a quarter of
+    the stations absent), card against the CPU (origins within one finest
+    cell, ``n_used`` and ``consistent`` equal), timed on the card.
+21. The located stream: ``located_smoke_config()`` with
+    ``stream_bounded_smoke_config()`` on a 4-station, 900 s, seed-11
+    ``physical_geometry`` trace in 6,000-sample pushes: card = the port's
+    CPU path (alert rows exact but for ±1 milli-km in the location
+    columns, detections within 1e-4), launch counters around the card's
+    run; then snapshotted halfway, restored on the card and finished:
+    amplitude timelines and result equal to the uninterrupted run.
+22. ``serve_detect.main(["--locate", ...])`` on the card and the CPU: the
+    RESULT's ``located`` block and the ``ALERT`` rows equal, launch
+    counters around the card's run.
+23. One paper block with ``time_domain_bandpass=True``: the card's
+    spectrogram within the kernel tolerance of the CPU's, the bits
+    (the CPU's statistics on both) agreeing on ≥ 99.9%.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -151,8 +185,10 @@ four kernels of the detection core, each with the batch replay's count
 ``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b).
 The serving phase's counts stand beside them under ``launches_by_path``
 (``serve``) for ``stft_mag``, ``haar2d`` and ``minmax_hash``, whose entries
-also carry their error, time and bound at the serving shapes
-(``serving_shape``).
+also carry their error, time, bound and library time at the serving
+shapes (``serving_shape``), and so do the located paths' (phases 18, 19,
+21 and 22: ``elastic``, ``located_batch``, ``located_stream``,
+``serve_locate``) for the kernels each runs.
 Without CUDA it exits 2 and prints no result. Writes
 ``chiprun_out/chip_smoke.json`` with everything printed.
 """
@@ -163,6 +199,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -216,12 +253,18 @@ KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
                "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
 # every path whose launch counts a kernel's entry lists under
 # launches_by_path: the batch replay (phase 5), the streaming service
-# (phase 7), the offline search (phase 11) and detection serving (phase 16)
-KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve"),
-                "haar2d": ("paper", "stream_paper", "serve"),
-                "minmax_sig_buckets": ("paper", "stream_paper"),
-                "jaccard_popcount": ("paper", "stream_paper"),
-                "minmax_hash": ("offline_paper", "serve")}
+# (phase 7), the offline search (phase 11), detection serving (phase 16),
+# the elastic stream (18), the located batch replay (19), the located
+# stream (21) and serving with --locate (22)
+LOCATED_PATHS = ("located_batch", "located_stream", "serve_locate",
+                 "elastic")
+KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve")
+                + LOCATED_PATHS,
+                "haar2d": ("paper", "stream_paper", "serve") + LOCATED_PATHS,
+                "minmax_sig_buckets": ("paper", "stream_paper")
+                + LOCATED_PATHS,
+                "jaccard_popcount": ("paper", "stream_paper", "elastic"),
+                "minmax_hash": ("offline_paper", "serve", "serve_locate")}
 SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # kernel tolerance, a share of max|plain|: fp32 summation order and the
 # online-softmax rescale; one rounding of a bf16 output, plus P rounded to
@@ -384,9 +427,11 @@ def _haar_work(imgs) -> tuple[int, int]:
             n * (2 * h * w * w + 2 * h * h * w))
 
 
-def _shape_case(call, plain, work: tuple[int, int]) -> dict:
+def _shape_case(call, plain, work: tuple[int, int], library=None) -> dict:
     """A kernel at one more shape of its path: held against its plain
-    version at ``_close``'s tolerance, timed, with its bound."""
+    version at ``_close``'s tolerance, timed, with its bound and, where
+    one PyTorch call computes the same function (``library``), that
+    call's time."""
     import torch
     got, want = call(), plain()
     torch.cuda.synchronize()
@@ -394,7 +439,8 @@ def _shape_case(call, plain, work: tuple[int, int]) -> dict:
     bound, by = _bound_ms(*work)
     return {"shape": list(got.shape), "max_abs_err": err,
             "ms": _time_ms(call), "plain_ms": _time_ms(plain),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": None if library is None else _time_ms(library)}
 
 
 def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
@@ -1146,13 +1192,24 @@ def serve_phase(det, ds, dev) -> tuple[dict, dict]:
     imgs = fp_mod.spectral_images(spec, fcfg).reshape(
         -1, fcfg.img_freq, fcfg.img_time).contiguous()
     th, tw, _ = ops.haar_mats(fcfg.img_freq, fcfg.img_time, dev)
+    # the library calls of kernel_phase at these shapes: one matmul of
+    # the windowed frames by both DFT matrices, one einsum of the images
+    # by the two transform matrices
+    frames = blocks[:, :(spec.shape[1] - 1) * fcfg.stft_hop
+                    + fcfg.stft_len].unfold(-1, fcfg.stft_len, fcfg.stft_hop)
+    xw = (frames * c["window"]).reshape(-1, fcfg.stft_len).contiguous()
+    dft_cat = torch.cat([c["dft_r"], c["dft_i"]], dim=1).contiguous()
     shapes = {
         "stft_mag": _shape_case(lambda: ops.stft_mag(*args),
                                 lambda: stft_k.plain(*args),
-                                _stft_work(blocks, spec, fcfg.stft_len)),
+                                _stft_work(blocks, spec, fcfg.stft_len),
+                                lambda: torch.matmul(xw, dft_cat)),
         "haar2d": _shape_case(lambda: ops.haar2d(imgs),
                               lambda: haar_k.plain(imgs, th, tw),
-                              _haar_work(imgs))}
+                              _haar_work(imgs),
+                              lambda: torch.einsum("ij,njk,lk->nil", th,
+                                                   imgs, tw))}
+    del frames, xw
     # its live work: a (station, slot) row holds t·N·C candidate slots
     _, packed = fp_mod.binarize_coeffs(
         fp_mod.coeffs_from_waveform(blocks, fcfg), fcfg,
@@ -1238,14 +1295,13 @@ def serve_phase(det, ds, dev) -> tuple[dict, dict]:
     return out, shapes
 
 
-def snapshot_phase(ds, dev, want: dict) -> dict:
-    """Phase 7's stream again to its halfway push, snapshotted to a
-    temporary directory (size on disk, write time), restored into a new
-    detector on the card (restore time), and pushed to the end: the
-    record (per-station stats, events, alerts, detections, drops) must
-    equal phase 7's uninterrupted run."""
+def snapshot_phase(ds, dev, want: dict, tmp: str) -> dict:
+    """Phase 7's stream again to its halfway push, snapshotted into
+    ``tmp`` (size on disk, write time; the elastic phase restores it
+    again), restored into a new detector on the card (restore time), and
+    pushed to the end: the record (per-station stats, events, alerts,
+    detections, drops) must equal phase 7's uninterrupted run."""
     import pathlib as pl
-    import tempfile
     import torch
     from repro_torch.configs import fast_seismic
     from repro_torch.stream import StreamingDetector
@@ -1256,19 +1312,17 @@ def snapshot_phase(ds, dev, want: dict) -> dict:
     det = StreamingDetector(cfg, scfg, n_stations=wave.shape[0], device=dev)
     for a in starts[:half]:
         det.push(wave[:, a:a + STREAM_CHUNK])
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det.snapshot(tmp, step=half)
-        write_s = time.perf_counter() - t0
-        files = [f for f in pl.Path(tmp).rglob("*") if f.is_file()]
-        size = sum(f.stat().st_size for f in files)
-        del det
-        t0 = time.perf_counter()
-        restored, step = StreamingDetector.restore(tmp, cfg, scfg,
-                                                   device=dev)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.snapshot(tmp, step=half)
+    write_s = time.perf_counter() - t0
+    files = [f for f in pl.Path(tmp).rglob("*") if f.is_file()]
+    size = sum(f.stat().st_size for f in files)
+    del det
+    t0 = time.perf_counter()
+    restored, step = StreamingDetector.restore(tmp, cfg, scfg, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for a in starts[half:]:
         restored.push(wave[:, a:a + STREAM_CHUNK])
@@ -1284,6 +1338,465 @@ def snapshot_phase(ds, dev, want: dict) -> dict:
     _need(all(same.values()), f"snapshot: the restored stream differs from "
           f"the uninterrupted run: {same}")
     _need(step == half and restored.pooled, "snapshot: wrong step or pool")
+    return out
+
+
+def _located_golden():
+    """``tests/golden/located_scenario.json`` (written from the JAX
+    reference by ``tools/located_golden.py``) and the port's configuration
+    of its scenario, rebuilt from the file."""
+    from repro_torch import core
+    from repro_torch.core.locate import LocateConfig
+    gold = json.loads((ROOT / "tests" / "golden" / "located_scenario.json")
+                      .read_text())
+    cfg = core.DetectConfig(
+        fingerprint=core.FingerprintConfig(**gold["fingerprint"]),
+        lsh=core.LSHConfig(**gold["lsh"]),
+        align=core.AlignConfig(**gold["align"]),
+        locate=LocateConfig(**gold["locate"]))
+    return gold, cfg
+
+
+def _host_dict(det: dict) -> dict:
+    import torch
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else v
+            for k, v in det.items()}
+
+
+def located_batch_phase(dev) -> dict:
+    """The located batch scenario at the paper's location width
+    (``locate_config()``: 12 × 12 grid, two refinements, the 2-lag gate)
+    on the card: ``tests/golden/located_scenario.json``'s 6-station,
+    600 s ``physical_geometry`` network, clean (location off), pairwise
+    (located, ungated) and gated. Launch counters zeroed just before the
+    three runs and read just after; the migration stack's wall is taken
+    around each ``locate_detections`` pass (one device→host copy each).
+    Every associated group's integer columns must equal the golden's,
+    origins within one finest cell, magnitudes within 1e-5, the summary
+    counts equal and the median origin error within 0.01 km."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import locate as locate_mod
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core.detect import detect_events
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT))
+    from tools.located_golden import group_rows, summarize
+    gold, cfg = _located_golden()
+    clean = make_dataset(SynthConfig(**gold["synth"]))
+    noisy = make_dataset(SynthConfig(
+        **gold["synth"], repeating_noise_stations=tuple(
+            gold["noisy_stations"])))
+    stack_s = [0.0]
+    inner = locate_mod.locate_detections
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = inner(*a, **k)
+        stack_s[0] += time.perf_counter() - t
+        return out
+
+    runs, walls, stacks = {}, {}, {}
+    locate_mod.locate_detections = timed
+    try:
+        # one untimed run first: the kernels' first launches at these
+        # shapes, outside the walls and the counts
+        detect_events(clean.waveforms, cfg, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for name, wf, loc in (
+                ("golden", clean.waveforms, None),
+                ("pairwise", noisy.waveforms, dataclasses.replace(
+                    cfg.locate, reject_inconsistent=False)),
+                ("gated", noisy.waveforms, cfg.locate)):
+            stack_s[0] = 0.0
+            t0 = time.perf_counter()
+            det, _, _, stats = detect_events(
+                wf, dataclasses.replace(cfg, locate=loc), device=dev,
+                station_xy=noisy.station_xy if loc else None)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            stacks[name] = stack_s[0]
+            runs[name] = (_host_dict(det), stats)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        locate_mod.locate_detections = inner
+    summary = summarize(runs["golden"][0], runs["pairwise"][0],
+                        runs["gated"][0], runs["gated"][1], cfg.align,
+                        noisy.source_xy, cfg.locate.coarse_cell_km)
+    tol = cfg.locate.cell_km + 1e-4       # one finest cell in float32
+    checks, worst = {}, {}
+    for name in runs:
+        got = group_rows(runs[name][0], name != "golden")
+        want = gold["runs"][name]
+        ok = set(got) == set(want)
+        for k in want:
+            if k in ("x_km", "y_km", "magnitude"):
+                g = np.array([np.nan if x is None else x for x in got[k]])
+                w = np.array([np.nan if x is None else x for x in want[k]])
+                d = np.abs(g - w)[~np.isnan(w)]
+                worst[f"{name}_{k}"] = float(d.max()) if d.size else 0.0
+                ok &= bool(np.array_equal(np.isnan(g), np.isnan(w)) and
+                           (d <= (1e-5 if k == "magnitude" else tol)).all())
+            else:
+                ok &= got[k] == want[k]
+        checks[name] = ok
+    same_summary = all(
+        abs(summary[k] - v) <= 0.01 if k.startswith("median_origin_err")
+        else summary[k] == v for k, v in gold["summary"].items())
+    out = {"stations": gold["synth"]["n_stations"],
+           "duration_s": gold["synth"]["duration_s"],
+           "grid": cfg.locate.grid_n, "refine_levels":
+           cfg.locate.refine_levels, "wall_s": walls, "stack_s": stacks,
+           "stack_share": {k: stacks[k] / walls[k] for k in walls},
+           "launches": launches, "summary": summary,
+           "max_diff": worst, "groups_equal": checks,
+           "summary_equal": same_summary}
+    print("located_batch", json.dumps(out), flush=True)
+    _need(all(checks.values()), f"located batch: groups differ from "
+          f"tests/golden/located_scenario.json: {checks} {worst}")
+    _need(same_summary, f"located batch: summary {summary} differs from "
+          f"the golden's {gold['summary']}")
+    for name in BATCH_KERNELS[:3]:
+        _need(launches[name] >= 3, f"located batch: {name} launched "
+              f"{launches[name]} times in three replays")
+    return out
+
+
+def locate_stack_phase(dev) -> dict:
+    """``locate_groups`` with ``locate_config()`` on 4,096 groups × 16
+    stations: onsets from known origins through ``travel_time_lags``
+    (lag noise, a quarter of the stations absent), on the card and on the
+    CPU. Origins within one finest cell of the CPU's, ``n_used`` and
+    ``consistent`` equal; the card's time (CUDA events) beside it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import locate
+    from repro_torch.kernels import ops
+    cfg = fast_seismic.locate_config()
+    g_n, s_n, lag_s = 4096, 16, np.float32(2.0)
+    rng = np.random.default_rng(20)
+    xy = torch.as_tensor(rng.uniform(2.5, 47.5, (s_n, 2)),
+                         dtype=torch.float32)
+    src = torch.as_tensor(rng.uniform(0.0, 50.0, (g_n, 2)),
+                          dtype=torch.float32)
+    tt = locate.travel_time_lags(src, xy, cfg, lag_s).numpy()
+    on = np.round(300 + tt + rng.normal(0, 0.5, tt.shape)).astype(np.int32)
+    on[rng.random(on.shape) < 0.25] = 2**31 - 1
+    w = torch.as_tensor(rng.uniform(0.05, 1.0, s_n), dtype=torch.float32)
+    args = {d: (torch.as_tensor(on, device=d), w.to(d), xy.to(d))
+            for d in (dev, "cpu")}
+    ops.reset_launches()
+    card = locate.locate_groups(*args[dev], lag_s, cfg)
+    torch.cuda.synchronize()
+    launches = sum(ops.LAUNCHES.values())
+    t0 = time.perf_counter()
+    cpu = locate.locate_groups(*args["cpu"], lag_s, cfg)
+    cpu_s = time.perf_counter() - t0
+    card = {k: v.cpu().numpy() for k, v in card.items()}
+    cpu = {k: v.numpy() for k, v in cpu.items()}
+    xy_diff = float(np.abs(card["xy"] - cpu["xy"]).max())
+    err = np.linalg.norm(card["xy"] - src.numpy(), axis=1)
+    out = {"groups": g_n, "stations": s_n, "grid": cfg.grid_n,
+           "refine_levels": cfg.refine_levels,
+           "candidates_per_level": cfg.grid_n ** 2,
+           "ms": _time_ms(lambda: locate.locate_groups(*args[dev], lag_s,
+                                                       cfg), iters=10),
+           "cpu_s": cpu_s, "kernel_launches": launches,
+           "max_xy_diff_km": xy_diff, "cell_km": cfg.cell_km,
+           "n_used_equal": bool(np.array_equal(card["n_used"],
+                                               cpu["n_used"])),
+           "consistent_equal": bool(np.array_equal(card["consistent"],
+                                                   cpu["consistent"])),
+           "consistent_share": float(cpu["consistent"].mean()),
+           "median_origin_err_km": float(np.median(err))}
+    print("locate_stack", json.dumps(out), flush=True)
+    _need(xy_diff <= cfg.cell_km + 1e-4 and out["n_used_equal"]
+          and out["consistent_equal"], f"locate stack: card differs from "
+          f"the CPU: {out}")
+    return out
+
+
+def _located_stream(cfg, scfg, ds, dev, upto=None, det=None):
+    """The located bounded stream on ``dev`` in ``STREAM_CHUNK`` pushes
+    (from ``det``'s position when given, up to push ``upto``)."""
+    from repro_torch.stream import StreamingDetector
+    if det is None:
+        det = StreamingDetector(cfg, scfg, n_stations=ds.waveforms.shape[0],
+                                station_xy=ds.station_xy, device=dev)
+    starts = list(range(0, ds.waveforms.shape[1], STREAM_CHUNK))
+    done = det.stations[0].stats.chunks
+    for a in starts[done:upto]:
+        det.push(ds.waveforms[:, a:a + STREAM_CHUNK])
+    return det
+
+
+def _located_record(det) -> dict:
+    """A finished located stream: alert rows, located detections (NaN as
+    None), per-station events and stats, the locate counters."""
+    import numpy as np
+    alerts = np.concatenate(det.alerts) if det.alerts else np.zeros((0, 8))
+    dets, events, stats = det.finalize()
+    stats = json.loads(json.dumps(stats, default=float))
+    for s in stats["ingest"]:
+        for k in WALL_KEYS:
+            s.pop(k)
+    view = det.telemetry.locate_view()
+    return {"alerts": alerts.astype(np.int64),
+            "detections": _host_dict(dets),
+            "events": [_event_rows(e) for e in events], "stats": stats,
+            "locate": {k: view[k] for k in ("passes", "groups", "located",
+                                           "moveout_rejected")}}
+
+
+def _located_equal(a: dict, b: dict, loc_tol: int, tol: float) -> bool:
+    """Two located records equal: alert rows exact but for ``loc_tol``
+    milli-km in the location columns, detections' integer columns exact
+    and float columns within ``tol`` (NaN where the other is NaN)."""
+    import numpy as np
+    x, y = a["alerts"], b["alerts"]
+    if x.shape != y.shape or not np.array_equal(np.delete(x, [5, 6], 1),
+                                                np.delete(y, [5, 6], 1)):
+        return False
+    if x.size and np.abs(x[:, 5:7] - y[:, 5:7]).max() > loc_tol:
+        return False
+    if set(a["detections"]) != set(b["detections"]):
+        return False
+    for k, u in a["detections"].items():
+        v = b["detections"][k]
+        if u.dtype.kind == "f":
+            if not (np.array_equal(np.isnan(u), np.isnan(v)) and np.all(
+                    np.abs(u - v)[~np.isnan(v)] <= tol)):
+                return False
+        elif not np.array_equal(u, v):
+            return False
+    return all(a[k] == b[k] for k in ("events", "stats", "locate"))
+
+
+def located_stream_phase(dev, tmp: str) -> dict:
+    """The located stream: ``located_smoke_config()`` with
+    ``stream_bounded_smoke_config()`` on the 4-station, 900 s, seed-11
+    ``physical_geometry`` trace in 6,000-sample pushes, launch counters
+    zeroed just before and read just after the card's run. The card must
+    equal the port's CPU path (alert rows within ±1 milli-km in the
+    location columns and exact elsewhere; detections' integer columns
+    exact, floats within 1e-4). Then the card's stream is snapshotted at
+    its halfway push into ``tmp``, restored on the card and finished:
+    the amplitude timelines restore bin for bin and the result equals the
+    uninterrupted card run's exactly."""
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.stream import StreamingDetector
+    cfg = fast_seismic.located_smoke_config()
+    scfg = fast_seismic.stream_bounded_smoke_config()
+    ds = make_dataset(SynthConfig(duration_s=900.0, n_stations=4,
+                                  n_sources=2, events_per_source=6,
+                                  event_snr=3.0, seed=11,
+                                  physical_geometry=True))
+    _located_stream(cfg, scfg, ds, dev)          # first launches, untimed
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    det = _located_stream(cfg, scfg, ds, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    blocks = det.stations[0].stats.blocks
+    card = _located_record(det)
+    cpu = _located_record(_located_stream(cfg, scfg, ds, "cpu"))
+    pushes = det.stations[0].stats.chunks
+    half = _located_stream(cfg, scfg, ds, dev, upto=pushes // 2)
+    amps = [dict(d) for d in half._amp]
+    half.snapshot(tmp, step=pushes // 2)
+    restored, step = StreamingDetector.restore(
+        tmp, cfg, scfg, station_xy=ds.station_xy, device=dev)
+    same_amps = restored._amp == amps
+    resumed = _located_record(_located_stream(cfg, scfg, ds, dev,
+                                              det=restored))
+    out = {"stations": 4, "duration_s": 900.0, "pushes": pushes,
+           "blocks": blocks, "wall_s": wall, "launches": launches,
+           "alerts": int(card["alerts"].shape[0]),
+           "located_alerts": int((card["alerts"][:, 5] >= 0).sum()),
+           "detections": card["stats"]["detections"],
+           "locate": card["locate"],
+           "equal_cpu": _located_equal(card, cpu, 1, 1e-4),
+           "snapshot_step": step,
+           "amp_bins": [len(d) for d in amps], "amps_equal": same_amps,
+           "restored_equal": _located_equal(resumed, card, 0, 0.0)}
+    print("located_stream", json.dumps(out), flush=True)
+    _need(out["equal_cpu"], "located stream: the card differs from the CPU")
+    _need(same_amps and out["restored_equal"], "located stream: the "
+          "restored stream differs from the uninterrupted one")
+    _need(out["located_alerts"] >= 1 and card["locate"]["passes"] >= 2,
+          f"located stream: no located alert: {out}")
+    for name in BATCH_KERNELS[:3]:
+        _need(launches[name] >= blocks, f"located stream: {name} launched "
+              f"{launches[name]} times for {blocks} pooled blocks")
+    return out
+
+
+def serve_locate_phase(dev) -> dict:
+    """``serve_detect.main(["--locate", ...])`` on the card and on the
+    CPU: located alert rows served, and the RESULT's ``located`` block
+    equal. Launch counters zeroed just before the card's run and read
+    just after (ingest and queries: ``stft_mag``, ``haar2d``,
+    ``minmax_sig_buckets``, ``minmax_hash``)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_detect
+    argv = ["--locate", "--requests", "8", "--slots", "4"]
+    with contextlib.redirect_stdout(io.StringIO()):     # first launches
+        serve_detect.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    res = {}
+    for d in ("cuda", "cpu"):
+        if d == "cuda":
+            ops.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            stats = serve_detect.main(argv + ["--device", d])
+        if d == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+        alerts = [ln for ln in buf.getvalue().splitlines()
+                  if ln.startswith("ALERT ")]
+        res[d] = (stats, alerts, time.perf_counter() - t0)
+    (card, card_alerts, wall), (cpu, cpu_alerts, cpu_wall) = \
+        res["cuda"], res["cpu"]
+    out = {"located": card["located"], "served": card["served"],
+           "hit_requests": card["hit_requests"], "wall_s": wall,
+           "cpu_wall_s": cpu_wall, "launches": launches,
+           "alert_rows": card_alerts[:4],
+           "located_equal_cpu": card["located"] == cpu["located"],
+           "alert_rows_equal_cpu": card_alerts == cpu_alerts}
+    print("serve_locate", json.dumps(out), flush=True)
+    _need(out["located_equal_cpu"], f"serve --locate: the located block "
+          f"differs from the CPU's: {card['located']} {cpu['located']}")
+    _need(card["located"]["located"] >= 1 and card["served"] == 8,
+          f"serve --locate: nothing located or served: {card}")
+    for name in ("stft_mag", "haar2d", "minmax_sig_buckets", "minmax_hash"):
+        _need(launches[name] >= 1, f"serve --locate: {name} never launched")
+    return out
+
+
+def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
+    """Elastic pool membership at full width: phase 17's paper-pool
+    snapshot (push 720) restored on the card, ``add_station()`` (a fifth
+    station joining at the frontier, fed seeded noise at station 0's
+    level), 60 more 60 s pushes to all five, ``remove_station(4)``, then
+    the rest of the stream, with launch counters zeroed just before the
+    first push and read just after the last. Stations 0–3's per-station
+    stats and events, and the detections, must equal phase 7's
+    uninterrupted record (bounded mode keeps no triplets past their
+    window, so pairs are held by the counts the stats carry: emitted,
+    kept, windows). The two re-packs are timed (synchronised)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.kernels import ops
+    from repro_torch.stream import StreamingDetector
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    wave = ds.waveforms
+    starts = list(range(0, wave.shape[1], STREAM_CHUNK))
+    det, step = StreamingDetector.restore(tmp, cfg, scfg, device=dev)
+    n = wave.shape[0]
+    rng = np.random.default_rng(5)
+    scale = float(np.std(wave[0, :STREAM_CHUNK * 60]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    joined = det.add_station()
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    ops.reset_launches()
+    blocks0 = det.stations[0].stats.blocks
+    for a in starts[step:step + 60]:
+        chunk = wave[:, a:a + STREAM_CHUNK]
+        extra = scale * rng.standard_normal((1, chunk.shape[1]))
+        det.push(np.concatenate([chunk, extra.astype(np.float32)]))
+    five_blocks = det.stations[0].stats.blocks - blocks0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.remove_station(joined)
+    torch.cuda.synchronize()
+    remove_s = time.perf_counter() - t0
+    for a in starts[step + 60:]:
+        det.push(wave[:, a:a + STREAM_CHUNK])
+    dets, events, stats = det.finalize()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    blocks = det.stations[0].stats.blocks - blocks0
+    got = _stream_record(det, dets, events, stats)
+    per_station = [{k: got["stats"].get(k) == v
+                    for k, v in want["stats"].items()
+                    if k.startswith(f"station{i}_")} for i in range(n)]
+    ingest = [got["stats"]["ingest"][i] == want["stats"]["ingest"][i]
+              for i in range(n)]
+    events_equal = [got["events"][i] == want["events"][i] for i in range(n)]
+    first_diff = None
+    for i in range(n):
+        if not events_equal[i]:
+            a, b = got["events"][i], want["events"][i]
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            first_diff = {"station": i, "row": j,
+                          "elastic": a[j] if j < len(a) else None,
+                          "uninterrupted": b[j] if j < len(b) else None}
+            break
+    out = {"restored_step": step, "joined": joined,
+           "add_station_s": add_s, "remove_station_s": remove_s,
+           "five_station_pushes": 60, "five_station_blocks": five_blocks,
+           "blocks": blocks, "launches": launches,
+           "stats_equal": per_station, "ingest_equal": ingest,
+           "events_equal": events_equal,
+           "detections_equal": got["detections"] == want["detections"],
+           "alerts_equal": got["alerts"] == want["alerts"],
+           "first_diff": first_diff}
+    print("elastic", json.dumps(out), flush=True)
+    _need(all(all(d.values()) for d in per_station) and all(ingest)
+          and all(events_equal) and out["detections_equal"],
+          f"elastic: stations 0-3 differ from the uninterrupted run: {out}")
+    for name in BATCH_KERNELS:
+        _need(launches[name] >= blocks, f"elastic: {name} launched "
+              f"{launches[name]} times for {blocks} pooled blocks")
+    return out
+
+
+def bandpass_phase(ds, dev) -> dict:
+    """One paper block (4 stations × 256 fingerprints) with
+    ``time_domain_bandpass=True``: the card's spectrogram (the bandpass a
+    ``conv1d`` with TF32 off, then ``stft_mag``) within the kernel
+    tolerance of the port's CPU path, and the binarized fingerprints (the
+    CPU's statistics on both) agreeing on at least 99.9% of the bits."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import fingerprint as fp_mod
+    fcfg = dataclasses.replace(fast_seismic.config().fingerprint,
+                               time_domain_bandpass=True)
+    bs = fcfg.block_samples(256)
+    block = np.ascontiguousarray(ds.waveforms[:, :bs])
+    spec = {d: fp_mod.spectrogram(torch.as_tensor(block, device=d), fcfg)
+            for d in (dev, "cpu")}
+    torch.cuda.synchronize()
+    err = _close(spec[dev].cpu(), spec["cpu"])
+    coeffs = fp_mod.coeffs_from_waveform(torch.as_tensor(block), fcfg)
+    med, mad = fp_mod.mad_stats(coeffs.reshape(-1, coeffs.shape[-1]), 1.0)
+    bits = {d: fp_mod.fingerprints_from_waveform(
+        torch.as_tensor(block, device=d), fcfg,
+        med_mad=(med.to(d), mad.to(d)))[0].cpu() for d in (dev, "cpu")}
+    agree = float((bits[dev] == bits["cpu"]).float().mean())
+    out = {"shape": list(spec["cpu"].shape), "max_abs_err": err,
+           "bit_agreement": agree, "bp_taps": fcfg.bp_taps}
+    print("bandpass", json.dumps(out), flush=True)
+    _need(agree >= 0.999, f"bandpass: bits agree on only {agree:.5f}")
     return out
 
 
@@ -1921,7 +2434,15 @@ def main() -> int:
     report["lm_serve"] = lm_serve_phase(dev)
     report["serve"], serve_shapes = serve_phase(det7, ds, dev)
     del det7
-    report["snapshot"] = snapshot_phase(ds, dev, record7)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["snapshot"] = snapshot_phase(ds, dev, record7, tmp)
+        report["elastic"] = elastic_phase(ds, dev, tmp, record7)
+    report["located_batch"] = located_batch_phase(dev)
+    report["locate_stack"] = locate_stack_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["located_stream"] = located_stream_phase(dev, tmp)
+    report["serve_locate"] = serve_locate_phase(dev)
+    report["bandpass"] = bandpass_phase(ds, dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:

@@ -4,16 +4,21 @@ Paper-faithful knobs: 100 Hz input, 8192-dim fingerprints (32×128 spectral
 images, 2-bit sign encoding), t=100 tables / k=8 funcs / m=2 matches (the
 optimized §6.3 setting), 1% occurrence filter, 3–20 Hz band. The values
 are those of ``repro.configs.fast_seismic``, the streaming configs'
-(``stream_config`` and the five smoke variants), the real-time alerting
+(``stream_config`` and the five smoke variants), the location tier's
+(``locate_config``, ``locate_smoke_config``, ``located_smoke_config``),
+the real-time alerting
 pair (``latency_config``, ``stream_latency_smoke_config``) and the serving
 tier's (``serve_config``, ``serve_smoke_config``) included; their
 comments are the reference's reasons for each value.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.core.align import AlignConfig
 from repro_torch.core.detect import DetectConfig
 from repro_torch.core.fingerprint import FingerprintConfig
+from repro_torch.core.locate import LocateConfig
 from repro_torch.core.lsh import LSHConfig
 from repro_torch.stream.index import StreamIndexConfig
 from repro_torch.stream.ingest import StreamConfig
@@ -41,6 +46,38 @@ def smoke_config() -> DetectConfig:
                       min_dt=fp.overlap_fingerprints, occurrence_frac=0.05),
         align=AlignConfig(min_cluster_size=1, min_cluster_sim=4),
     )
+
+
+def locate_config() -> LocateConfig:
+    """Paper-scale location tier: a 50 km aperture gridded 12×12 (≈4 km
+    coarse cells) and refined twice to sub-300 m cells, a homogeneous
+    6 km/s halfspace at 8 km focal depth. At the 2 s fingerprint lag the
+    moveout across the aperture is a handful of lags, so the consistency
+    gate is tight (2 lags of weighted residual)."""
+    return LocateConfig(grid_n=12, extent_km=50.0, depth_km=8.0,
+                        velocity_km_s=6.0, refine_levels=2,
+                        moveout_tol_lags=2.0)
+
+
+def locate_smoke_config() -> LocateConfig:
+    """CPU-scale location tier matching the synth scenario geometry
+    (50 km extent, 8 km depth, 6 km/s) on a coarser 8×8 grid; the synth
+    onsets are exact to one lag, so a 2-lag residual gate separates
+    physical groups from coincidences on smoke traces too."""
+    return LocateConfig(grid_n=8, extent_km=50.0, depth_km=8.0,
+                        velocity_km_s=6.0, refine_levels=2,
+                        moveout_tol_lags=2.0, pad_groups=16)
+
+
+def located_smoke_config() -> DetectConfig:
+    """``smoke_config`` + location / weighting / magnitude on every
+    network detection, the tolerance-chaining extent cap, and
+    moveout-consistency rejection."""
+    base = smoke_config()
+    return dataclasses.replace(
+        base,
+        align=dataclasses.replace(base.align, max_group_extent=90),
+        locate=locate_smoke_config())
 
 
 def batch_replay_config(n_fingerprints: int) -> StreamConfig:

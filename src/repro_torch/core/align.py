@@ -6,12 +6,19 @@ clustering, network association). The reference's multi-operand
 lexicographic key (``utils.lex_key``) and a gather of the other operands;
 segment reductions become scatters over a segment-id vector. All values
 stay int32, so wrap-around matches the reference bit for bit.
+``align_streamed`` is the host-side external merge (paper §7.2) for
+triplet sets larger than memory: numpy, spill files and a heap merge, a
+copy of the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import heapq
+import os
+import tempfile
+from typing import Iterable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import utils
@@ -132,12 +139,15 @@ def cluster_station(pairs: Pairs, cfg: AlignConfig) -> Events:
 
 
 def associate_network(events: Sequence[Events], cfg: AlignConfig,
-                      n_stations: int) -> dict:
+                      n_stations: int, with_onsets: bool = False) -> dict:
     """Group per-station events by (dt, onset); require ≥ min_stations.
 
     A group's station multiplicity is its number of distinct stations —
     what the reference gets as the popcount of a segmented OR of station
     bitmasks — counted here from a (groups × S) presence matrix.
+    ``with_onsets`` adds the dense (p, S) ``station_onset`` (each group's
+    earliest onset at each station, ``INVALID`` where absent) and
+    ``station_score`` (summed score) matrices the locate tier stacks over.
     """
     if n_stations <= 0:
         raise ValueError(f"n_stations must be positive, got {n_stations}")
@@ -171,7 +181,7 @@ def associate_network(events: Sequence[Events], cfg: AlignConfig,
     keep = new & live & (n_st >= cfg.min_stations)
     if cfg.max_group_extent > 0:
         keep &= span <= cfg.max_group_extent
-    return {
+    out = {
         "dt": torch.where(keep, g_dt, INVALID),
         "onset": torch.where(keep, g_onset, INVALID),
         "onset_span": torch.where(keep, span, 0),
@@ -179,3 +189,60 @@ def associate_network(events: Sequence[Events], cfg: AlignConfig,
         "score": torch.where(keep, g_score, 0),
         "valid": keep,
     }
+    if with_onsets:
+        # (S, p) rows: a row's value lands in its own station's row only
+        live_st = (sid_s[None, :] == torch.arange(
+            n_stations, dtype=sid_s.dtype, device=dt.device)[:, None]) \
+            & live[None, :]
+        seg = gid.expand(n_stations, p)
+        onset_mat = utils.segment_min(
+            torch.where(live_st, on_s[None, :], INVALID), seg, p).T[g]
+        score_mat = utils.segment_sum(
+            torch.where(live_st, sc_s[None, :], 0), seg, p).T[g]
+        out["station_onset"] = torch.where(keep[:, None], onset_mat, INVALID)
+        out["station_score"] = torch.where(keep[:, None], score_mat, 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# out-of-core channel merge (paper §7.2, host side)
+# ---------------------------------------------------------------------------
+
+
+def align_streamed(channel_chunks: Sequence[Iterable[np.ndarray]],
+                   threshold: int, tmpdir: str | None = None) -> np.ndarray:
+    """External sort-merge-reduce of triplet chunks larger than memory.
+
+    ``channel_chunks``: per channel, an iterable of (n, 3) int arrays with
+    columns (dt, idx1, sim). Each chunk is sorted and spilled to disk
+    (``tmpdir``, default a new temporary directory); a heap merge streams
+    them back, summing the sim of equal consecutive (dt, idx1) rows and
+    keeping sums ≥ ``threshold``. Returns an (m, 3) int64 array.
+    """
+    tmp = tmpdir or tempfile.mkdtemp(prefix="fast_align_")
+    spill_files = []
+    for ci, chunks in enumerate(channel_chunks):
+        for gi, arr in enumerate(chunks):
+            arr = np.asarray(arr, np.int64)
+            order = np.lexsort((arr[:, 1], arr[:, 0]))
+            path = os.path.join(tmp, f"c{ci}_g{gi}.npy")
+            np.save(path, arr[order])
+            spill_files.append(path)
+
+    def stream(path):
+        arr = np.load(path, mmap_mode="r")
+        for row in arr:
+            yield (int(row[0]), int(row[1]), int(row[2]))
+
+    out = []
+    cur_key, cur_sim = None, 0
+    for dt, idx1, sim in heapq.merge(*[stream(p) for p in spill_files]):
+        if (dt, idx1) == cur_key:
+            cur_sim += sim
+        else:
+            if cur_key is not None and cur_sim >= threshold:
+                out.append((cur_key[0], cur_key[1], cur_sim))
+            cur_key, cur_sim = (dt, idx1), sim
+    if cur_key is not None and cur_sim >= threshold:
+        out.append((cur_key[0], cur_key[1], cur_sim))
+    return np.asarray(out, np.int64).reshape(-1, 3)

@@ -14,6 +14,13 @@ per-block device work) and ``align_s`` the host tail. On the card each
 span ends in a device synchronisation, so the times are wall times of
 finished work.
 
+With ``cfg.locate`` (a ``core.locate.LocateConfig``) and ``station_xy``
+given, the host tail ends in the location / magnitude tier: the
+association keeps each group's per-station onsets, ``core.locate``
+migration-stacks them on the device into an origin and a moveout
+residual, and the groups are sized from whole-trace peak amplitudes
+(``_locate_tail``).
+
 ``detect_events`` runs on ``cuda`` unless ``device="cpu"`` is passed; it
 raises when CUDA is missing and the CPU was not asked for.
 
@@ -33,7 +40,9 @@ from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import lsh as lsh_mod
 from repro_torch.core.align import AlignConfig, Events
+from repro_torch.core import locate as locate_mod
 from repro_torch.core.fingerprint import FingerprintConfig
+from repro_torch.core.locate import LocateConfig
 from repro_torch.core.lsh import LSHConfig, Pairs
 from repro_torch.obsv.spans import SpanTracer
 
@@ -43,13 +52,9 @@ class DetectConfig:
     fingerprint: FingerprintConfig = FingerprintConfig()
     lsh: LSHConfig = LSHConfig()
     align: AlignConfig = AlignConfig()
-    # the location/magnitude tier is not ported yet: only None is accepted
-    locate: object = None
-
-    def __post_init__(self):
-        if self.locate is not None:
-            raise NotImplementedError(
-                "DetectConfig.locate is not ported to repro_torch yet")
+    # optional location/magnitude tier (core.locate); None = association
+    # stops at the pairwise network stage
+    locate: LocateConfig | None = None
 
 
 @dataclasses.dataclass
@@ -76,6 +81,38 @@ class StageTimes:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _locate_tail(detections: dict, waveforms: np.ndarray,
+                 qc_sum: np.ndarray, n_fp: int,
+                 station_xy: np.ndarray, cfg: DetectConfig,
+                 stats: dict, dev: torch.device) -> dict:
+    """Batch location/magnitude stage: QC-counter station weights →
+    migration stack over the associated groups (on ``dev``) → relative
+    magnitudes from whole-trace per-fingerprint peak amplitudes. Adds
+    ``stats["moveout_rejected"]`` and returns a new detections dict with
+    the located columns; ``reject_inconsistent`` masks failing groups out
+    of ``valid``."""
+    from repro_torch.stream import index as index_mod
+    fcfg = cfg.fingerprint
+    n_stations = waveforms.shape[0]
+    qdicts = [{name: int(qc_sum[st, k])
+               for k, name in enumerate(index_mod.QC_FIELDS)}
+              for st in range(n_stations)]
+    weights = locate_mod.station_weights(
+        qdicts, [waveforms.shape[1]] * n_stations,
+        [n_fp] * n_stations, cfg.locate)
+    fp_amp = [locate_mod.fingerprint_amplitudes(
+        waveforms[st], fcfg.lag_samples, fcfg.window_samples)
+        for st in range(n_stations)]
+
+    def amp(st, i):
+        a = fp_amp[st]
+        return float(a[i]) if 0 <= i < a.size else None
+
+    return locate_mod.attach_location(
+        detections, np.asarray(station_xy, np.float32), weights,
+        fcfg.lag_samples / fcfg.fs, cfg.locate, amp, stats, device=dev)
 
 
 def replay_config(lcfg: LSHConfig, block_fingerprints: int = 256,
@@ -111,7 +148,8 @@ def station_stats(wave: torch.Tensor, fcfg: FingerprintConfig
 
 def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
                   scfg: StreamConfig | None = None, keep_pairs: bool = False,
-                  tracer: SpanTracer | None = None, device=None
+                  tracer: SpanTracer | None = None, device=None,
+                  station_xy: np.ndarray | None = None
                   ) -> tuple[dict, list[Events], StageTimes, dict]:
     """(n_stations, T) waveforms → network detections, via the block core.
 
@@ -120,7 +158,11 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     replay and switches on the in-step guards; ``keep_pairs`` stashes the
     per-station post-filter ``Pairs`` under ``stats["_station_pairs"]``.
     With ``scfg.telemetry`` the QC counters are summed into
-    ``stats["drops"]`` and ``stats["station<i>_qc"]``.
+    ``stats["drops"]`` and ``stats["station<i>_qc"]``. With ``cfg.locate``
+    set, ``station_xy`` (S, 2) km given and ≥ 2 stations, the detections
+    also carry located origins, moveout-consistency flags and relative
+    magnitudes (numpy columns, ``core.locate.attach_location``), and
+    ``stats["moveout_rejected"]`` counts the groups the gate dropped.
 
     The §5.2 statistics sample rows (``mad_sample_rate`` < 1) are drawn
     from a CPU ``torch.Generator`` seeded ``stft_len + station``; the
@@ -205,8 +247,13 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
             stats[f"station{st}_events"] = int(events.count())
             station_events.append(events)
             station_pairs.append(pairs)
-        detections = align_mod.associate_network(station_events, acfg,
-                                                 n_stations)
+        with_locate = (cfg.locate is not None and station_xy is not None
+                       and n_stations >= 2)
+        detections = align_mod.associate_network(
+            station_events, acfg, n_stations, with_onsets=with_locate)
+        if with_locate:
+            detections = _locate_tail(detections, waveforms, qc_sum, n_fp,
+                                      station_xy, cfg, stats, dev)
         _sync(dev)
     times = StageTimes.from_spans(tracer)
     stats["detections"] = int(detections["valid"].sum())

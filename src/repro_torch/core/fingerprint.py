@@ -11,6 +11,9 @@ through ``kernels.ops`` (CUDA kernels for CUDA tensors, plain PyTorch for
 CPU tensors). The pooling product ``spec @ pool`` is a plain
 ``torch.matmul``; callers on the card keep TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+``FingerprintConfig(time_domain_bandpass=True)`` puts a windowed-sinc FIR
+bandpass (``bandpass``, a ``conv1d`` with TF32 off) in front of the
+spectrogram, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import utils
 from repro_torch.kernels import ops
@@ -30,8 +34,7 @@ class FingerprintConfig:
     """Defaults give the paper's 8192-dim fingerprints at 100 Hz.
 
     The fields are the reference's; ``use_pallas`` is accepted and ignored
-    (the tensor's device decides which code runs), and
-    ``time_domain_bandpass`` is not ported (off in every config).
+    (the tensor's device decides which code runs).
     """
 
     fs: float = 100.0
@@ -47,11 +50,6 @@ class FingerprintConfig:
     top_k: int = 400             # most anomalous wavelet coefficients kept
     mad_sample_rate: float = 0.1  # §5.2 MAD-via-sampling
     use_pallas: bool = False
-
-    def __post_init__(self):
-        if self.time_domain_bandpass:
-            raise NotImplementedError(
-                "time_domain_bandpass is not ported to repro_torch")
 
     @property
     def n_rfft(self) -> int:
@@ -102,6 +100,50 @@ class FingerprintConfig:
 
 
 # ---------------------------------------------------------------------------
+# framing + optional time-domain bandpass
+# ---------------------------------------------------------------------------
+
+
+def frame(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """(..., T) → (..., n_frames, frame_len) strided framing via gather
+    (``stft_mag`` frames its rows itself; this is the reference's
+    helper)."""
+    n = max(0, (x.shape[-1] - frame_len) // hop + 1)
+    idx = (torch.arange(n, device=x.device)[:, None] * hop
+           + torch.arange(frame_len, device=x.device)[None, :])
+    return x[..., idx]
+
+
+def bandpass_kernel(cfg: FingerprintConfig) -> np.ndarray:
+    """Windowed-sinc FIR bandpass taps (no scipy dependency)."""
+    nt = cfg.bp_taps
+    t = np.arange(nt) - (nt - 1) / 2.0
+
+    def lp(fc):
+        h = np.sinc(2 * fc / cfg.fs * t) * (2 * fc / cfg.fs)
+        return h * np.hamming(nt)
+    h = lp(cfg.band_hi_hz) - lp(cfg.band_lo_hz)
+    return h.astype(np.float32)
+
+
+def bandpass(x: torch.Tensor, cfg: FingerprintConfig) -> torch.Tensor:
+    """(..., T) → (..., max(T, taps)): ``jnp.convolve(x, taps, "same")``
+    row by row. ``conv1d`` correlates, so the taps go in flipped; the full
+    convolution is cut to numpy's "same" window (centred, starting at
+    (min(T, taps) - 1) // 2). cuDNN runs with TF32 off here, whatever the
+    global setting."""
+    taps = torch.as_tensor(bandpass_kernel(cfg), device=x.device)
+    k, t = taps.numel(), x.shape[-1]
+    rows = x.reshape(-1, 1, t).to(torch.float32)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        full = F.conv1d(rows, taps.flip(0).view(1, 1, k), padding=k - 1)
+    n, start = max(t, k), (min(t, k) - 1) // 2
+    return full[:, 0, start:start + n].reshape(*x.shape[:-1], n)
+
+
+# ---------------------------------------------------------------------------
 # spectrogram + spectral images
 # ---------------------------------------------------------------------------
 
@@ -145,7 +187,10 @@ def _consts(cfg: FingerprintConfig, device) -> dict:
 
 def spectrogram(x: torch.Tensor, cfg: FingerprintConfig) -> torch.Tensor:
     """(R, T) waveforms → (R, n_frames, banded_bins) power spectrograms
-    (a 1-D waveform gives (n_frames, banded_bins))."""
+    (a 1-D waveform gives (n_frames, banded_bins)); with
+    ``time_domain_bandpass`` the rows are bandpassed first."""
+    if cfg.time_domain_bandpass:
+        x = bandpass(x, cfg)
     c = _consts(cfg, x.device)
     rows = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
     spec = ops.stft_mag(rows, c["window"], c["dft_r"], c["dft_i"],

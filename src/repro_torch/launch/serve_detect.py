@@ -33,11 +33,13 @@ Flags as the reference's (``--stations``, ``--snapshot-every``,
 ``--snapshot-dir``, ``--restore``, ``--window-fp``, ``--filter-window-fp``,
 ``--occ-limit``, ``--slots``, ``--max-queue``, ``--interleave``,
 ``--refresh-every``, ``--metrics-every``, ``--metrics-file``,
-``--trace-jsonl``, ``--dirty``), plus ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions). ``--locate`` raises
-``NotImplementedError`` (the location tier is ROADMAP queue 1 item 3), and
-``--restore`` into a wider ``--stations`` reaches
-``StreamingDetector.add_station``, which raises (item 7).
+``--trace-jsonl``, ``--dirty``, ``--locate``), plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions). ``--locate`` ingests
+a ``physical_geometry`` network through ``located_smoke_config()`` in the
+bounded regime, prints one ``ALERT {...}`` JSON row an alert (origin in
+km, relative magnitude ``dmag``) and adds a ``located`` block to the
+RESULT. ``--restore`` into a wider ``--stations`` grows the restored pool
+with ``StreamingDetector.add_station``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_detect --requests 12
@@ -455,6 +457,45 @@ class ServeSession:
         self.engine.drain()
 
 
+def _located_summary(det: StreamingDetector, source_xy: np.ndarray,
+                     fcfg: FingerprintConfig) -> dict:
+    """Print one ``ALERT {...}`` JSON row an alert (the sentinels of the
+    location and magnitude columns decoded to None) and return the RESULT's
+    ``located`` block: alerts, located alerts, upgrades, moveout
+    rejections, locate passes and the median origin error against the
+    synthetic sources."""
+    from repro_torch.core.locate import LOC_NONE, MAG_NONE
+    lag_s = fcfg.lag_samples / fcfg.fs
+    alert_rows = []
+    for rows in det.alerts:
+        for dt, onset, n_st, score, upg, x_mkm, y_mkm, mag_m in rows:
+            alert_rows.append({
+                "t_s": round(float(onset) * lag_s, 1),
+                "dt_s": round(float(dt) * lag_s, 1),
+                "stations": int(n_st), "score": int(score),
+                "upgrade": bool(upg),
+                "x_km": None if x_mkm == LOC_NONE else x_mkm / 1e3,
+                "y_km": None if y_mkm == LOC_NONE else y_mkm / 1e3,
+                "dmag": None if mag_m == MAG_NONE else mag_m / 1e3,
+            })
+    for row in alert_rows:
+        print("ALERT " + json.dumps(row))
+    loc = [r for r in alert_rows if r["x_km"] is not None]
+    errs = [float(np.min(np.linalg.norm(
+                source_xy - np.array([r["x_km"], r["y_km"]]), axis=1)))
+            for r in loc]
+    lv = det.telemetry.locate_view()
+    return {
+        "alerts": len(alert_rows),
+        "located": len(loc),
+        "upgrades": int(sum(r["upgrade"] for r in alert_rows)),
+        "moveout_rejected": lv["moveout_rejected"],
+        "locate_passes": lv["passes"],
+        "median_origin_err_km": (round(float(np.median(errs)), 2)
+                                 if errs else None),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=8)
@@ -492,18 +533,27 @@ def main(argv=None):
                     help="ingest the fault-injected scenario stream "
                          "through the quality-hardened config")
     ap.add_argument("--locate", action="store_true",
-                    help="location/magnitude tier (not ported yet)")
+                    help="station geometry + location/magnitude tier: "
+                         "alerts carry a migration-stacked origin and a "
+                         "relative magnitude (defaults --window-fp 128 "
+                         "--filter-window-fp 64 so alerts emit live)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    if args.locate:
-        raise NotImplementedError(
-            "serve_detect --locate: the location/magnitude tier is not "
-            "ported to repro_torch yet (ROADMAP queue 1 item 3)")
     device = utils.resolve_device(args.device)
-    cfg = smoke_config()
+    if args.locate:
+        from repro_torch.configs.fast_seismic import located_smoke_config
+        cfg = located_smoke_config()
+        # live alerts need the bounded regime: a sliding index window
+        # plus the rolling occurrence filter
+        if not args.window_fp:
+            args.window_fp = 128
+        if not args.filter_window_fp:
+            args.filter_window_fp = 64
+    else:
+        cfg = smoke_config()
     if args.dirty:
         from repro_torch.configs.fast_seismic import stream_dirty_smoke_config
         scfg = stream_dirty_smoke_config()
@@ -525,7 +575,8 @@ def main(argv=None):
     base = SynthConfig(duration_s=args.duration_s,
                        n_stations=args.stations,
                        n_sources=2, events_per_source=5,
-                       event_snr=3.0, seed=3)
+                       event_snr=3.0, seed=3,
+                       physical_geometry=args.locate)
     if args.dirty:
         # the scenario benchmark's pathology mix: telemetry gaps, a
         # duplicated block, one long repeating glitch train
@@ -544,9 +595,11 @@ def main(argv=None):
     # build the corpus index pool by streaming the stations in, resuming
     # from the latest snapshot when asked (only post-snapshot samples
     # re-ingest)
+    station_xy = ds.station_xy if args.locate else None
     skip = 0
     if args.restore:
         det, step = StreamingDetector.restore(args.snapshot_dir, cfg, scfg,
+                                              station_xy=station_xy,
                                               device=device)
         if args.stations > len(det.stations) and det.pooled \
                 and all(st.stats_frozen for st in det.stations):
@@ -568,7 +621,7 @@ def main(argv=None):
         print(f"# restored step {step}: {skip} samples already ingested")
     else:
         det = StreamingDetector(cfg, scfg, n_stations=args.stations,
-                                device=device)
+                                station_xy=station_xy, device=device)
     if args.trace_jsonl:
         from repro_torch.obsv.spans import SpanTracer
         det.telemetry.tracer = SpanTracer(jsonl_path=args.trace_jsonl)
@@ -629,6 +682,8 @@ def main(argv=None):
     # ingested telemetry was
     quality = det.quality_summary()
     print("# ingest quality " + json.dumps(quality))
+    located_summary = (_located_summary(det, ds.source_xy, cfg.fingerprint)
+                       if args.locate else None)
     if args.metrics_every:
         # a last heartbeat after the flush
         print(det.telemetry.heartbeat_line(det))
@@ -647,6 +702,8 @@ def main(argv=None):
     if not all(r.done for r in reqs):
         raise RuntimeError("a request was left unfinished")
     stats["ingest_quality"] = quality
+    if located_summary is not None:
+        stats["located"] = located_summary
     if args.metrics_every:
         stats["metrics"] = det.metrics_snapshot()
     print("RESULT " + json.dumps(stats))

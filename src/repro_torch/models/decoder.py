@@ -8,8 +8,8 @@ along a leading L dim; a Python loop over layers stands in for
 ``mamba_scan`` (Mamba1) kernel once per layer. The vocabulary is padded to
 a multiple of 2048, as in the reference. MoE, the parallel attention + MLP
 block, Mamba2, the shared-attention hybrid and the patch frontend raise
-``NotImplementedError`` (ROADMAP queue 1 item 5), and ``forward`` /
-``lm_loss`` belong to the training slice (item 4).
+``NotImplementedError`` (ROADMAP queue 1 item 6), and ``forward`` /
+``lm_loss`` belong to the training slice (item 5).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"queue 1 item 5)")
+            f"queue 1 item 6)")
 
 
 # ---------------------------------------------------------------------------

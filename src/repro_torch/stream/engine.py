@@ -54,11 +54,20 @@ hands the serving tier (``launch.serve_detect``) a copy of the pooled
 index and statistics; ``serving_version`` counts the pushes and flushes
 that may have changed it.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the location/magnitude tier (queue 1 item 3); elastic
-``add_station`` / ``remove_station`` (item 7). There is one card, so the
+With a ``LocateConfig`` in ``cfg.locate``, ``station_xy`` and ≥ 2
+stations the detector runs the location / magnitude tier
+(``core.locate``): each push max-merges the chunk's |samples| into
+per-station lag-bin amplitude timelines, every fresh alert row is
+migration-located and sized (its location and magnitude columns; rows
+failing the moveout gate are dropped), and ``finalize`` attaches the
+located columns to the detections. The timelines ride in snapshots as
+the reference's ``detector/amp<i>`` (n, 2) float64 arrays.
+
+``add_station`` / ``remove_station`` change a live pool's width: the
+stations' index slices are pulled out of the pool and the pool is
+rebuilt at the new width (cold halo). There is one card, so the
 reference's mesh-sharded pool has no counterpart: ``StreamConfig.sharded``
-changes nothing.
+changes nothing, and a re-pack never pads.
 """
 from __future__ import annotations
 
@@ -74,9 +83,11 @@ import torch
 from repro_torch import convert, utils
 from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
+from repro_torch.core import locate as locate_mod
 from repro_torch.core import lsh as lsh_mod
 from repro_torch.core.align import AlignConfig, Events
 from repro_torch.core.fingerprint import FingerprintConfig
+from repro_torch.core.locate import LOC_NONE, MAG_NONE  # noqa: F401
 from repro_torch.core.lsh import INVALID, LSHConfig, Pairs
 from repro_torch.obsv.metrics import merge_counts
 from repro_torch.stream import fused as fused_mod
@@ -89,15 +100,6 @@ from repro_torch.train import checkpoint as ckpt_mod
 
 if TYPE_CHECKING:
     from repro_torch.core.detect import DetectConfig
-
-# sentinels of the alert rows' location and magnitude columns (the
-# reference's ``core.locate.LOC_NONE`` / ``MAG_NONE``): every alert carries
-# them until the location tier is ported
-LOC_NONE = -1
-MAG_NONE = -(1 << 31)
-
-_LOCATE = ("the location/magnitude tier is not ported to repro_torch yet "
-           "(ROADMAP queue 1 item 3)")
 
 
 def block_coeffs(block: torch.Tensor, fcfg: FingerprintConfig) -> torch.Tensor:
@@ -1108,9 +1110,11 @@ class StreamingDetector:
                 and self.station_xy.shape != (n_stations, 2):
             raise ValueError(f"station_xy must be ({n_stations}, 2) km, "
                              f"got {self.station_xy.shape}")
-        if getattr(cfg, "locate", None) is not None \
-                and self.station_xy is not None:
-            raise NotImplementedError(_LOCATE)
+        # location/magnitude tier: active when a LocateConfig and station
+        # geometry are both in hand (and there is a network to associate)
+        self.locating = (cfg.locate is not None
+                         and self.station_xy is not None
+                         and n_stations >= 2)
         self.pooled = (self.scfg.fused and self.scfg.pooled
                        and n_stations >= 2)
         self.telemetry = StreamTelemetry(n_stations)
@@ -1133,6 +1137,11 @@ class StreamingDetector:
         # later grows past its recorded best re-emits as an upgrade.
         self._emitted = np.zeros((0, 3), np.int64)
         self._assoc_lo = 0
+        # bounded amplitude timeline (magnitude source): per station,
+        # lag-bin → peak |sample| seen for that bin, max-merged across
+        # (possibly late / duplicated) arrivals and pruned with the
+        # association floor
+        self._amp: list[dict[int, float]] = [{} for _ in range(n_stations)]
         self._polled_windows = 0  # window closes seen by the last poll
         # monotonic corpus version: bumps whenever ingestion may have
         # changed the index pool, so a serving engine can gate its
@@ -1151,6 +1160,11 @@ class StreamingDetector:
         if chunk.shape[0] != len(self.stations):
             raise ValueError(f"chunk has {chunk.shape[0]} station rows, the "
                              f"detector {len(self.stations)}")
+        if self.locating:
+            pos = (self.stations[0].ring.frontier if offset is None
+                   else int(offset))
+            for i in range(chunk.shape[0]):
+                self._note_amps(i, pos, chunk[i])
         if self.pooled:
             emitted = self._pool_push(chunk, offset)
         else:
@@ -1350,7 +1364,175 @@ class StreamingDetector:
             return self._pool_flush()
         return sum(st.flush() for st in self.stations)
 
-    # -- association / finalize ---------------------------------------------
+    # -- elastic pool membership --------------------------------------------
+
+    def _materialize_stations(self) -> None:
+        """Give each station its index slice of the pool back as its own
+        state — the first half of a re-pack. The slices are views; the
+        rebuilt pool copies them."""
+        if self.pstate is None:
+            return
+        for st in self.stations:
+            st._state = index_mod.slice_state(self.pstate.index,
+                                              st._pool_idx)
+        self.pstate = None
+
+    def _repack_pool(self) -> None:
+        """Rebuild the pool at the current width. One card has no station
+        mesh, so there are no pad rows to re-pad; the next block re-seeds
+        the halo through ``pool_step_block``."""
+        self.telemetry.n_stations = len(self.stations)
+        self._build_pool()
+
+    def add_station(self, med_mad=None) -> int:
+        """Grow the live pool by one station; returns its index.
+
+        The joining station enters at the network frontier: its ring
+        mirrors a peer's framing position with the whole pre-join span
+        marked missing, so the rings keep emitting the same block ids and
+        the join span is masked out of the step rather than invented.
+        ``med_mad`` defaults to station 0's frozen statistics. Serving
+        engines built over the old width keep serving their copy; rebuild
+        them to see the new station.
+        """
+        if not self.pooled:
+            raise ValueError(
+                "add_station needs a pooled detector (StreamConfig.fused"
+                " + pooled with ≥2 stations at construction)")
+        if self.locating:
+            raise ValueError(
+                "add_station cannot extend the locate tier: station_xy "
+                "geometry is fixed at construction — rebuild the "
+                "detector with the new geometry instead")
+        if self.pstate is None \
+                or not all(st.stats_frozen for st in self.stations):
+            raise ValueError(
+                "add_station requires a live pool (statistics frozen and "
+                "the stacked state built); push warmup chunks first")
+        if med_mad is None:
+            med_mad = self.stations[0].med_mad
+        self._materialize_stations()
+        st = StationStream(self.cfg, self.scfg, med_mad=med_mad,
+                           external=True, telemetry=self.telemetry,
+                           device=self.device)
+        st._owner, st._pool_idx = self, len(self.stations)
+        peer = self.stations[0]
+        st.ring.start = peer.ring.start
+        st.ring.next_fp = peer.ring.next_fp
+        st.ring.buf = np.zeros(peer.ring.buf.size, np.float32)
+        st.ring.vbuf = np.zeros(peer.ring.buf.size, bool)
+        st.ring.quality["missing_samples"] += int(peer.ring.buf.size)
+        st.processed_fp = peer.processed_fp
+        if st.rolling and st.processed_fp:
+            st.filter.advance(st.processed_fp)  # join cost paid up front
+        self.stations.append(st)
+        self._amp.append({})
+        self._repack_pool()
+        self.serving_version += 1
+        return st._pool_idx
+
+    def remove_station(self, station: int) -> None:
+        """Drop one station from the live pool (its index state and host
+        buffers are discarded; later stations shift down, which renumbers
+        pair / event station indices from here on) and rebuild the pool
+        at the new width."""
+        if not self.pooled or self.pstate is None:
+            raise ValueError("remove_station requires a live pooled "
+                             "detector (statistics frozen)")
+        if self.locating:
+            raise ValueError(
+                "remove_station cannot shrink the locate tier: "
+                "station_xy geometry is fixed at construction")
+        if not 0 <= station < len(self.stations):
+            raise IndexError(station)
+        if len(self.stations) < 2:
+            raise ValueError("cannot remove the last station")
+        self._materialize_stations()
+        dropped = self.stations.pop(station)
+        dropped._owner = None
+        dropped._state = None
+        self._amp.pop(station)
+        for i, st in enumerate(self.stations):
+            st._pool_idx = i
+        self._repack_pool()
+        self.serving_version += 1
+
+    # -- association / location / finalize ----------------------------------
+
+    def _note_amps(self, st_i: int, pos: int, chunk: np.ndarray) -> None:
+        """Max-merge a chunk's |samples| into station ``st_i``'s lag-bin
+        amplitude timeline (idempotent under duplicate delivery; NaN
+        telemetry contributes nothing)."""
+        lag = self.cfg.fingerprint.lag_samples
+        b0 = pos // lag
+        lead = pos - b0 * lag
+        x = np.full(lead + chunk.size, np.nan, np.float32)
+        x[lead:] = chunk
+        nb = -(-x.size // lag)
+        x = np.concatenate([x, np.full(nb * lag - x.size, np.nan,
+                                       np.float32)])
+        a = np.abs(x).reshape(nb, lag)
+        vals = np.where(np.isfinite(a), a, -1.0).max(axis=1)
+        d = self._amp[st_i]
+        for b, vv in enumerate(vals):
+            if vv >= 0:
+                key = b0 + b
+                prev = d.get(key)
+                if prev is None or vv > prev:
+                    d[key] = float(vv)
+
+    def _amp_fn(self, st_i: int, fp_index: int) -> float | None:
+        """Peak |amplitude| over fingerprint ``fp_index``'s analysis
+        window, from the bounded timeline (None when no bin survives)."""
+        fcfg = self.cfg.fingerprint
+        w_bins = max(1, -(-fcfg.window_samples // fcfg.lag_samples))
+        d = self._amp[st_i]
+        vals = [d[b] for b in range(fp_index, fp_index + w_bins) if b in d]
+        return max(vals) if vals else None
+
+    def _station_weights(self) -> np.ndarray:
+        """Live per-station stack weights from the ingest/guard QC
+        counters (``core.locate.station_weights``)."""
+        return locate_mod.station_weights(
+            [st.quality_summary() for st in self.stations],
+            [st.stats.samples for st in self.stations],
+            [st.ring.next_fp for st in self.stations], self.cfg.locate)
+
+    def _locate_rows(self, rows: np.ndarray, onset_mat: np.ndarray,
+                     score_mat: np.ndarray) -> tuple[np.ndarray, int]:
+        """Location/magnitude columns for fresh alert rows; returns the
+        (moveout-filtered, with ``reject_inconsistent``) rows and the
+        rejected count."""
+        lcfg = self.cfg.locate
+        fcfg = self.cfg.fingerprint
+        t0 = time.perf_counter()
+        weights = self._station_weights()
+        det = {"valid": np.ones(rows.shape[0], bool),
+               "station_onset": onset_mat}
+        loc = locate_mod.locate_detections(
+            det, self.station_xy, weights, fcfg.lag_samples / fcfg.fs,
+            lcfg, device=self.device)
+        mags = locate_mod.magnitudes_from_onsets(
+            onset_mat, rows[:, 0], det["valid"], self._amp_fn, weights,
+            score_mat)
+        ok = np.isfinite(loc["x_km"])
+        rows[:, 5] = np.where(ok, np.round(
+            np.nan_to_num(loc["x_km"]) * 1e3), LOC_NONE).astype(np.int64)
+        rows[:, 6] = np.where(ok, np.round(
+            np.nan_to_num(loc["y_km"]) * 1e3), LOC_NONE).astype(np.int64)
+        mok = np.isfinite(mags)
+        rows[:, 7] = np.where(mok, np.round(
+            np.nan_to_num(mags) * 1e3), MAG_NONE).astype(np.int64)
+        rejected = 0
+        if lcfg.reject_inconsistent:
+            keep = np.asarray(loc["consistent"])
+            rejected = int(rows.shape[0] - keep.sum())
+            rows = rows[keep]
+        self.telemetry.record_locate(
+            groups=int(det["valid"].sum()),
+            located=int(rows.shape[0]), rejected=rejected,
+            wall=time.perf_counter() - t0)
+        return rows, rejected
 
     def poll_detections(self) -> np.ndarray:
         """Incremental network association over closed-window events.
@@ -1359,9 +1541,12 @@ class StreamingDetector:
         score, upgrade, x_mkm, y_mkm, mag_milli) for groups not alerted
         before, plus *upgrade* re-emissions — a previously alerted group
         whose station multiplicity has since grown re-emits with
-        ``upgrade=1``. The location and magnitude columns hold
-        ``LOC_NONE`` / ``MAG_NONE``. ``finalize`` remains the
-        authoritative association over the full event history.
+        ``upgrade=1``. With the location tier on, each emitted row is
+        migration-located and sized, and moveout-inconsistent rows are
+        dropped (they may return later as upgrades); otherwise the
+        location and magnitude columns hold ``LOC_NONE`` / ``MAG_NONE``.
+        ``finalize`` remains the authoritative association over the full
+        event history.
         """
         acfg = self.cfg.align
         if not self.rolling or len(self.stations) < 2:
@@ -1378,15 +1563,22 @@ class StreamingDetector:
             return np.zeros((0, ALERT_COLS), np.int64)
         events = [events_from_rows(r, device=self.device)
                   for r in per_station]
-        det = align_mod.associate_network(events, acfg, len(self.stations))
-        cols = torch.stack([det["dt"], det["onset"], det["n_stations"],
-                            det["score"], det["valid"].to(det["dt"].dtype)])
-        cols = cols.cpu().numpy()
-        v = cols[4] > 0
+        det = align_mod.associate_network(events, acfg, len(self.stations),
+                                          with_onsets=self.locating)
+        parts = [det["dt"][:, None], det["onset"][:, None],
+                 det["n_stations"][:, None], det["score"][:, None],
+                 det["valid"].to(det["dt"].dtype)[:, None]]
+        if self.locating:
+            parts += [det["station_onset"], det["station_score"]]
+        cols = torch.cat(parts, dim=1).cpu().numpy()   # one copy a poll
+        v = cols[:, 4] > 0
         rows = np.zeros((int(v.sum()), ALERT_COLS), np.int64)
-        rows[:, :4] = cols[:4, v].T
+        rows[:, :4] = cols[v, :4]
         rows[:, 5:7] = LOC_NONE
         rows[:, 7] = MAG_NONE
+        n_st = len(self.stations)
+        onset_mat = cols[v, 5:5 + n_st] if self.locating else None
+        score_mat = cols[v, 5 + n_st:] if self.locating else None
         if self._emitted.shape[0] and rows.shape[0]:
             near = ((np.abs(rows[:, 0, None] - self._emitted[None, :, 0])
                      <= acfg.dt_tol)
@@ -1404,14 +1596,19 @@ class StreamingDetector:
                 self._emitted[js, 2] = np.maximum(self._emitted[js, 2],
                                                   rows[r, 2])
             rows[:, 4] = upgrade.astype(np.int64)
-            rows = rows[~matched | upgrade]
+            keep = ~matched | upgrade
+            rows = rows[keep]
+            if self.locating:
+                onset_mat, score_mat = onset_mat[keep], score_mat[keep]
         fresh = rows[rows[:, 4] == 0]
         if fresh.shape[0]:
             self._emitted = np.concatenate([self._emitted, fresh[:, :3]])
+        if self.locating and rows.shape[0]:
+            rows, _ = self._locate_rows(rows, onset_mat, score_mat)
         # onsets below every station's closed frontier minus the sliding
         # window can gain no further members — stop rescanning them, and
-        # archive rows + dedup keys the floor has passed so the per-push
-        # scan stays O(active window) instead of O(stream)
+        # archive rows + dedup keys + amplitude bins the floor has passed
+        # so the per-push scan stays O(active window) instead of O(stream)
         frontier = min(st.filter.w_start for st in self.stations)
         self._assoc_lo = max(self._assoc_lo, frontier
                              - self.scfg.window_fingerprints
@@ -1421,6 +1618,11 @@ class StreamingDetector:
         if self._emitted.shape[0]:
             live = self._emitted[:, 1] >= self._assoc_lo - acfg.onset_tol
             self._emitted = self._emitted[live]
+        amp_floor = self._assoc_lo - acfg.onset_tol
+        if amp_floor > 0:
+            for d in self._amp:
+                for b in [b for b in d if b < amp_floor]:
+                    del d[b]
         return rows
 
     def finalize(self) -> tuple[dict | None, list[Events], dict]:
@@ -1435,7 +1637,21 @@ class StreamingDetector:
         detections = None
         if len(self.stations) >= 2:
             detections = align_mod.associate_network(
-                station_events, self.cfg.align, len(self.stations))
+                station_events, self.cfg.align, len(self.stations),
+                with_onsets=self.locating)
+            if self.locating:
+                t0 = time.perf_counter()
+                fcfg = self.cfg.fingerprint
+                was = int(detections["valid"].sum())
+                detections = locate_mod.attach_location(
+                    detections, self.station_xy, self._station_weights(),
+                    fcfg.lag_samples / fcfg.fs, self.cfg.locate,
+                    self._amp_fn, stats, device=self.device)
+                self.telemetry.record_locate(
+                    groups=was,
+                    located=int(np.asarray(detections["valid"]).sum()),
+                    rejected=stats.get("moveout_rejected", 0),
+                    wall=time.perf_counter() - t0)
             stats["detections"] = int(detections["valid"].sum())
         if self.rolling:
             stats["alerts"] = int(sum(a.shape[0] for a in self.alerts))
@@ -1482,9 +1698,10 @@ class StreamingDetector:
 
         One ``step_<N>`` directory holds every station's
         ``snapshot_state`` (``s<i>/…``), the alert rows and their dedup
-        keys, empty ``detector/amp<i>`` timelines (no location tier), the
-        association floor, the telemetry and the ``StreamConfig`` fields
-        that shape the station state — the reference's layout, so either
+        keys, each station's amplitude timeline (``detector/amp<i>``,
+        (bin, peak) rows in bin order, float64), the association floor,
+        the telemetry and the ``StreamConfig`` fields that shape the
+        station state — the reference's layout, so either
         package restores it. Pooled detectors write per-station slices.
         ``step`` defaults to the chunks pushed.
         """
@@ -1498,8 +1715,10 @@ class StreamingDetector:
         arrays["detector/alerts"] = (
             np.concatenate(self.alerts, axis=0).astype(np.int64)
             if self.alerts else np.zeros((0, ALERT_COLS), np.int64))
-        for i in range(len(self.stations)):
-            arrays[f"detector/amp{i}"] = np.zeros((0, 2), np.float64)
+        for i, d in enumerate(self._amp):
+            arrays[f"detector/amp{i}"] = (
+                np.array([[b, a] for b, a in sorted(d.items())], np.float64)
+                if d else np.zeros((0, 2), np.float64))
         extra = {"n_stations": len(self.stations), "stations": st_extra,
                  "assoc_lo": self._assoc_lo,
                  "telemetry": self.telemetry.snapshot(),
@@ -1535,7 +1754,10 @@ class StreamingDetector:
         from the snapshot's is refused with the reference's message (the
         station layouts are not interchangeable). A pooled detector's
         pool is rebuilt from the restored stations once all are frozen,
-        with a cold halo, as the reference rebuilds it.
+        with a cold halo, as the reference rebuilds it. ``station_xy`` is
+        not snapshotted (it is deployment geometry, not stream state):
+        pass it again to keep the location tier running; the amplitude
+        timelines are restored either way.
         """
         arrays, extra, step = ckpt_mod.restore_flat(ckpt_dir, step=step)
         det = cls(cfg, scfg, n_stations=int(extra["n_stations"]),
@@ -1562,10 +1784,6 @@ class StreamingDetector:
                     f"restoring StreamConfig has {have}; pass a matching "
                     f"config (e.g. the same --window-fp/--filter-window-fp "
                     f"flags the snapshotting service ran with)")
-        if any(np.asarray(arrays.get(f"detector/amp{i}", ())).size
-               for i in range(len(det.stations))):
-            # amplitude timelines: the location tier wrote this snapshot
-            raise NotImplementedError(_LOCATE)
         for i, st in enumerate(det.stations):
             prefix = f"s{i}/"
             sub = {k[len(prefix):]: v for k, v in arrays.items()
@@ -1593,6 +1811,11 @@ class StreamingDetector:
             alerts = np.concatenate([alerts, pad], axis=1)
         alerts = alerts.reshape(-1, ALERT_COLS)
         det.alerts = [alerts] if alerts.shape[0] else []
+        for i in range(len(det.stations)):
+            amp = arrays.get(f"detector/amp{i}")
+            if amp is not None and amp.size:
+                det._amp[i] = {int(b): float(a)
+                               for b, a in np.asarray(amp).reshape(-1, 2)}
         det._assoc_lo = int(extra["assoc_lo"])
         if "telemetry" in extra:    # older snapshots: a fresh registry
             det.telemetry.restore(extra["telemetry"])
@@ -1600,18 +1823,6 @@ class StreamingDetector:
             det._polled_windows = sum(st.filter.windows_closed
                                       for st in det.stations)
         return det, step
-
-    # -- not ported yet ------------------------------------------------------
-
-    def add_station(self, med_mad=None) -> int:
-        raise NotImplementedError(
-            "elastic pool membership is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 7, Leftovers)")
-
-    def remove_station(self, station: int) -> None:
-        raise NotImplementedError(
-            "elastic pool membership is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 7, Leftovers)")
 
 
 def ingest_chunks(det: StreamingDetector, waveforms: np.ndarray,

@@ -26,9 +26,9 @@ PyTorch-port counterpart of ``repro.stream.telemetry``. One
   (``serve_requests_total{outcome=accepted|served|shed}``), per-tick
   queue-depth and slot gauges, and the queue-wait / service / latency
   histograms; ``serve_view()`` is their summary.
-* **location tier** — ``locate_view`` reads the reference's location
-  counters, all 0 until the location tier and its ``record_locate`` hook
-  are ported (ROADMAP queue 1 item 3).
+* **location tier** — ``record_locate`` counts each migration-stack pass
+  (groups in, located detections out, moveout rejections, the stack's
+  wall); ``locate_view`` is their summary, all 0 without a location tier.
 
 ``metrics_snapshot(det)`` is the one structured view of a detector
 (schema ``stream-metrics/v1``, the reference's keys). The registry, the
@@ -109,6 +109,17 @@ class StreamTelemetry:
                                 station=str(station)).record(wall_s)
 
     # -- location tier ------------------------------------------------------
+
+    def record_locate(self, groups: int, located: int, rejected: int,
+                      wall: float) -> None:
+        """One migration-stack pass over associated groups: how many went
+        in, how many located detections came out, how many fell to the
+        moveout-consistency gate, and the stack's wall time."""
+        self.registry.counter("locate_passes_total").inc()
+        self.registry.counter("locate_groups_total").inc(int(groups))
+        self.registry.counter("located_detections_total").inc(int(located))
+        self.registry.counter("moveout_rejected_total").inc(int(rejected))
+        self.registry.histogram("locate_stack_wall_seconds").record(wall)
 
     def locate_view(self) -> dict:
         """Location-tier summary: stack passes, group flow, moveout

@@ -19,7 +19,11 @@ package's, on the CPU.
 * the layout check refuses a mismatched ``StreamConfig`` with the
   reference's message; older snapshots (2-column alert keys, 4-column
   alert rows, no guard leaves) restore as the reference restores them;
-  amplitude timelines (the location tier) raise naming ROADMAP.
+* a located detector's snapshot (``located_smoke_config``, 4 stations
+  with geometry, amplitude timelines in ``detector/amp<i>``) cross-loads
+  both ways: the timelines restore bin for bin, and the restored stream
+  finishes with the uninterrupted reference run's alerts, located
+  detections, events, stats and locate counters at tolerance 0.
 """
 import dataclasses
 import json
@@ -317,16 +321,67 @@ def test_older_snapshots_restore_as_the_reference_restores_them(trace,
     assert len(out["port"][0]) > 0
 
 
-def test_amplitude_timelines_raise_naming_roadmap(trace, tmp_path):
-    det = _detector("port", "stream_smoke_config", 2)
-    det.push(trace[:2, :6000])
-    det.snapshot(str(tmp_path), step=1)
+@pytest.fixture(scope="module")
+def located():
+    """The reference's located stream test's trace (4 stations, 900 s,
+    physical geometry, seed 11) and the reference's uninterrupted run."""
+    ds = jsynth.make_dataset(jsynth.SynthConfig(
+        duration_s=900.0, n_stations=4, n_sources=2, events_per_source=6,
+        event_snr=3.0, seed=11, physical_geometry=True))
+    det = _located_detector("ref", ds.station_xy)
+    for a, b in _pushes(ds.waveforms.shape[1]):
+        det.push(ds.waveforms[:, a:b])
+    return ds, _located_finish(det)
 
-    def edit(arrays, extra):
-        arrays["detector/amp1"] = np.ones((2, 2), np.float64)
-    _rewrite(tmp_path, 1, edit)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        _restore("port", tmp_path, "stream_smoke_config")
+
+def _located_detector(pkg, station_xy):
+    engine, fast = PKGS[pkg]
+    kw = {} if pkg == "ref" else {"device": "cpu"}
+    return engine.StreamingDetector(
+        fast.located_smoke_config(), fast.stream_bounded_smoke_config(),
+        n_stations=4, station_xy=station_xy, **kw)
+
+
+def _located_finish(det) -> dict:
+    """``_finish`` with NaN (unlocated rows) written as None, so equal
+    runs compare equal, plus the locate counters."""
+    view = det.telemetry.locate_view()
+    out = _finish(det)
+    out["detections"] = {
+        k: [None if isinstance(x, float) and np.isnan(x) else x for x in v]
+        for k, v in out["detections"].items()}
+    out["locate"] = {k: view[k] for k in ("passes", "groups", "located",
+                                          "moveout_rejected")}
+    return out
+
+
+@pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+def test_amplitude_timelines_cross_load(located, tmp_path, direction):
+    ds, want = located
+    src, dst = direction.split("_to_")
+    pushes = _pushes(ds.waveforms.shape[1])
+    k = len(pushes) // 2
+    det = _located_detector(src, ds.station_xy)
+    for a, b in pushes[:k]:
+        det.push(ds.waveforms[:, a:b])
+    det.snapshot(str(tmp_path), step=k)
+    arrays, _, _ = tckpt.restore_flat(str(tmp_path))
+    amp = [arrays[f"detector/amp{i}"] for i in range(4)]
+    assert all(a.dtype == np.float64 and a.shape[1] == 2 and a.shape[0]
+               for a in amp)
+    engine, fast = PKGS[dst]
+    kw = {} if dst == "ref" else {"device": "cpu"}
+    restored, step = engine.StreamingDetector.restore(
+        str(tmp_path), fast.located_smoke_config(),
+        fast.stream_bounded_smoke_config(), station_xy=ds.station_xy, **kw)
+    assert step == k and restored.locating
+    assert restored._amp == det._amp
+    for a, b in pushes[k:]:
+        restored.push(ds.waveforms[:, a:b])
+    got = _located_finish(restored)
+    # the restored registry carries the first half's counters
+    assert got == want
+    assert any(row[5] != tengine.LOC_NONE for row in got["alerts"])
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])

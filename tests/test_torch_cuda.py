@@ -7,8 +7,11 @@ detector's default device); detection serving on the card (one launch of
 ``stft_mag``, ``haar2d`` and ``minmax_hash`` a dispatched tick, none on an
 idle tick, match lists equal to the CPU's; ``pool_serving_state`` copies
 that survive a push) and a detector snapshot taken on the card restoring
-on the card and the CPU to the CPU's uninterrupted run; the LM serving
-engine's tokens on the card equal to its CPU path's.
+on the card and the CPU to the CPU's uninterrupted run; the location tier
+on the card (``locate_groups`` within the finest cell of the CPU's with
+``n_used`` and ``consistent`` equal, and the located stream's alerts and
+detections equal to the CPU's); the LM serving engine's tokens on the
+card equal to its CPU path's.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -741,6 +744,75 @@ def test_snapshot_round_trip_on_the_card_equals_the_cpu(cuda, tmp_path):
     assert result(runs[0]) == want
     assert result(runs[1]) == want
     assert want[3] >= 1
+
+
+@pytest.mark.parametrize("groups,stations", [(64, 6), (4096, 16)])
+def test_locate_groups_on_the_card(cuda, groups, stations):
+    """Onsets from known origins through ``travel_time_lags``, a quarter
+    of the stations absent: the card's origins within one finest cell of
+    the CPU's (float32 spacing, hence + 1e-4 km), ``n_used`` and
+    ``consistent`` equal."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import locate
+    cfg = fast_seismic.locate_config()
+    rng = np.random.default_rng(groups)
+    xy = torch.as_tensor(rng.uniform(2.5, 47.5, (stations, 2)),
+                         dtype=torch.float32)
+    src = torch.as_tensor(rng.uniform(0, 50, (groups, 2)),
+                          dtype=torch.float32)
+    tt = locate.travel_time_lags(src, xy, cfg, np.float32(2.0)).numpy()
+    on = np.round(300 + tt + rng.normal(0, 0.5, tt.shape)).astype(np.int32)
+    on[rng.random(on.shape) < 0.25] = 2**31 - 1
+    w = torch.as_tensor(rng.uniform(0.05, 1, stations), dtype=torch.float32)
+    out = {}
+    for dev in (cuda, "cpu"):
+        got = locate.locate_groups(torch.as_tensor(on, device=dev),
+                                   w.to(dev), xy.to(dev), np.float32(2.0),
+                                   cfg)
+        out[str(dev)] = {k: v.cpu().numpy() for k, v in got.items()}
+    card, cpu = out[str(cuda)], out["cpu"]
+    assert np.abs(card["xy"] - cpu["xy"]).max() <= cfg.cell_km + 1e-4
+    np.testing.assert_array_equal(card["n_used"], cpu["n_used"])
+    np.testing.assert_array_equal(card["consistent"], cpu["consistent"])
+    assert cpu["consistent"].mean() > 0.5
+
+
+def test_located_stream_on_the_card(cuda):
+    """The located bounded stream (4 stations, 900 s, physical geometry,
+    seed 11, 6,000-sample pushes) on the card and on the CPU: alert rows
+    equal but for ±1 milli-km in the location columns, finalize's located
+    detections equal in the integer columns and within 1e-4 km / 1e-5 in
+    the float ones."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.stream import StreamingDetector
+    ds = make_dataset(SynthConfig(duration_s=900.0, n_stations=4,
+                                  n_sources=2, events_per_source=6,
+                                  event_snr=3.0, seed=11,
+                                  physical_geometry=True))
+    runs = []
+    for dev in (cuda, "cpu"):
+        det = StreamingDetector(fast_seismic.located_smoke_config(),
+                                fast_seismic.stream_bounded_smoke_config(),
+                                n_stations=4, station_xy=ds.station_xy,
+                                device=dev)
+        for a in range(0, ds.waveforms.shape[1], 6000):
+            det.push(ds.waveforms[:, a:a + 6000])
+        dets, _, _ = det.finalize()
+        runs.append((np.concatenate(det.alerts),
+                     {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                      for k, v in dets.items()}))
+    (a, da), (b, db) = runs
+    assert a.shape == b.shape and a.shape[0] >= 1
+    np.testing.assert_array_equal(np.delete(a, [5, 6], 1),
+                                  np.delete(b, [5, 6], 1))
+    assert np.abs(a[:, 5:7] - b[:, 5:7]).max() <= 1
+    for k in db:
+        if db[k].dtype.kind == "f":
+            np.testing.assert_allclose(da[k], db[k], rtol=1e-5, atol=1e-4,
+                                       equal_nan=True, err_msg=k)
+        else:
+            np.testing.assert_array_equal(da[k], db[k], err_msg=k)
 
 
 # fp32: summation order and the online-softmax rescale; bf16 output: one

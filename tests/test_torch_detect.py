@@ -219,11 +219,6 @@ def test_constructors_default_to_cuda(monkeypatch, build):
     assert all(t.device.type == "cpu" for t in leaves)
 
 
-def test_locate_not_ported():
-    with pytest.raises(NotImplementedError):
-        tdetect.DetectConfig(locate=object())
-
-
 def test_configs_match_reference():
     for jf, tf in ((j_fast.config, t_fast.config),
                    (j_fast.smoke_config, t_fast.smoke_config)):

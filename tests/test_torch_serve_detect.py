@@ -20,8 +20,9 @@ On the reference serving tests' corpus (``latency_config``, 2 stations,
   the station count, a bare ``--metrics-file`` is written, and
   ``main([..., "--device", "cpu"])`` prints a ``RESULT`` with hits;
 * ``pool_serving_state`` returns copies that a later push leaves alone;
-* ``--locate`` and growing the pool on ``--restore`` raise naming their
-  ROADMAP items.
+* ``--locate`` prints the reference's ``ALERT`` rows and RESULT
+  ``located`` block, and ``--restore`` into a wider ``--stations`` grows
+  the restored pool as the reference's does.
 """
 import dataclasses
 import json
@@ -415,30 +416,50 @@ def test_metrics_file_written_without_metrics_every(tmp_path):
     assert not (tmp_path / "serve.prom.tmp").exists()
 
 
-def _grow(tmp_path):
-    cfg, scfg = tfast.smoke_config(), tfast.stream_smoke_config()
+PKGS = {"ref": (jserve, jfast, jengine), "port": (tserve, tfast, tengine)}
+
+
+def _grow(pkg, tmp_path):
+    """``tests/test_serve.py::test_restore_grows_pool_elastically`` in
+    ``pkg``: a 2-station snapshot restored with ``--stations 3``."""
+    serve, fast, engine = PKGS[pkg]
+    cfg, scfg = fast.smoke_config(), fast.stream_smoke_config()
     ds = jsynth.make_dataset(jsynth.SynthConfig(
         duration_s=400.0, n_stations=2, n_sources=1, events_per_source=3,
         event_snr=3.0, seed=5))
-    det = tengine.StreamingDetector(cfg, scfg, n_stations=2, device="cpu")
+    kw = {} if pkg == "ref" else {"device": "cpu"}
+    det = engine.StreamingDetector(cfg, scfg, n_stations=2, **kw)
     for start in range(0, ds.waveforms.shape[1], 6000):
         det.push(ds.waveforms[:, start:start + 6000])
     assert det.pstate is not None
     det.snapshot(str(tmp_path), step=1)
-    tserve.main(["--restore", "--snapshot-dir", str(tmp_path),
-                 "--stations", "3", "--requests", "2", "--slots", "2",
-                 "--duration-s", "400", "--device", "cpu"])
+    argv = ["--restore", "--snapshot-dir", str(tmp_path), "--stations",
+            "3", "--requests", "2", "--slots", "2", "--duration-s", "400"]
+    return serve.main(argv + ([] if pkg == "ref" else ["--device", "cpu"]))
 
 
-UNPORTED = {
-    "locate": (lambda tmp_path: tserve.main(
-        ["--locate", "--device", "cpu"]), "item 3"),
-    "restore_grows_pool": (_grow, "item 7"),
-}
+def test_restore_grows_pool_as_the_reference(tmp_path, capsys):
+    got = _grow("port", tmp_path / "port")
+    assert "# restored pool grown 2 -> 3 stations" in capsys.readouterr().out
+    want = _grow("ref", tmp_path / "ref")
+    assert got["stations"] == want["stations"] == 3
+    for k in ("requests", "served", "shed", "ticks", "hit_requests",
+              "ingest_quality"):
+        assert got[k] == want[k], k
 
 
-@pytest.mark.parametrize("what", UNPORTED)
-def test_unported_serving_paths_raise_naming_roadmap(tmp_path, what):
-    call, item = UNPORTED[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        call(tmp_path)
+def _alert_lines(text: str) -> list:
+    return [json.loads(ln[len("ALERT "):]) for ln in text.splitlines()
+            if ln.startswith("ALERT ")]
+
+
+def test_locate_serving_matches_reference(capsys):
+    got = tserve.main(["--locate", "--device", "cpu"])
+    got_alerts = _alert_lines(capsys.readouterr().out)
+    want = jserve.main(["--locate"])
+    want_alerts = _alert_lines(capsys.readouterr().out)
+    assert got["located"] == want["located"]
+    assert got_alerts == want_alerts and got["located"]["alerts"] >= 1
+    assert got["located"]["located"] >= 1
+    for k in ("served", "hit_requests", "stations", "ingest_quality"):
+        assert got[k] == want[k], k

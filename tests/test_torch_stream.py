@@ -18,8 +18,16 @@ frozen statistics where the test gives them:
 * the stream equals the batch driver ``detect_events`` on one
   ``StreamConfig`` (the two drivers share the detection core);
 * ``ingest_chunks`` returns the reference's counts;
-* every part not ported yet raises ``NotImplementedError`` naming its
-  ROADMAP item, and the detector needs CUDA unless the CPU is asked for.
+* the location tier (``located_smoke_config``, ``station_xy``) on the
+  reference's located stream test's trace: alert rows exact but for the
+  location columns (±1 milli-km), finalize's located detections (integer
+  columns exact, floats within rtol 1e-5 / atol 1e-4) and the locate
+  view equal the reference's; the amplitude timelines equal bin for bin;
+* elastic membership: the reference's add / remove sequence gives its
+  per-station stats and raises its ``ValueError`` s, and on the bounded
+  3-station trace a station joining and leaving mid-stream leaves the
+  reference's result, with the other stations as an uninterrupted run's;
+* the detector needs CUDA unless the CPU is asked for.
 """
 import dataclasses
 import json
@@ -369,29 +377,161 @@ def test_rolling_filter_and_row_helpers_match_reference(rng):
         jengine.merge_boundary_rows(rows, cfg_j.align))
 
 
-def _raises(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+@pytest.fixture(scope="module")
+def located_trace():
+    """``tests/test_stream.py::test_streaming_located_alerts_end_to_end``'s
+    trace: 4 stations, 900 s, physical geometry, seed 11."""
+    return jsynth.make_dataset(jsynth.SynthConfig(
+        duration_s=900.0, n_stations=4, n_sources=2, events_per_source=6,
+        event_snr=3.0, seed=11, physical_geometry=True))
 
 
-UNPORTED = {
-    "add_station": lambda d: d.add_station(),
-    "remove_station": lambda d: d.remove_station(0),
-}
+def _located_run(pkg, ds):
+    engine, fast = PKGS[pkg]
+    kw = {} if pkg == "ref" else {"device": "cpu"}
+    det = engine.StreamingDetector(
+        fast.located_smoke_config(), fast.stream_bounded_smoke_config(),
+        n_stations=4, station_xy=ds.station_xy, **kw)
+    assert det.locating
+    for start in range(0, ds.waveforms.shape[1], 6000):
+        det.push(ds.waveforms[:, start:start + 6000])
+    amps = [dict(d) for d in det._amp]
+    alerts = np.concatenate(det.alerts, axis=0)
+    detections, _, stats = det.finalize()
+    return {"alerts": alerts, "amps": amps, "stats": stats,
+            "detections": {k: _np(v) for k, v in detections.items()},
+            "view": det.telemetry.locate_view()}
 
 
-@pytest.mark.parametrize("what", UNPORTED)
-def test_unported_parts_raise_naming_roadmap(what):
-    _raises(lambda: UNPORTED[what](_detector("port", "stream_smoke_config",
-                                             2)))
+def test_located_stream_matches_reference(located_trace):
+    got = _located_run("port", located_trace)
+    want = _located_run("ref", located_trace)
+    a, b = got["alerts"], want["alerts"]
+    assert a.shape == b.shape and a.shape[0] >= 1
+    np.testing.assert_array_equal(np.delete(a, [5, 6], axis=1),
+                                  np.delete(b, [5, 6], axis=1))
+    assert np.abs(a[:, 5:7] - b[:, 5:7]).max() <= 1
+    assert (a[:, 5] != tengine.LOC_NONE).any()
+    assert (a[:, 7] != tengine.MAG_NONE).any()
+    assert got["amps"] == want["amps"]
+    gd, wd = got["detections"], want["detections"]
+    assert set(gd) == set(wd)
+    for k in wd:
+        w = np.asarray(wd[k])
+        assert gd[k].dtype == w.dtype and gd[k].shape == w.shape, k
+        if w.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(gd[k]), np.isnan(w), k)
+            ok = ~np.isnan(w)
+            np.testing.assert_allclose(gd[k][ok], w[ok], rtol=1e-5,
+                                       atol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_array_equal(gd[k], w, err_msg=k)
+    for k in ("moveout_rejected", "detections", "alerts"):
+        assert got["stats"][k] == want["stats"][k], k
+    for k in ("passes", "groups", "located", "moveout_rejected"):
+        assert got["view"][k] == want["view"][k], k
+    assert got["view"]["stack_wall"]["count"] == got["view"]["passes"] >= 2
 
 
-def test_locate_tier_raises_naming_roadmap():
-    cfg = tfast.smoke_config()
-    object.__setattr__(cfg, "locate", object())   # DetectConfig refuses it
-    _raises(lambda: tengine.StreamingDetector(
-        cfg, tfast.stream_smoke_config(), n_stations=2,
-        station_xy=np.zeros((2, 2)), device="cpu"))
+def _elastic_sequence(pkg):
+    """``tests/test_sharded_pool.py::test_elastic_add_remove_station``:
+    returns each ``ValueError`` message and the per-station stats."""
+    engine, fast = PKGS[pkg]
+    cfg, scfg = fast.latency_config(), fast.stream_latency_smoke_config()
+    kw = {} if pkg == "ref" else {"device": "cpu"}
+    rng = np.random.default_rng(3)
+    chunk = scfg.block_fingerprints * cfg.fingerprint.lag_samples
+    det = engine.StreamingDetector(cfg, scfg, n_stations=2, **kw)
+    errors = []
+    with pytest.raises(ValueError, match="live pool") as e:
+        det.add_station()                     # stats not frozen yet
+    errors.append(str(e.value))
+    for _ in range(scfg.stats_warmup_blocks + 4):
+        det.push(rng.standard_normal((2, chunk)).astype(np.float32))
+    assert det.pstate is not None
+    assert det.add_station() == 2 and len(det.stations) == 3
+    joined = det.stations[2].ring
+    assert joined.start == det.stations[0].ring.start
+    assert joined.quality["missing_samples"] > 0
+    for _ in range(4):
+        det.push(rng.standard_normal((3, chunk)).astype(np.float32))
+    assert all(st.stats.chunks > 0 for st in det.stations)
+    det.remove_station(1)
+    assert [st._pool_idx for st in det.stations] == [0, 1]
+    for _ in range(2):
+        det.push(rng.standard_normal((2, chunk)).astype(np.float32))
+    with pytest.raises(ValueError, match="last station") as e:
+        det.remove_station(0), det.remove_station(0)
+    errors.append(str(e.value))
+    with pytest.raises(IndexError):
+        det.remove_station(5)
+    _, _, stats = det.finalize()
+    for s in stats["ingest"]:
+        for k in WALL_KEYS:
+            s.pop(k)
+    return errors, stats, joined.quality
+
+
+def test_elastic_add_remove_matches_reference():
+    got, want = _elastic_sequence("port"), _elastic_sequence("ref")
+    assert got == want
+
+
+@pytest.mark.parametrize("case", ["not_pooled", "add_locating",
+                                  "remove_locating", "remove_not_live"])
+def test_elastic_refusals_match_reference(case):
+    """Every ``ValueError`` of the reference's ``add_station`` /
+    ``remove_station``, the two that refuse while locating included."""
+    msgs = []
+    for pkg in ("port", "ref"):
+        engine, fast = PKGS[pkg]
+        kw = {} if pkg == "ref" else {"device": "cpu"}
+        scfg = fast.stream_smoke_config()
+        cfg = fast.smoke_config()
+        if case == "not_pooled":
+            scfg = dataclasses.replace(scfg, pooled=False)
+        if case.endswith("locating"):
+            cfg = fast.located_smoke_config()
+            kw["station_xy"] = np.zeros((2, 2), np.float32)
+        det = engine.StreamingDetector(cfg, scfg, n_stations=2, **kw)
+        call = (det.add_station if case in ("not_pooled", "add_locating")
+                else lambda: det.remove_station(0))
+        with pytest.raises(ValueError) as e:
+            call()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_elastic_stream_matches_reference():
+    """The bounded 3-station trace with a fourth station joining halfway
+    (the pool is live from push 5) and leaving at push 8, in both packages: the
+    finished runs are equal, and stations 0–2 end as in an uninterrupted
+    run of the same three stations."""
+    ds = jsynth.make_dataset(jsynth.SynthConfig(
+        duration_s=600.0, n_stations=4, n_sources=2, events_per_source=5,
+        event_snr=3.0, seed=11))
+    wf = ds.waveforms
+    pushes = _even(wf.shape[1], 10)
+    out = {}
+    for pkg in PKGS:
+        det = _detector(pkg, "stream_bounded_smoke_config", 3)
+        for i, (a, b, _) in enumerate(pushes):
+            if i == 5:
+                det.add_station()
+            if i == 8:
+                det.remove_station(3)
+            det.push(wf[:len(det.stations), a:b])
+        out[pkg] = _finish(det)
+    assert out["port"] == out["ref"]
+    solo = _detector("port", "stream_bounded_smoke_config", 3)
+    _push_all(solo, wf[:3], pushes)
+    base = _finish(solo)
+    assert out["port"]["events"] == base["events"]
+    for i in range(3):
+        for k in ("fingerprints", "pairs", "windows", "events"):
+            assert out["port"]["stats"][f"station{i}_{k}"] == \
+                base["stats"][f"station{i}_{k}"], (i, k)
+    assert sum(map(len, base["events"])) > 0
 
 
 def test_detector_needs_cuda_unless_the_cpu_is_asked(monkeypatch):

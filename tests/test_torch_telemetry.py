@@ -15,7 +15,8 @@ streaming section, on the port, with the reference's own run beside it.
   Prometheus exposition the reference's metric names and label sets,
   every line parseable, written atomically;
 * the serving hooks and ``serve_view`` count as the reference's do, and
-  ``locate_view`` reads the reference's all-zero view.
+  ``locate_view`` reads the reference's all-zero view; ``record_locate``
+  feeds it as the reference's does (registry and Prometheus text equal).
 """
 import dataclasses
 import pathlib
@@ -274,6 +275,21 @@ def test_serving_hooks_count_as_the_references():
     assert (locate["passes"], locate["groups"], locate["located"],
             locate["moveout_rejected"], locate["stack_wall"]["count"]) == \
         (0, 0, 0, 0, 0)
+
+
+def test_locate_hook_counts_as_the_references():
+    views = []
+    for tele in (ttele, jtele):
+        hub = tele.StreamTelemetry(4)
+        hub.record_locate(groups=5, located=3, rejected=2, wall=0.004)
+        hub.record_locate(groups=1, located=1, rejected=0, wall=0.0005)
+        views.append((hub.locate_view(), hub.registry.snapshot(),
+                      hub.registry.render()))
+    assert views[0] == views[1]
+    locate = views[0][0]
+    assert (locate["passes"], locate["groups"], locate["located"],
+            locate["moveout_rejected"], locate["stack_wall"]["count"]) == \
+        (2, 6, 4, 2, 2)
 
 
 def test_heartbeat_carries_the_serve_view(pooled):
