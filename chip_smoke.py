@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's batch FAST detection, streaming detection,
 offline Min-Max LSH search, LM serving, detection serving, detector
-snapshots, elastic pool membership and the location / magnitude tier on
-one NVIDIA GPU, end to end.
+snapshots, elastic pool membership, the location / magnitude tier and LM
+training on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -170,6 +170,50 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
 23. One paper block with ``time_domain_bandpass=True``: the card's
     spectrogram within the kernel tolerance of the CPU's, the bits
     (the CPU's statistics on both) agreeing on ≥ 99.9%.
+24. The backward kernels against their plain versions (``plain_bwd``),
+    each launched twice and bitwise equal, timed and bounded:
+    ``flash_attention_bwd`` at qwen2.5-14b's training shape (B = 1, 40 / 8
+    heads, 2048², D = 128, bf16, causal, on the forward kernel's own
+    output and log-sum-exp, which are first held to ``plain_with_lse``'s:
+    the output as phase 13's, the log-sum-exp within 1e-3 absolute) and
+    an fp32 case at S = 512, its bound 10·D flops an allowed q–k pair at
+    the tensor (or fp32) rate and its library column the backward of
+    ``scaled_dot_product_attention`` on the same tensors;
+    ``mamba_scan_bwd`` at the training path's microbatch of
+    falcon-mamba-7b (B = 2, S = 2048, Di = 8192, N = 16, fp32: the scan
+    dtype of training), and at B = 1 in fp32 and bf16, on the chunk
+    states of ``mamba_scan_chunks``, whose y and h_final are first held to
+    the plain forward's; its bound the larger of its bytes and one
+    exponential an element on the SFU. Tolerances as phase 13's. Then
+    the embedding lookup's backward at qwen2.5-14b's table and 2,048
+    tokens, ``F.embedding`` (the port's) against the indexing's
+    ``index_put_``, timed, and ``F.embedding``'s gradient bitwise
+    repeatable (the launcher's resume relies on it).
+25. Training parity: on the fp32 qwen2.5-14b and falcon-mamba-7b smoke
+    configs (remat "block"), the card's ``lm_loss`` and gradients and
+    three ``make_train_step`` steps in each ``accum_mode`` against the
+    port's CPU path from the same parameters and batches (loss 1e-5
+    relative, gradients 2e-5 of each leaf's max, grad norm 1e-4
+    relative; parameters within lr (3e-4) at most and 1e-6 in RMS: an
+    element whose gradient sits at its rounding noise moves by up to ~lr
+    in AdamW's first steps); the forward kernel launches twice a layer
+    (forward and the remat recompute), the backward kernel once.
+26. Training at full width: ``qwen25_14b.config()`` and
+    ``falcon_mamba_7b.config()`` with ``n_layers`` cut to 4, bf16
+    parameters from ``init_train_state`` (seed 0), ``make_train_step``
+    with remat "block", fp32 accumulation and ``LM_TRAIN``'s global batch
+    (2 / 4 sequences of 2,048 tokens) in 2 microbatches, on
+    ``TokenPipeline`` batches (dedup on the card); one warm-up step, then
+    4 timed steps with launch counters zeroed just before and read just
+    after: the forward kernel 2 × and the backward kernel 1 × n_layers ×
+    microbatches × steps. Step walls, tokens/s, the AdamW update alone
+    (``apply_updates`` on the trained state) and its share of the step,
+    peak memory, parameter and optimizer bytes, the losses.
+27. Resume: ``python -m repro_torch.launch.train --arch smoke --device
+    cuda`` for 8 steps, again with ``--inject-failure-at 5`` (exit 42
+    before step 5's checkpoint), then ``--resume``: the final
+    checkpoint's every leaf and the final loss equal the uninterrupted
+    run's bit for bit.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -182,7 +226,10 @@ from the path that runs it: the paper streaming service (phase 7) for the
 four kernels of the detection core, each with the batch replay's count
 (phase 5) beside it under ``launches_by_path``; the offline search (phase
 11) for ``minmax_hash``; the LM serve runs (phase 15) for
-``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b).
+``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b),
+each also with the training run's count under ``launches_by_path``; the
+training runs (phase 26) for ``flash_attention_bwd`` and
+``mamba_scan_bwd``.
 The serving phase's counts stand beside them under ``launches_by_path``
 (``serve``) for ``stft_mag``, ``haar2d`` and ``minmax_hash``, whose entries
 also carry their error, time, bound and library time at the serving
@@ -196,6 +243,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -250,7 +298,9 @@ BATCH_KERNELS = ("stft_mag", "haar2d", "minmax_sig_buckets",
 KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
                "minmax_hash": ("offline_paper",),
                "flash_attention": ("lm_serve", "qwen2.5-14b"),
-               "mamba_scan": ("lm_serve", "falcon-mamba-7b")}
+               "mamba_scan": ("lm_serve", "falcon-mamba-7b"),
+               "flash_attention_bwd": ("lm_train", "qwen2.5-14b"),
+               "mamba_scan_bwd": ("lm_train", "falcon-mamba-7b")}
 # every path whose launch counts a kernel's entry lists under
 # launches_by_path: the batch replay (phase 5), the streaming service
 # (phase 7), the offline search (phase 11), detection serving (phase 16),
@@ -271,6 +321,19 @@ SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # bf16 before P·V (at most ~2⁻⁹·max|v|)
 LM_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
 LM_SERVE_LAYERS = 4
+# full-width training (phase 26): n_layers cut to 4 as the serve phase
+# cuts it, seq 2048, (global batch, microbatches) per model, timed steps
+# after one warm-up step
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_SEQ = 2048
+LM_TRAIN = {"qwen2.5-14b": (2, 2), "falcon-mamba-7b": (4, 2)}
+LM_TRAIN_STEPS = 4
+# the LM kernels' launches by path: the serve runs (phase 15) and the
+# training runs (phase 26), of the model that runs each kernel
+LM_KERNEL_MODEL = {"flash_attention": "qwen2.5-14b",
+                   "flash_attention_bwd": "qwen2.5-14b",
+                   "mamba_scan": "falcon-mamba-7b",
+                   "mamba_scan_bwd": "falcon-mamba-7b"}
 # the serving phase: request windows of 60 s on the fingerprint grid, a
 # burst of SERVE_REQUESTS, then SERVE_OVERLOAD more at once (past the
 # serve_config() queue bound of 1,024, so SERVE_OVERLOAD - 1,024 shed); the
@@ -2209,8 +2272,10 @@ def _lm_smoke_configs():
 
 
 def _tree_to(tree: dict, dev) -> dict:
-    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+    """A copy of a tree of tensors on ``dev`` (a copy on the same device
+    too, so a run that updates it in place leaves the source alone)."""
+    return {k: _tree_to(v, dev) if isinstance(v, dict)
+            else v.to(dev, copy=True) for k, v in tree.items()}
 
 
 def lm_parity_phase(dev) -> dict:
@@ -2320,6 +2385,445 @@ def lm_serve_phase(dev) -> dict:
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def lm_bwd_kernel_phase(dev) -> list[dict]:
+    """The backward kernels of ``flash_attention`` and ``mamba_scan``
+    against their plain versions (``plain_bwd``) at the training shapes,
+    each launched twice and bitwise equal, timed and bounded."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import mamba_scan as ms_k
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = []
+
+    # --- flash_attention_bwd: (B, Hq, Hkv, S, D, dtype), causal; the
+    # first is qwen2.5-14b's training shape, the one the kernels line
+    # reports
+    runs = []
+    for b, hq, hkv, s, d, dt in ((1, 40, 8, 2048, 128, torch.bfloat16),
+                                 (1, 40, 8, 512, 128, torch.float32)):
+        q, do = (torch.randn((b, hq, s, d), generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        o = torch.empty_like(q)
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        fa_k.launch(q, k, v, o, True, lse)      # the forward's o and L
+        o_p, lse_p = fa_k.plain_with_lse(q, k, v, True)
+        _lm_check(o, o_p, f"flash_attention o {[b, hq, s, d]}")
+        lse_err = float((lse - lse_p).abs().max())
+        _need(lse_err <= 1e-3, f"flash_attention log-sum-exp {[b, hq, s, d]}"
+              f" differs from the plain one: max abs err {lse_err} > 1e-3")
+        del o_p, lse_p
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        want = fa_k.plain_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        _need(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {[b, hq, s, d]}: two launches differ")
+        err = max(_lm_check(x, w, f"flash_attention_bwd d{n} {[b, hq, s, d]}")
+                  for x, w, n in zip(got, want, "qkv"))
+        del got, again, want
+        pairs = s * (s + 1) // 2
+        n_bytes = q.element_size() * (3 * q.numel() + 2 * k.numel()
+                                      + q.numel() + 2 * k.numel()) \
+            + 4 * lse.numel()
+        # 10·D flops an allowed pair: the 5 products of a backward
+        bound, by = _bound_ms(n_bytes, 10 * b * hq * d * pairs,
+                              BF16_OPS_PER_S if dt == torch.bfloat16
+                              else FP32_OPS_PER_S)
+        ms = _time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+        plain_ms = _time_ms(lambda: fa_k.plain_bwd(q, k, v, o, lse, do),
+                            iters=5, warmup=1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True))
+        runs.append({"shape": [b, hq, hkv, s, s, d], "dtype": str(dt)[6:],
+                     "causal_pairs": pairs, "max_abs_err": err,
+                     "lse_max_abs_err": lse_err, "ms": ms,
+                     "tflop_s": 10 * b * hq * d * pairs / ms * 1e-9,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": library_ms,
+                     "repeatable": True})
+        del q, k, v, o, lse, do, ql, kl, vl, ol
+    main = runs[0]
+    out.append({"name": "flash_attention_bwd", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:89 "
+                            "(its backward; no Pallas counterpart)",
+                **{k: main[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "cases": runs})
+
+    # --- mamba_scan_bwd: (B, dtype) at falcon-mamba-7b's S, Di, N; the
+    # first is the training path's microbatch (LM_TRAIN: 4 sequences in 2
+    # microbatches) in training's scan dtype, the row the kernels line
+    # reports
+    s, di, n = LM_TRAIN_SEQ, 8192, 16
+    b_train = LM_TRAIN["falcon-mamba-7b"][0] // LM_TRAIN["falcon-mamba-7b"][1]
+    runs = []
+    for b, dt in ((b_train, torch.float32), (1, torch.float32),
+                  (1, torch.bfloat16)):
+        xdt, dy = (torch.randn((b, s, di), generator=g, device=dev).to(dt)
+                   for _ in range(2))
+        dtv = F.softplus(torch.randn((b, s, di), generator=g, device=dev)
+                         - 4.6).to(dt)
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(di, n).contiguous()
+        bm, cm = (torch.randn((b, s, n), generator=g, device=dev).to(dt)
+                  for _ in range(2))
+        args = (xdt, dtv, a, bm, cm)
+        y, hf, hc = ops.mamba_scan_chunks(*args)
+        y_p, hf_p = ms_k.plain(*args)
+        _lm_check(y, y_p, f"mamba_scan_chunks y {[b, dt]}")
+        _lm_check(hf, hf_p, f"mamba_scan_chunks h_final {[b, dt]}")
+        del y, hf, y_p, hf_p
+        got = ops.mamba_scan_bwd(*args, dy, None, hc)
+        again = ops.mamba_scan_bwd(*args, dy, None, hc)
+        want = ms_k.plain_bwd(*args, dy)
+        torch.cuda.synchronize()
+        _need(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"mamba_scan_bwd {[b, dt]}: two launches differ")
+        err = max(_lm_check(x, w, f"mamba_scan_bwd {name} {[b, dt]}")
+                  for x, w, name in zip(got, want, ("dxdt", "ddt", "da",
+                                                    "db", "dc")))
+        del got, again, want
+        el = xdt.element_size()
+        n_bytes = el * (5 * b * s * di + 4 * b * s * n) \
+            + 4 * (2 * di * n + hc.numel())
+        # one exponential a (step, channel, state) on the SFU: the
+        # adjoint's g_t is the recompute's (the kernel forms it twice)
+        bound, by = _bound_ms(n_bytes, 16 * b * s * di * n,
+                              n_sfu=b * s * di * n)
+        # the training path's forward (the instance that stores the chunk
+        # states) at the same shape, bounded as phase 13's plus its stores
+        fwd_bound, fwd_by = _bound_ms(
+            el * (3 * b * s * di + 2 * b * s * n)
+            + 4 * (di * n + b * di * n + hc.numel()), 7 * b * s * di * n,
+            n_sfu=b * s * di * n)
+        runs.append({
+            "shape": [b, s, di, n], "dtype": str(dt)[6:], "max_abs_err": err,
+            "fwd_chunks_ms": _time_ms(lambda: ops.mamba_scan_chunks(*args)),
+            "fwd_chunks_bound_ms": fwd_bound, "fwd_chunks_bound_by": fwd_by,
+            "ms": _time_ms(lambda: ops.mamba_scan_bwd(*args, dy, None, hc)),
+            "plain_ms": _time_ms(lambda: ms_k.plain_bwd(*args, dy), iters=1,
+                                 warmup=0),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "repeatable": True})
+        del xdt, dy, dtv, bm, cm, hc, args
+    main = runs[0]
+    out.append({"name": "mamba_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/csrc/mamba_scan.cu",
+                "replaces": "src/repro/kernels/mamba_scan.py:54 "
+                            "(its backward; no Pallas counterpart)",
+                **{k: main[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "cases": runs})
+    for k in out:
+        print("lm_bwd_kernel", json.dumps(k), flush=True)
+    return out
+
+
+def embedding_bwd_phase(dev) -> dict:
+    """The embedding lookup's backward at qwen2.5-14b's table (153,600 ×
+    5,120 bf16) and one microbatch of phase 26 (2,048 zipf-distributed
+    tokens, so rows repeat as in text): ``F.embedding`` (the port's
+    ``layers.embed_tokens``: a sorted, fixed-order sum of each token's
+    rows) and the indexing ``table[tokens]`` (``index_put_`` with
+    accumulation), each timed as forward + backward of the lookup alone,
+    and whether each repeats its gradient bit for bit over 5 runs.
+    ``F.embedding`` must: the launcher's resume is checked bit-exact."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import padded_vocab
+    cfg = get_config("qwen2.5-14b")
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = (torch.randn((padded_vocab(cfg), cfg.d_model), generator=g,
+                         device=dev) * 0.02).to(torch.bfloat16)
+    table.requires_grad_()
+    toks = torch.as_tensor(np.minimum(
+        np.random.default_rng(0).zipf(1.2, (1, LM_TRAIN_SEQ)),
+        cfg.vocab_size - 1) - 1, dtype=torch.int32, device=dev)
+    dy = torch.randn((1, LM_TRAIN_SEQ, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+    ways = {"F.embedding": lambda: F.embedding(toks, table),
+            "index_put_": lambda: table[toks.long()]}
+    out = {"table": list(table.shape), "tokens": LM_TRAIN_SEQ,
+           "distinct_tokens": int(torch.unique(toks).numel())}
+    for name, fwd in ways.items():
+        grads = [torch.autograd.grad(fwd(), table, dy)[0] for _ in range(5)]
+        out[name] = {
+            "ms": _time_ms(lambda: torch.autograd.grad(fwd(), table, dy),
+                           iters=20),
+            "repeatable": all(torch.equal(grads[0], x) for x in grads[1:])}
+        del grads
+    print("embedding_bwd", json.dumps(out), flush=True)
+    _need(out["F.embedding"]["repeatable"],
+          "F.embedding's backward is not bitwise repeatable on the card")
+    return out
+
+
+def _train_batch(cfg, b: int, s: int, seed: int, dev) -> dict:
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.zeros((b, 1), np.int32)], 1)
+    mask = np.ones((b, s), np.float32)
+    mask[:, -1] = 0.0
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            (("tokens", toks), ("labels", labels), ("loss_mask", mask))}
+
+
+def lm_train_parity_phase(dev) -> dict:
+    """Training on the card against the port's CPU path (which
+    ``tests/test_torch_lm_grad.py`` and ``tests/test_torch_train.py``
+    hold to the JAX package) on the fp32 smoke configs, remat "block":
+    ``lm_loss`` and its gradients, then three ``make_train_step`` steps
+    (2 microbatches) in each ``accum_mode`` from the same state.
+    Tolerances: loss 1e-5 relative and gradients 2e-5 of each leaf's
+    max|CPU|, as the CPU parity tests; the metrics' loss 1e-5 and grad
+    norm 1e-4 relative; parameters after three steps within lr (3e-4)
+    and their RMS difference within 1e-6: AdamW's first steps move an
+    element by ~lr · g / |g|, so an element whose gradient is near its
+    rounding noise can land up to ~lr away (run 1 of this phase: 2.7e-5),
+    while the bulk must agree."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train.loop import TrainState, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.utils import tree_leaves as leaves
+    out = {}
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               cache_dtype="float32", remat="block")
+    for arch in ("qwen2.5-14b", "falcon-mamba-7b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), **f32)
+        params = init_params(cfg, 0, "cpu")
+        batch = _train_batch(cfg, 4, 64, 0, "cpu")
+        res = []
+        ops.reset_launches()
+        for d in (dev, torch.device("cpu")):
+            p = _tree_to(params, d)
+            tensors = [t.requires_grad_() for _, t in leaves(p)]
+            loss, _ = lm_loss(p, _tree_to(batch, d), cfg)
+            grads = torch.autograd.grad(loss, tensors)
+            res.append((float(loss), [x.cpu() for x in grads]))
+        launches = dict(ops.LAUNCHES)
+        grad_err = max(float((a - w).abs().max()) / float(w.abs().max())
+                       for a, w in zip(res[0][1], res[1][1])
+                       if float(w.abs().max()) > 0)
+        steps = {}
+        for mode in ("scan_grads", "grad_of_scan"):
+            step = make_train_step(cfg, OptimizerConfig(
+                warmup_steps=1, total_steps=10, accum_dtype="float32"),
+                n_microbatches=2, accum_mode=mode)
+            finals = []
+            for d in (dev, torch.device("cpu")):
+                p = _tree_to(params, d)
+                st = TrainState(p, init_opt_state(p), torch.zeros(
+                    (), dtype=torch.int32, device=d))
+                mets = []
+                for i in range(3):
+                    st, m = step(st, _train_batch(cfg, 4, 64, 10 + i, d))
+                    mets.append({k: float(v) for k, v in m.items()})
+                finals.append((st, mets))
+            diffs = [(a.cpu() - w).flatten() for (_, a), (_, w)
+                     in zip(leaves(finals[0][0].params),
+                            leaves(finals[1][0].params))]
+            perr = max(float(x.abs().max()) for x in diffs)
+            rms = float(torch.cat(diffs).square().mean().sqrt())
+            steps[mode] = {
+                "metrics_card": finals[0][1], "metrics_cpu": finals[1][1],
+                "param_max_abs_err": perr, "param_rms_err": rms}
+            _need(perr <= 3e-4 and rms <= 1e-6,
+                  f"LM train parity {arch} {mode}: parameters differ by "
+                  f"{perr} (max) / {rms} (RMS) after 3 steps")
+            for mc, mh in zip(finals[0][1], finals[1][1]):
+                _need(abs(mc["loss"] - mh["loss"]) <= 1e-5 * abs(mh["loss"])
+                      and abs(mc["grad_norm"] - mh["grad_norm"])
+                      <= 1e-4 * mh["grad_norm"],
+                      f"LM train parity {arch} {mode}: metrics {mc} vs {mh}")
+        out[arch] = {"loss_card": res[0][0], "loss_cpu": res[1][0],
+                     "grad_max_rel_err": grad_err, "launches": launches,
+                     "steps": steps}
+        _need(abs(res[0][0] - res[1][0]) <= 1e-5 * abs(res[1][0]),
+              f"LM train parity {arch}: loss {res[0][0]} vs {res[1][0]}")
+        _need(grad_err <= 2e-5, f"LM train parity {arch}: gradients differ "
+              f"by {grad_err} of their max")
+        fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                    if cfg.block_kind == "attn"
+                    else ("mamba_scan", "mamba_scan_bwd"))
+        _need(launches[fwd] == 2 * cfg.n_layers and
+              launches[bwd] == cfg.n_layers,
+              f"LM train parity {arch}: launches {launches}")
+    print("lm_train_parity", json.dumps(out), flush=True)
+    return out
+
+
+def lm_train_phase(dev) -> dict:
+    """qwen2.5-14b and falcon-mamba-7b at full width (n_layers cut to 4)
+    training through ``make_train_step`` on ``TokenPipeline`` batches
+    (dedup on the card): seq 2048, ``LM_TRAIN``'s global batch in 2
+    microbatches, fp32 accumulation, remat "block", bf16 parameters; one
+    warm-up step, then ``LM_TRAIN_STEPS`` timed steps with the launch
+    counters zeroed just before and read just after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import falcon_mamba_7b, qwen25_14b
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, apply_updates
+    from repro_torch.utils import tree_map
+    out = {}
+    for full, fwd, bwd in ((qwen25_14b.config(), "flash_attention",
+                            "flash_attention_bwd"),
+                           (falcon_mamba_7b.config(), "mamba_scan",
+                            "mamba_scan_bwd")):
+        cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS,
+                                  remat="block")
+        batch, n_mb = LM_TRAIN[full.name]
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, 0, dev)
+        opt_cfg = OptimizerConfig(warmup_steps=1,
+                                  total_steps=LM_TRAIN_STEPS + 1,
+                                  accum_dtype="float32")
+        step = make_train_step(cfg, opt_cfg, n_microbatches=n_mb)
+        t0 = time.perf_counter()
+        pipe = TokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+            global_batch=batch, seed=0), device=dev)
+        it = pipe.batches()
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                    next(it).items()} for _ in range(LM_TRAIN_STEPS + 1)]
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0])
+        losses = [float(m["loss"])]
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        walls = []
+        for tb in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, tb)
+            losses.append(float(m["loss"]))     # the step's one read-back
+            walls.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(state.params))
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(state.opt))
+        zeros = tree_map(torch.zeros_like, state.opt["master"])
+        adamw_ms = _time_ms(lambda: apply_updates(
+            state.params, zeros, state.opt, opt_cfg), iters=3, warmup=1,
+            primed=False)
+        del zeros
+        tokens = batch * LM_TRAIN_SEQ
+        wall = sorted(walls)[len(walls) // 2]
+        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+             "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                        "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+                        "d_ff": cfg.d_ff, "d_inner": cfg.d_inner,
+                        "ssm_state": cfg.ssm_state,
+                        "vocab_size": cfg.vocab_size},
+             "seq": LM_TRAIN_SEQ, "global_batch": batch,
+             "microbatches": n_mb, "remat": cfg.remat,
+             "data_s": data_s, "warmup_s": warm_s, "step_walls_s": walls,
+             "step_wall_s": wall, "tokens_per_s": tokens / wall,
+             "adamw_ms": adamw_ms, "adamw_share": adamw_ms / 1e3 / wall,
+             "peak_memory_bytes": peak, "param_bytes": param_bytes,
+             "opt_bytes": opt_bytes, "losses": losses,
+             "first_loss": losses[0], "last_loss": losses[-1],
+             "dedup": pipe.dedup_stats, "launches": launches}
+        print("lm_train", cfg.name, json.dumps(r), flush=True)
+        n = cfg.n_layers * n_mb * LM_TRAIN_STEPS
+        _need(all(math.isfinite(x) for x in losses),
+              f"{cfg.name}: a loss is not finite: {losses}")
+        _need(launches[fwd] == 2 * n and launches[bwd] == n,
+              f"{cfg.name}: {fwd} launched {launches[fwd]} times (want "
+              f"{2 * n}: forward and remat recompute) and {bwd} "
+              f"{launches[bwd]} (want {n}, n_layers x microbatches x steps)")
+        out[full.name] = r
+        del state, batches, step
+    return out
+
+
+def train_resume_phase(tmp: str) -> dict:
+    """``python -m repro_torch.launch.train --arch smoke --device cuda``
+    for 8 steps uninterrupted and, beside it on the same card, again with
+    ``--inject-failure-at 5``, which must exit 42 before step 5's
+    checkpoint; then ``--resume`` of the second: the final checkpoint
+    (parameters, master, moments, steps) and the final loss must equal
+    the uninterrupted run's bit for bit."""
+    import os
+    import numpy as np
+    from repro_torch.train import checkpoint as ckpt
+    common = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+              "smoke", "--steps", "8", "--seq", "64", "--batch", "4",
+              "--ckpt-every", "2", "--seed", "3", "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(args):
+        return subprocess.Popen(common + args, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+
+    def finish(p):
+        try:
+            _, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+        return p.returncode, err
+
+    t0 = time.perf_counter()
+    procs = [start(["--ckpt-dir", f"{tmp}/ref", "--metrics-out",
+                    f"{tmp}/ref.json"]),
+             start(["--ckpt-dir", f"{tmp}/crash", "--inject-failure-at",
+                    "5"])]
+    (ref_rc, ref_err), (crash_rc, crash_err) = (finish(p) for p in procs)
+    walls = {"uninterrupted_and_crash": time.perf_counter() - t0}
+    _need(ref_rc == 0, f"train launcher failed: {ref_err[-800:]}")
+    _need(crash_rc == 42, f"--inject-failure-at 5 exited {crash_rc}, not "
+          f"42: {crash_err[-800:]}")
+    _need(ckpt.latest_step(f"{tmp}/crash") == 4,
+          "the crashed run's latest checkpoint is not step 4")
+    t0 = time.perf_counter()
+    res_rc, res_err = finish(start(["--ckpt-dir", f"{tmp}/crash",
+                                    "--resume", "--metrics-out",
+                                    f"{tmp}/res.json"]))
+    walls["resume"] = time.perf_counter() - t0
+    _need(res_rc == 0, f"--resume failed: {res_err[-800:]}")
+    a, _, _ = ckpt.restore_flat(f"{tmp}/ref")
+    b, _, _ = ckpt.restore_flat(f"{tmp}/crash")
+    equal = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    want = json.loads(pathlib.Path(f"{tmp}/ref.json").read_text())
+    got = json.loads(pathlib.Path(f"{tmp}/res.json").read_text())
+    r = {"walls_s": walls, "leaves": len(a), "bitwise_equal": equal,
+         "final_loss": [want["final_loss"], got["final_loss"]],
+         "crash_rc": crash_rc, "dedup": got["dedup"]}
+    print("train_resume", json.dumps(r), flush=True)
+    _need(equal, "the resumed run's final state differs from the "
+          "uninterrupted run's")
+    _need(got["final_loss"] == want["final_loss"],
+          f"final losses differ: {r['final_loss']}")
+    return r
 
 
 def profile_phase(ds, dev) -> dict:
@@ -2443,6 +2947,12 @@ def main() -> int:
         report["located_stream"] = located_stream_phase(dev, tmp)
     report["serve_locate"] = serve_locate_phase(dev)
     report["bandpass"] = bandpass_phase(ds, dev)
+    kernels += lm_bwd_kernel_phase(dev)
+    report["embedding_bwd"] = embedding_bwd_phase(dev)
+    report["lm_train_parity"] = lm_train_parity_phase(dev)
+    report["lm_train"] = lm_train_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["train_resume"] = train_resume_phase(tmp)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:
@@ -2456,6 +2966,10 @@ def main() -> int:
                 for path in KERNEL_PATHS[k["name"]]}
         if k["name"] in serve_shapes:
             k["serving_shape"] = serve_shapes[k["name"]]
+        if k["name"] in LM_KERNEL_MODEL:
+            k["launches_by_path"] = {
+                path: report[path][LM_KERNEL_MODEL[k["name"]]]["launches"][
+                    k["name"]] for path in ("lm_serve", "lm_train")}
     report["kernels"] = kernels
     # the Min-Max kernels also carry the plan of each shape they ran at,
     # the detection core's kernels their launches on each driver's path

@@ -4,7 +4,7 @@ architecture registry: ``--arch <id>`` → config / smoke config.
 The registry names every architecture of ``repro.configs``. The port
 serves the dense GQA transformer (``qwen2.5-14b``) and Mamba1
 (``falcon-mamba-7b``) so far; the other LM architectures raise
-``NotImplementedError`` until ROADMAP queue 1 item 6 ports their families.
+``NotImplementedError`` until ROADMAP queue 1 item 2 ports their families.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def _mod(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ALL_ARCHS}")
     if _MODULES[arch] is None:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP queue 1 item 6 (the "
+            f"{arch!r} is not ported yet: ROADMAP queue 1 item 2 (the "
             f"remaining LM families) brings it to repro_torch")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 

@@ -1,9 +1,10 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-LM parameters and decode caches (``lm_params``, ``lm_cache``) keep the
-reference's nested keys and layouts; bf16 leaves (``ml_dtypes.bfloat16``
-arrays from ``np.asarray``) travel as their uint16 bit patterns and
-become ``torch.bfloat16`` tensors bit for bit.
+LM parameters, decode caches and training states (``lm_params``,
+``lm_cache``, ``train_state``) keep the reference's nested keys and
+layouts; bf16 leaves (``ml_dtypes.bfloat16`` arrays from ``np.asarray``)
+travel as their uint16 bit patterns and become ``torch.bfloat16``
+tensors bit for bit.
 
 The detection system has no learned weights: its parameters are the hash
 mappings (recomputed by ``lsh.hash_mappings``, bit-exact), the §5.2
@@ -121,3 +122,37 @@ def lm_cache(tree: dict, device=None) -> dict:
     """A reference decode cache (``pos``, ``k`` / ``v`` or ``conv`` /
     ``ssm``) → the port's, same keys, shapes and dtypes."""
     return _lm_tree(tree, device)
+
+
+def _lm_tree_to_numpy(tree: dict) -> dict:
+    """Tensors → numpy; bf16 leaves as fp32 arrays (every bf16 value is an
+    fp32 value, so ``.astype(bfloat16)`` recovers them exactly)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _lm_tree_to_numpy(v)
+        else:
+            t = v.detach().cpu()
+            out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out
+
+
+def train_state(leaves: dict, device=None):
+    """A reference ``TrainState`` as numpy — {"params": tree, "opt":
+    {"master", "m", "v", "step"}, "step"} — → the port's ``TrainState``
+    with the same keys, shapes, dtypes and values."""
+    from repro_torch.train.loop import TrainState
+    opt = dict(leaves["opt"])
+    return TrainState(
+        params=_lm_tree(leaves["params"], device),
+        opt={**_lm_tree({k: opt[k] for k in ("master", "m", "v")}, device),
+             "step": _tensor(np.asarray(opt["step"], np.int32), device)},
+        step=_tensor(np.asarray(leaves["step"], np.int32), device))
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` → {"params", "opt", "step"} of numpy
+    arrays (bf16 leaves as fp32 values, see ``_lm_tree_to_numpy``)."""
+    return {"params": _lm_tree_to_numpy(state.params),
+            "opt": _lm_tree_to_numpy(state.opt),
+            "step": state.step.cpu().numpy()}

@@ -98,6 +98,18 @@ __device__ __forceinline__ void load_vec(float (&v)[V],
   }
 }
 
+// V consecutive floats to shared memory (one 16-byte store at V = 4)
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -191,13 +203,13 @@ __device__ __forceinline__ void halve(float (&part)[kChunk], int q, int& tb) {
   }
 }
 
-template <typename T, int SPT, int LPC>
+template <typename T, int SPT, int LPC, bool kChunks>
 __global__ void __launch_bounds__(kThreads)
 mamba_scan_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
                   const float* __restrict__ a, const T* __restrict__ bm,
                   const T* __restrict__ cm, T* __restrict__ y,
-                  float* __restrict__ h_out, int s, int di, int n, int vec_d,
-                  int vec_n) {
+                  float* __restrict__ h_out, float* __restrict__ h_chunks,
+                  int s, int di, int n, int vec_d, int vec_n) {
   constexpr int CH = kThreads / LPC;   // channels of the CTA
   constexpr int NP = SPT * LPC;        // states, padded
   constexpr int kD = kChunk * CH;
@@ -243,6 +255,14 @@ mamba_scan_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
 
     const T* buf = sm + p * kBuf;
     const int len = min(kChunk, s - t0);
+    if (kChunks && d < di) {   // the state entering this chunk
+      float* hc = h_chunks + (((long long)b * ((s + kChunk - 1) / kChunk) + t0 / kChunk) *
+                                  di +
+                              d) * n + n0;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j)
+        if (n0 + j < n) hc[j] = h[j];
+    }
     float part[kChunk];
     if (len == kChunk)
       steps<SPT, CH, NP, false>(h, part, av, buf, buf + kD, buf + 2 * kD,
@@ -264,20 +284,231 @@ mamba_scan_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
     if (d < di && n0 + j < n) h_out[((long long)b * di + d) * n + n0 + j] = h[j];
 }
 
+// ------------------------------------------------------------ backward
+//
+// The adjoint of the scan, lambda_t = dL/dh_t (h_final's gradient enters at
+// the last step): walking time backwards,
+//   lambda_t  += dy_t C_t
+//   dxdt_t     = sum_n lambda_t B_t             (over the channel's states)
+//   ddt_t      = sum_n lambda_t h_{t-1} g_t a   (g_t = exp(dt_t a))
+//   da        += lambda_t h_{t-1} g_t dt_t      (over batch and time)
+//   dB_t      += lambda_t xdt_t                 (over the channels)
+//   dC_t      += dy_t h_t                       (over the channels)
+//   lambda_{t-1} = g_t lambda_t
+// The forward kernel stores h at each 32-step chunk boundary (h_chunks,
+// (B, ceil(S / 32), Di, N) fp32). The backward takes the chunks in reverse:
+// it recomputes the chunk's h_t from its boundary with the forward's exact
+// arithmetic (so the states are the forward's bits) into shared memory,
+// then walks the chunk backwards carrying lambda in registers. The thread
+// layout is the forward's (SPT states of one channel a thread, LPC lanes a
+// channel). dxdt and ddt reduce over the channel's lanes once a chunk by the
+// forward's recursive halving; dB and dC reduce over the CTA's channels in
+// shared memory every 8 steps, in a fixed order, into per-CTA partials
+// (B, n_cta, S, N); da stays in registers over time and is written as
+// per-batch-row partials (B, Di, N). A second kernel sums the partials in a
+// fixed order: no floating-point atomics, so the gradients are the same bits
+// run to run. The kernel forms g_t = expf(dt * a) twice an element (the
+// recompute and the adjoint, the forward's one-lane arithmetic each); the
+// function needs it once, since g_t could sit in shared memory beside h_t.
+// There is no Pallas backward: the reference differentiates XLA's chunked
+// ssm.mamba1_scan. Measured on an H100 80GB HBM3 (700 W): 3.119 ms at the
+// training microbatch of falcon-mamba-7b, (2, 2048, 8192, 16) in fp32,
+// against a 0.221 ms bound (its 740 MB at the HBM rate; one exponential an
+// element takes 0.128 ms on the SFU); the shared-memory round trips of the
+// states and of the 8-step channel reductions separate the two (PERF.md).
+constexpr int kSub = 8;   // steps of dB / dC reduced together
+
+template <typename T, int SPT, int LPC>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
+                      const float* __restrict__ a, const T* __restrict__ bm,
+                      const T* __restrict__ cm, const T* __restrict__ dy,
+                      const float* __restrict__ dh_final,
+                      const float* __restrict__ h_chunks,
+                      T* __restrict__ dxdt, T* __restrict__ ddt,
+                      float* __restrict__ da_part, float* __restrict__ db_part,
+                      float* __restrict__ dc_part, int s, int di, int n) {
+  constexpr int CH = kThreads / LPC;
+  constexpr int NP = SPT * LPC;
+  constexpr int kD = kChunk * CH;
+  constexpr int kN = kChunk * NP;
+  constexpr int kOut = kChunk / LPC;
+  extern __shared__ float4 smem4[];
+  float* hs = reinterpret_cast<float*>(smem4);   // [kChunk][SPT][kThreads]
+  float* red = hs + kChunk * SPT * kThreads;     // [kSub][2][CH][NP]
+  T* sm = reinterpret_cast<T*>(red + kSub * 2 * CH * NP);   // dt, xdt, dy, B, C
+
+  const int tid = threadIdx.x;
+  const int c = tid / LPC;
+  const int q = tid % LPC;
+  const int n0 = q * SPT;
+  const int b = blockIdx.y;
+  const int blk = blockIdx.x;
+  const int d0 = blk * CH;
+  const int d = d0 + c;
+  const int valid_d = min(CH, di - d0);
+  const int n_ck = (s + kChunk - 1) / kChunk;
+  const long long row = (long long)b * s;
+  float av[SPT], lam[SPT], dak[SPT];
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    const bool ok = d < di && n0 + j < n;
+    av[j] = ok ? a[(long long)d * n + n0 + j] : 0.f;
+    lam[j] = ok && dh_final != nullptr
+                 ? dh_final[((long long)b * di + d) * n + n0 + j] : 0.f;
+    dak[j] = 0.f;
+  }
+  T* dts = sm;
+  T* xs = dts + kD;
+  T* dys = xs + kD;
+  T* bs = dys + kD;
+  T* cs = bs + kN;
+
+  for (int k = n_ck - 1; k >= 0; --k) {
+    const int t0 = k * kChunk;
+    const int len = min(kChunk, s - t0);
+    const long long gd = (row + t0) * di + d0;
+    const long long gn = (row + t0) * n;
+    __syncthreads();   // the previous chunk is done with shared memory
+    stage(dts, CH, dt + gd, di, len, valid_d, false);
+    stage(xs, CH, xdt + gd, di, len, valid_d, false);
+    stage(dys, CH, dy + gd, di, len, valid_d, false);
+    stage(bs, NP, bm + gn, n, len, n, false);
+    stage(cs, NP, cm + gn, n, len, n, false);
+    float hb[SPT], h[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      hb[j] = d < di && n0 + j < n
+                  ? h_chunks[(((long long)b * n_ck + k) * di + d) * n + n0 + j]
+                  : 0.f;
+      h[j] = hb[j];
+    }
+    __syncthreads();
+
+    // h_t of the chunk, as the forward computes it
+#pragma unroll
+    for (int t = 0; t < kChunk; ++t) {
+      if (t >= len) break;
+      const float dtv = to_f(dts[t * CH + c]);
+      const float xv = to_f(xs[t * CH + c]);
+      float bv[SPT];
+      load_vec<SPT>(bv, bs + t * NP + n0);
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const float g = expf(__fmul_rn(dtv, av[j]));
+        h[j] = __fmaf_rn(g, h[j], __fmul_rn(xv, bv[j]));
+        hs[(t * SPT + j) * kThreads + tid] = h[j];
+      }
+    }
+
+    // the adjoint, backwards through the chunk; hc carries h_t from one
+    // step to the next (h_{t-1} of step t is h_t of step t - 1)
+    float px[kChunk], pt[kChunk], hc[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) hc[j] = hs[((len - 1) * SPT + j) * kThreads + tid];
+#pragma unroll
+    for (int t = kChunk - 1; t >= 0; --t) {
+      if (t >= len) {
+        px[t] = pt[t] = 0.f;
+      } else {
+        const float dtv = to_f(dts[t * CH + c]);
+        const float xv = to_f(xs[t * CH + c]);
+        const float dyv = to_f(dys[t * CH + c]);
+        float bv[SPT], cv[SPT], rbv[SPT], rcv[SPT];
+        load_vec<SPT>(bv, bs + t * NP + n0);
+        load_vec<SPT>(cv, cs + t * NP + n0);
+        float sx = 0.f, st = 0.f;
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          lam[j] = __fmaf_rn(dyv, cv[j], lam[j]);
+          const float hprev =
+              t > 0 ? hs[((t - 1) * SPT + j) * kThreads + tid] : hb[j];
+          const float g = expf(__fmul_rn(dtv, av[j]));
+          sx = __fmaf_rn(lam[j], bv[j], sx);
+          const float dg = __fmul_rn(__fmul_rn(lam[j], hprev), g);
+          st = __fmaf_rn(dg, av[j], st);
+          dak[j] = __fmaf_rn(dg, dtv, dak[j]);
+          rbv[j] = __fmul_rn(lam[j], xv);
+          rcv[j] = __fmul_rn(dyv, hc[j]);
+          lam[j] = __fmul_rn(g, lam[j]);
+          hc[j] = hprev;
+        }
+        float* rb = red + ((t % kSub) * 2 * CH + c) * NP + n0;
+        store_vec<SPT>(rb, rbv);
+        store_vec<SPT>(rb + CH * NP, rcv);
+        px[t] = sx;
+        pt[t] = st;
+      }
+      if (t % kSub == 0) {   // dB, dC of steps t .. t + kSub - 1
+        __syncthreads();
+        for (int o = tid; o < kSub * 2 * NP; o += kThreads) {
+          const int stp = o / (2 * NP);
+          const int kind = (o / NP) & 1;
+          const int nn = o % NP;
+          const int tt = t0 + t + stp;
+          if (nn < n && t + stp < len) {
+            const float* r = red + ((stp * 2 + kind) * CH) * NP + nn;
+            float acc = 0.f;
+            for (int cc = 0; cc < valid_d; ++cc) acc = __fadd_rn(acc, r[cc * NP]);
+            float* outp = kind ? dc_part : db_part;
+            outp[(((long long)b * gridDim.x + blk) * s + tt) * n + nn] = acc;
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    int tb = 0;
+    halve<LPC / 2, kChunk / 2>(px, q, tb);
+    tb = 0;
+    halve<LPC / 2, kChunk / 2>(pt, q, tb);
+    if (d < di) {
+#pragma unroll
+      for (int i = 0; i < kOut; ++i)
+        if (tb + i < len) {
+          from_f(dxdt + (row + t0 + tb + i) * di + d, px[i]);
+          from_f(ddt + (row + t0 + tb + i) * di + d, pt[i]);
+        }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SPT; ++j)
+    if (d < di && n0 + j < n)
+      da_part[((long long)b * di + d) * n + n0 + j] = dak[j];
+}
+
+// out[o, i] = sum over m of in[o, m, i], m in order (the partials' fixed
+// reduction order).
+template <typename T>
+__global__ void __launch_bounds__(256)
+sum_middle_kernel(const float* __restrict__ in, T* __restrict__ out, int o_n,
+                  int m_n, long long i_n) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)o_n * i_n) return;
+  const long long o = idx / i_n;
+  const long long i = idx - o * i_n;
+  const float* p = in + o * m_n * i_n + i;
+  float acc = 0.f;
+  for (int m = 0; m < m_n; ++m) acc = __fadd_rn(acc, p[m * i_n]);
+  from_f(out + idx, acc);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename T, int NP>
 int launch(const void* xdt, const void* dt, const float* a, const void* bm,
-           const void* cm, void* y, float* h_out, int bsz, int s, int di,
-           int n, cudaStream_t stream) {
+           const void* cm, void* y, float* h_out, float* h_chunks, int bsz,
+           int s, int di, int n, cudaStream_t stream) {
   constexpr int SPT = NP < kSpt ? NP : kSpt;
   constexpr int LPC = NP / SPT;
   constexpr int CH = kThreads / LPC;
   constexpr size_t esz = sizeof(T);
   const size_t smem = 2 * (2 * kChunk * CH + 2 * kChunk * NP) * esz;
-  auto kernel = mamba_scan_kernel<T, SPT, LPC>;
+  // serving (no h_chunks) runs an instance without the chunk stores
+  auto kernel = h_chunks != nullptr ? mamba_scan_kernel<T, SPT, LPC, true>
+                                    : mamba_scan_kernel<T, SPT, LPC, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -291,38 +522,140 @@ int launch(const void* xdt, const void* dt, const float* a, const void* bm,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(xdt), static_cast<const T*>(dt), a,
       static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<T*>(y), h_out, s, di, n, vec_d, vec_n);
+      static_cast<T*>(y), h_out, h_chunks, s, di, n, vec_d, vec_n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NP>
+int launch_bwd(const void* xdt, const void* dt, const float* a,
+               const void* bm, const void* cm, const void* dy,
+               const float* dh_final, const float* h_chunks, void* dxdt,
+               void* ddt, float* da, void* db, void* dc, float* scratch,
+               int bsz, int s, int di, int n, cudaStream_t stream) {
+  constexpr int SPT = NP < kSpt ? NP : kSpt;
+  constexpr int LPC = NP / SPT;
+  constexpr int CH = kThreads / LPC;
+  const int n_blk = (di + CH - 1) / CH;
+  const size_t smem = (size_t)(kChunk * SPT * kThreads + kSub * 2 * CH * NP) *
+                          sizeof(float) +
+                      (size_t)(3 * kChunk * CH + 2 * kChunk * NP) * sizeof(T);
+  auto kernel = mamba_scan_bwd_kernel<T, SPT, LPC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // scratch: da (B, Di, N), then dB and dC partials (B, n_blk, S, N) each
+  float* da_part = scratch;
+  float* db_part = da_part + (size_t)bsz * di * n;
+  float* dc_part = db_part + (size_t)bsz * n_blk * s * n;
+  kernel<<<dim3(n_blk, bsz), kThreads, smem, stream>>>(
+      static_cast<const T*>(xdt), static_cast<const T*>(dt), a,
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<const T*>(dy), dh_final, h_chunks, static_cast<T*>(dxdt),
+      static_cast<T*>(ddt), da_part, db_part, dc_part, s, di, n);
+  const long long sn = (long long)s * n;
+  const unsigned g_bc = (unsigned)((bsz * sn + 255) / 256);
+  if (g_bc > 0) {
+    sum_middle_kernel<T><<<g_bc, 256, 0, stream>>>(db_part, static_cast<T*>(db),
+                                                   bsz, n_blk, sn);
+    sum_middle_kernel<T><<<g_bc, 256, 0, stream>>>(dc_part, static_cast<T*>(dc),
+                                                   bsz, n_blk, sn);
+  }
+  const long long dn = (long long)di * n;
+  sum_middle_kernel<float><<<(unsigned)((dn + 255) / 256), 256, 0, stream>>>(
+      da_part, da, 1, bsz, dn);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_n(const void* xdt, const void* dt, const float* a, const void* bm,
-             const void* cm, void* y, float* h_out, int bsz, int s, int di,
-             int n, cudaStream_t st) {
-  if (n <= 1) return launch<T, 1>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
-  if (n <= 2) return launch<T, 2>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
-  if (n <= 4) return launch<T, 4>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
-  if (n <= 8) return launch<T, 8>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
-  if (n <= 16) return launch<T, 16>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
-  return launch<T, 32>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
+             const void* cm, void* y, float* h_out, float* hc, int bsz,
+             int s, int di, int n, cudaStream_t st) {
+  if (n <= 1) return launch<T, 1>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
+  if (n <= 2) return launch<T, 2>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
+  if (n <= 4) return launch<T, 4>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
+  if (n <= 8) return launch<T, 8>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
+  if (n <= 16) return launch<T, 16>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
+  return launch<T, 32>(xdt, dt, a, bm, cm, y, h_out, hc, bsz, s, di, n, st);
 }
+
+#define MS_BWD_ARGS xdt, dt, a, bm, cm, dy, dhf, hc, dx, ddt, da, db, dc, \
+    scratch, bsz, s, di, n, st
+template <typename T>
+int launch_bwd_n(const void* xdt, const void* dt, const float* a,
+                 const void* bm, const void* cm, const void* dy,
+                 const float* dhf, const float* hc, void* dx, void* ddt,
+                 float* da, void* db, void* dc, float* scratch, int bsz,
+                 int s, int di, int n, cudaStream_t st) {
+  if (n <= 1) return launch_bwd<T, 1>(MS_BWD_ARGS);
+  if (n <= 2) return launch_bwd<T, 2>(MS_BWD_ARGS);
+  if (n <= 4) return launch_bwd<T, 4>(MS_BWD_ARGS);
+  if (n <= 8) return launch_bwd<T, 8>(MS_BWD_ARGS);
+  if (n <= 16) return launch_bwd<T, 16>(MS_BWD_ARGS);
+  return launch_bwd<T, 32>(MS_BWD_ARGS);
+}
+#undef MS_BWD_ARGS
 
 }  // namespace
 
+// Padded state count the kernels lay N out on (a power of two, N <= 32).
+static int padded_state(int n) {
+  int np = 1;
+  while (np < n) np *= 2;
+  return np;
+}
+
 // xdt / dt (B, S, Di), a (Di, N) fp32, b / c (B, S, N), all contiguous;
 // is_bf16 selects bf16 (else fp32) for xdt, dt, b, c and y. Writes y
-// (B, S, Di) and h_final (B, Di, N) fp32. N <= 32. Returns
-// cudaGetLastError(), or -1 for N outside [1, 32].
+// (B, S, Di) and h_final (B, Di, N) fp32, and, when h_chunks is not null,
+// the state entering each 32-step chunk, (B, ceil(S / 32), Di, N) fp32 (the
+// backward's checkpoints). N <= 32. Returns cudaGetLastError(), or -1 for N
+// outside [1, 32].
 extern "C" int mamba_scan_launch(const void* xdt, const void* dt,
                                  const float* a, const void* bm,
                                  const void* cm, void* y, float* h_out,
-                                 int is_bf16, int bsz, int s, int di, int n,
-                                 void* stream) {
+                                 float* h_chunks, int is_bf16, int bsz, int s,
+                                 int di, int n, void* stream) {
   if (n < 1 || n > kMaxN) return -1;
   if (bsz == 0 || di == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return launch_n<__nv_bfloat16>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di,
-                                   n, st);
-  return launch_n<float>(xdt, dt, a, bm, cm, y, h_out, bsz, s, di, n, st);
+    return launch_n<__nv_bfloat16>(xdt, dt, a, bm, cm, y, h_out, h_chunks,
+                                   bsz, s, di, n, st);
+  return launch_n<float>(xdt, dt, a, bm, cm, y, h_out, h_chunks, bsz, s, di,
+                         n, st);
+}
+
+// Floats of scratch mamba_scan_bwd_launch needs: da's per-batch-row
+// partials and dB / dC's per-CTA partials.
+extern "C" long long mamba_scan_bwd_scratch(int bsz, int s, int di, int n) {
+  const int np = padded_state(n);
+  const int spt = np < kSpt ? np : kSpt;
+  const int ch = kThreads / (np / spt);
+  const long long n_blk = (di + ch - 1) / ch;
+  return (long long)bsz * di * n + 2LL * bsz * n_blk * s * n;
+}
+
+// The gradients of mamba_scan_launch's y (dy, (B, S, Di) in the inputs'
+// type) and h_final (dh_final, (B, Di, N) fp32, or null for zero), given
+// the forward's inputs and its h_chunks: dxdt, ddt (B, S, Di) and db, dc
+// (B, S, N) in the inputs' type, da (Di, N) fp32; scratch holds
+// mamba_scan_bwd_scratch(...) floats. All contiguous. Deterministic (no
+// atomics; fixed-order sums). Returns cudaGetLastError(), or -1 for N
+// outside [1, 32].
+extern "C" int mamba_scan_bwd_launch(
+    const void* xdt, const void* dt, const float* a, const void* bm,
+    const void* cm, const void* dy, const float* dh_final,
+    const float* h_chunks, void* dxdt, void* ddt, float* da, void* db,
+    void* dc, float* scratch, int is_bf16, int bsz, int s, int di, int n,
+    void* stream) {
+  if (n < 1 || n > kMaxN) return -1;
+  if (bsz == 0 || di == 0 || s == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd_n<__nv_bfloat16>(xdt, dt, a, bm, cm, dy, dh_final,
+                                       h_chunks, dxdt, ddt, da, db, dc,
+                                       scratch, bsz, s, di, n, st);
+  return launch_bwd_n<float>(xdt, dt, a, bm, cm, dy, dh_final, h_chunks,
+                             dxdt, ddt, da, db, dc, scratch, bsz, s, di, n,
+                             st);
 }

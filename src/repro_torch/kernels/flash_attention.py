@@ -29,7 +29,17 @@ q's dtype. ``kernels.ops.flash_attention`` picks between them by device.
 
 Both kernels take element strides for q, k, v and out (last dim
 contiguous), so the model passes its (B, S, H, D) activations as
-transposed views and no copy is made.
+transposed views and no copy is made. Training asks the forward for each
+row's log-sum-exp as well (``lse``, fp32 (B, Hq, Sq)), and
+``launch_bwd`` runs the backward kernels of the same source: a pre-pass
+for rowsum(dO ∘ O), a dK / dV kernel (one CTA per batch, kv head and
+64-key tile, looping over the group's q heads and the allowed q tiles)
+and a dQ kernel (one CTA per batch, q head and 64-row q tile), with no
+atomics, so the gradients are the same bits run to run; bf16 on
+``mma.sync``, fp32 on exact FMAs. ``plain_bwd`` is the same
+FlashAttention-2 formulas in plain torch (P recomputed from the
+log-sum-exp, dS = P ∘ (dP − rowsum(dO ∘ O))); it is what the kernel is
+held against.
 """
 from __future__ import annotations
 
@@ -61,6 +71,64 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """fp32 scaled scores (B, Hq, Sq, Sk) with −inf above the causal
+    diagonal (offset Sk − Sq), and K repeated per q head (fp32)."""
+    sq, d = q.shape[2], q.shape[3]
+    group = q.shape[1] // k.shape[1]
+    sk = k.shape[2]
+    kx = k.repeat_interleave(group, dim=1).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / math.sqrt(d)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(ki > qi, float("-inf"))
+    return scores, kx
+
+
+def plain_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``plain`` and each row's log-sum-exp of the scaled scores (natural
+    log, fp32 (B, Hq, Sq); −inf for a row with no key), as the kernel's
+    forward returns them for training."""
+    scores, _ = _scores(q, k, causal)
+    return plain(q, k, v, causal), torch.logsumexp(scores, dim=-1)
+
+
+def plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``plain``'s output, given its output
+    ``o``, its log-sum-exp ``lse`` and the output's gradient ``do``: the
+    FlashAttention-2 formulas written out (not autograd), in fp32 —
+    P = exp(S − L), dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)),
+    dQ = dS K · scale, dK = dSᵀ Q · scale — with dK and dV summed over each
+    kv head's group of q heads. In bf16, P is rounded to bf16 before
+    dV = Pᵀ dO, as the forward rounds it before P·V. Each gradient is in
+    its input's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    scores, kx = _scores(q, k, causal)
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(scores - lse[..., None]),
+                    torch.zeros_like(scores))
+    pv = p.to(v.dtype).float() if v.dtype == torch.bfloat16 else p
+    vx = v.repeat_interleave(group, dim=1).float()
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", pv, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vx)
+    ds = p * (dp - (dof * o.float()).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.reshape(b, hkv, group, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, group, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def aligned(t: torch.Tensor) -> bool:
     """Whether the bf16 kernel's 16-byte ``cp.async`` loads can read ``t``:
     a 16-byte-aligned start and batch/head/seq strides that are multiples
@@ -70,14 +138,18 @@ def aligned(t: torch.Tensor) -> bool:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, causal: bool) -> None:
+           out: torch.Tensor, causal: bool,
+           lse: torch.Tensor | None = None) -> None:
     """Launch the CUDA kernel on the current stream (no synchronisation);
-    every tensor's last dim is contiguous, the other strides are free."""
+    every tensor's last dim is contiguous, the other strides are free.
+    ``lse`` (fp32 (B, Hq, Sq) contiguous, or None) receives each row's
+    log-sum-exp."""
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p]
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[
@@ -85,5 +157,32 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d, strides,
             int(causal), 1.0 / math.sqrt(d),
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+               dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+               causal: bool) -> None:
+    """Launch the backward kernels on the current stream (no
+    synchronisation): dq, dk, dv from q, k, v, the forward's output ``o``
+    and log-sum-exp ``lse`` and the output's gradient ``do``. Every
+    tensor's last dim is contiguous, the other strides are free."""
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    dvec = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dvec.data_ptr(), int(q.dtype == torch.bfloat16),
+            b, hq, hkv, sq, sk, d, strides, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd")

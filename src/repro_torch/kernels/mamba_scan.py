@@ -15,6 +15,17 @@ reference's sequential arithmetic (``repro.kernels.ref.mamba_scan``) in
 fp32, as the kernel computes: only dt·a is exponentiated, as
 ``models/ssm.py`` forms its decay. ``kernels.ops.mamba_scan`` picks
 between them by device.
+
+Training asks the forward for the state entering each 32-step chunk
+(``h_chunks``, (B, ⌈S/32⌉, Di, N) fp32), and ``launch_bwd`` runs the
+backward kernel of the same source: the chunks in reverse, each chunk's
+states recomputed from its boundary into shared memory with the
+forward's arithmetic, the adjoint carried backwards in registers
+(dh_{t−1} = g_t·dh_t + C_{t−1}·dy_{t−1}), dB / dC reduced over the
+channels and da over the batch through fixed-order partials (no
+atomics, so the gradients are the same bits run to run). ``plain_bwd``
+is the same adjoint recurrence in plain torch, what the kernel is held
+against.
 """
 from __future__ import annotations
 
@@ -45,19 +56,94 @@ def plain(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(xdt.dtype), h
 
 
+def plain_bwd(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+              dh_final: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, ...]:
+    """The gradients (dxdt, ddt, da, db, dc) of ``plain``'s outputs, given
+    dy (B, S, Di) and dh_final (B, Di, N) fp32 or None (zero): the adjoint
+    recurrence written out (not autograd), in fp32. With λ_t = ∂L/∂h_t,
+    walking time backwards: λ_t += dy_t C_t; dxdt_t = Σ_n λ_t B_t;
+    ddt_t = Σ_n λ_t h_{t−1} g_t a; da += λ_t h_{t−1} g_t dt_t;
+    dB_t = Σ_d λ_t xdt_t; dC_t = Σ_d dy_t h_t; λ_{t−1} = g_t λ_t. dxdt,
+    ddt, db, dc come in xdt's dtype, da in fp32."""
+    bsz, s, di = xdt.shape
+    xf, dtf, af, bf, cf, dyf = (t.float() for t in (xdt, dt, a, b, c, dy))
+    h = torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                    device=xdt.device)
+    hs = []
+    for t in range(s):
+        g = torch.exp(dtf[:, t, :, None] * af[None])
+        h = g * h + xf[:, t, :, None] * bf[:, t, None, :]
+        hs.append(h)
+    lam = torch.zeros_like(h) if dh_final is None else dh_final.float()
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(xf)
+    db, dc = torch.zeros_like(bf), torch.zeros_like(cf)
+    da = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        lam = lam + dyf[:, t, :, None] * cf[:, t, None, :]
+        hprev = hs[t - 1] if t else torch.zeros_like(h)
+        g = torch.exp(dtf[:, t, :, None] * af[None])
+        dx[:, t] = (lam * bf[:, t, None, :]).sum(-1)
+        dg = lam * hprev * g
+        ddt[:, t] = (dg * af[None]).sum(-1)
+        da += (dg * dtf[:, t, :, None]).sum(0)
+        db[:, t] = (lam * xf[:, t, :, None]).sum(1)
+        dc[:, t] = (dyf[:, t, :, None] * hs[t]).sum(1)
+        lam = lam * g
+    return (dx.to(xdt.dtype), ddt.to(xdt.dtype), da, db.to(xdt.dtype),
+            dc.to(xdt.dtype))
+
+
+CHUNK = 32           # the kernels' time chunk: h_chunks holds one state each
+
+
 def launch(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
            b: torch.Tensor, c: torch.Tensor, y: torch.Tensor,
-           h_final: torch.Tensor) -> None:
+           h_final: torch.Tensor, h_chunks: torch.Tensor | None = None
+           ) -> None:
     """Launch the CUDA kernel on the current stream (no synchronisation);
-    all tensors contiguous."""
+    all tensors contiguous. ``h_chunks`` ((B, ⌈S/32⌉, Di, N) fp32, or
+    None) receives the state entering each chunk."""
     lib = _build.load("mamba_scan")
     fn = lib.mamba_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     bsz, s, di = xdt.shape
     rc = fn(xdt.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            None if h_chunks is None else h_chunks.data_ptr(),
             int(xdt.dtype == torch.bfloat16), bsz, s, di, a.shape[1],
             torch.cuda.current_stream(xdt.device).cuda_stream)
     _build.check(rc, "mamba_scan")
+
+
+def launch_bwd(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+               dh_final: torch.Tensor | None, h_chunks: torch.Tensor,
+               grads: tuple[torch.Tensor, ...]) -> None:
+    """Launch the backward kernels on the current stream (no
+    synchronisation) into ``grads`` = (dxdt, ddt, da, db, dc); all tensors
+    contiguous, ``h_chunks`` from the forward."""
+    lib = _build.load("mamba_scan")
+    scratch_n = lib.mamba_scan_bwd_scratch
+    scratch_n.restype = ctypes.c_longlong
+    scratch_n.argtypes = [ctypes.c_int] * 4
+    fn = lib.mamba_scan_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    bsz, s, di = xdt.shape
+    n = a.shape[1]
+    scratch = torch.empty((scratch_n(bsz, s, di, n),), dtype=torch.float32,
+                          device=xdt.device)
+    dx, ddt, da, db, dc = grads
+    rc = fn(xdt.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dy.data_ptr(),
+            None if dh_final is None else dh_final.data_ptr(),
+            h_chunks.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr(), scratch.data_ptr(),
+            int(xdt.dtype == torch.bfloat16), bsz, s, di, n,
+            torch.cuda.current_stream(xdt.device).cuda_stream)
+    _build.check(rc, "mamba_scan_bwd")

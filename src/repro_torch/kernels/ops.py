@@ -9,6 +9,12 @@ plain version here, and a kernel that fails to build or launch raises.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do
 not count), so a run can show that its main path went through the
 kernels; ``reset_launches`` zeroes the counts.
+
+``flash_attention`` and ``mamba_scan`` are differentiable: on CUDA
+tensors that require grad they go through ``FlashAttentionFn`` /
+``MambaScanFn``, whose backward launches the hand-written backward
+kernel (counted as ``flash_attention_bwd`` / ``mamba_scan_bwd``); on CPU
+tensors autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from repro_torch.kernels.ref import haar_matrix
 
 LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_hash": 0,
             "minmax_sig_buckets": 0, "jaccard_popcount": 0,
-            "flash_attention": 0, "mamba_scan": 0}
+            "flash_attention": 0, "mamba_scan": 0,
+            "flash_attention_bwd": 0, "mamba_scan_bwd": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -194,15 +201,9 @@ def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """GQA attention, query head h reading kv head h // group: q (B, Hq,
-    Sq, D), k / v (B, Hkv, Sk, D) → (B, Hq, Sq, D) in q's dtype; causal
-    with offset Sk − Sq. fp32 or bf16, all one dtype; any strides with the
-    last dim contiguous (the output takes q's layout). On the card, bf16
-    tensors must also be 16-byte aligned with batch/head/seq strides that
-    are multiples of 8 elements; others raise (no copy is made)."""
-    name = "flash_attention"
+def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> bool:
+    """Checks the inputs of the attention kernels; True on the card."""
     _require(q.dtype in _FLOATS and k.dtype == v.dtype == q.dtype, name,
              f"q, k, v must share one of {_FLOATS}")
     _require(q.dim() == k.dim() == v.dim() == 4, name, "q, k, v must be 4-D")
@@ -213,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              and k.shape[1] > 0 and hq % k.shape[1] == 0, name,
              "k and v must be (B, Hkv, Sk, D) with Hq a multiple of Hkv")
     if not _on_cuda(name, q, k, v):
-        return _fa.plain(q, k, v, causal)
+        return False
     _require(d in _fa.HEAD_DIMS, name,
              f"the kernel takes head sizes {_fa.HEAD_DIMS}, not {d}")
     if q.dtype == torch.bfloat16:
@@ -223,19 +224,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      "start on a 16-byte boundary and have batch/head/seq "
                      "strides that are multiples of 8 elements (offset "
                      f"{t.data_ptr() % 16} B, strides {t.stride()[:3]})")
+    return True
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` on the card with its backward kernel: the
+    forward also writes each row's log-sum-exp and saves q, k, v, the
+    output and the log-sum-exp; the backward launches
+    ``flash_attention_bwd``. The gradients come in the layouts of q, k, v
+    (``empty_like``), so the model's transposed views cost no copy."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        _fa.launch(q, k, v, out, causal, lse)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.causal),
+                None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention, query head h reading kv head h // group: q (B, Hq,
+    Sq, D), k / v (B, Hkv, Sk, D) → (B, Hq, Sq, D) in q's dtype; causal
+    with offset Sk − Sq. fp32 or bf16, all one dtype; any strides with the
+    last dim contiguous (the output takes q's layout). On the card, bf16
+    tensors must also be 16-byte aligned with batch/head/seq strides that
+    are multiples of 8 elements; others raise (no copy is made). On CUDA
+    tensors that require grad it runs ``FlashAttentionFn``."""
+    name = "flash_attention"
+    if not _check_attention(name, q, k, v):
+        return _fa.plain(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
     out = torch.empty_like(q)
     _fa.launch(q, k, v, out, causal)
     LAUNCHES[name] += 1
     return out
 
 
-def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor, c: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mamba1 selective scan from h₀ = 0: xdt / dt (B, S, Di), a (Di, N)
-    fp32, b / c (B, S, N) → (y (B, S, Di) in xdt's dtype, h_final (B, Di,
-    N) fp32). xdt, dt, b, c share fp32 or bf16."""
-    name = "mamba_scan"
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention``'s output o given its gradient
+    ``do`` and the forward's log-sum-exp ``lse`` (fp32 (B, Hq, Sq)); dk
+    and dv sum each kv head's group. Same shapes, dtypes and card limits
+    as ``flash_attention``; ``do`` is copied to a contiguous tensor when
+    the kernel cannot read it in place. One launch (three kernels), no
+    atomics: the same bits run to run."""
+    name = "flash_attention_bwd"
+    _require(o.shape == do.shape == q.shape and o.dtype == do.dtype
+             == q.dtype, name, "o and do must match q's shape and dtype")
+    _require(lse.dtype == torch.float32 and lse.shape == q.shape[:3], name,
+             "lse must be fp32 (B, Hq, Sq)")
+    if not _check_attention(name, q, k, v):
+        return _fa.plain_bwd(q, k, v, o, lse, do, causal)
+    _on_cuda(name, q, o, lse, do)
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _fa.aligned(do)):
+        do = do.contiguous()
+    _require(o.stride(-1) == 1 and lse.is_contiguous(), name,
+             "o's last dim and lse must be contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _fa.launch_bwd(q, k, v, o, lse, do, dq, dk, dv, causal)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def _check_scan(name: str, xdt, dt, a, b, c) -> bool:
+    """Checks the inputs of the scan kernels; True on the card."""
     _require(xdt.dtype in _FLOATS, name, f"xdt must be one of {_FLOATS}")
     for t, label, nd in ((xdt, "xdt", 3), (dt, "dt", 3), (b, "b", 3),
                          (c, "c", 3)):
@@ -248,12 +314,105 @@ def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _require(b.shape == c.shape == (bsz, s, n), name, "b and c must be "
              "(B, S, N)")
     if not _on_cuda(name, xdt, dt, a, b, c):
-        return _ms.plain(xdt, dt, a, b, c)
+        return False
     _require(1 <= n <= _ms.MAX_STATE, name,
              f"the kernel takes 1 <= N <= {_ms.MAX_STATE}, not {n}")
+    return True
+
+
+def mamba_scan_chunks(xdt, dt, a, b, c) -> tuple[torch.Tensor, ...]:
+    """``mamba_scan`` on the card that also returns the state entering
+    each 32-step chunk, (B, ⌈S/32⌉, Di, N) fp32: the checkpoints
+    ``mamba_scan_bwd`` recomputes from. CUDA tensors only."""
+    name = "mamba_scan"
+    _require(_check_scan(name, xdt, dt, a, b, c), name,
+             "mamba_scan_chunks runs on the card only")
+    bsz, s, di = xdt.shape
+    n = a.shape[1]
     y = torch.empty_like(xdt)
     h_final = torch.empty((bsz, di, n), dtype=torch.float32,
+                          device=xdt.device)
+    h_chunks = torch.empty((bsz, -(-s // _ms.CHUNK), di, n),
+                           dtype=torch.float32, device=xdt.device)
+    _ms.launch(xdt, dt, a, b, c, y, h_final, h_chunks)
+    LAUNCHES[name] += 1
+    return y, h_final, h_chunks
+
+
+class MambaScanFn(torch.autograd.Function):
+    """``mamba_scan`` on the card with its backward kernel: the forward
+    also writes the chunk-boundary states and saves them with its inputs;
+    the backward launches ``mamba_scan_bwd``. An unused h_final (as in
+    training) has no gradient, which the kernel takes as zero."""
+
+    @staticmethod
+    def forward(ctx, xdt, dt, a, b, c):
+        y, h_final, h_chunks = mamba_scan_chunks(xdt, dt, a, b, c)
+        ctx.save_for_backward(xdt, dt, a, b, c, h_chunks)
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        xdt, dt, a, b, c, h_chunks = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xdt)
+        return mamba_scan_bwd(xdt, dt, a, b, c, dy, dh_final, h_chunks)
+
+
+def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1 selective scan from h₀ = 0: xdt / dt (B, S, Di), a (Di, N)
+    fp32, b / c (B, S, N) → (y (B, S, Di) in xdt's dtype, h_final (B, Di,
+    N) fp32). xdt, dt, b, c share fp32 or bf16. On CUDA tensors that
+    require grad it runs ``MambaScanFn``."""
+    name = "mamba_scan"
+    if not _check_scan(name, xdt, dt, a, b, c):
+        return _ms.plain(xdt, dt, a, b, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dt, a, b, c)):
+        return MambaScanFn.apply(xdt, dt, a, b, c)
+    bsz, s, di = xdt.shape
+    y = torch.empty_like(xdt)
+    h_final = torch.empty((bsz, di, a.shape[1]), dtype=torch.float32,
                           device=xdt.device)
     _ms.launch(xdt, dt, a, b, c, y, h_final)
     LAUNCHES[name] += 1
     return y, h_final
+
+
+def mamba_scan_bwd(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                   dh_final: torch.Tensor | None = None,
+                   h_chunks: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, ...]:
+    """(dxdt, ddt, da, db, dc) of ``mamba_scan``'s outputs given dy (B, S,
+    Di) in xdt's dtype and dh_final (B, Di, N) fp32 or None (zero). On the
+    card ``h_chunks`` (from ``mamba_scan_chunks``) is required. One launch
+    (the backward kernel and its fixed-order partial sums), no atomics:
+    the same bits run to run."""
+    name = "mamba_scan_bwd"
+    _require(dy.shape == xdt.shape and dy.dtype == xdt.dtype, name,
+             "dy must match xdt")
+    if dh_final is not None:
+        _require(dh_final.dtype == torch.float32 and dh_final.shape ==
+                 (xdt.shape[0], xdt.shape[2], a.shape[1]), name,
+                 "dh_final must be fp32 (B, Di, N)")
+    if not _check_scan(name, xdt, dt, a, b, c):
+        return _ms.plain_bwd(xdt, dt, a, b, c, dy, dh_final)
+    _require(h_chunks is not None, name, "the kernel needs h_chunks from "
+             "mamba_scan_chunks")
+    tensors = (dy, h_chunks) + (() if dh_final is None else (dh_final,))
+    _on_cuda(name, xdt, *tensors)
+    bsz, s, di = xdt.shape
+    _typed(name, h_chunks, torch.float32, 4, "h_chunks")
+    _require(h_chunks.shape == (bsz, -(-s // _ms.CHUNK), di, a.shape[1]),
+             name, "h_chunks must be (B, ceil(S / 32), Di, N)")
+    dy = dy.contiguous()
+    dh_final = None if dh_final is None else dh_final.contiguous()
+    grads = (torch.empty_like(xdt), torch.empty_like(xdt),
+             torch.empty_like(a), torch.empty_like(b), torch.empty_like(c))
+    _ms.launch_bwd(xdt, dt, a, b, c, dy, dh_final, h_chunks, grads)
+    LAUNCHES[name] += 1
+    return grads

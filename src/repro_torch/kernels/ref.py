@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import \
     plain as flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import \
+    plain_bwd as flash_attention_bwd  # noqa: F401
+from repro_torch.kernels.flash_attention import \
+    plain_with_lse as flash_attention_with_lse  # noqa: F401
 from repro_torch.kernels.haar2d import plain as haar2d  # noqa: F401
 from repro_torch.kernels.jaccard_popcount import \
     plain as jaccard_popcount  # noqa: F401
@@ -23,6 +27,8 @@ from repro_torch.kernels.minmax_hash import minmax as minmax_hash  # noqa: F401
 from repro_torch.kernels.minmax_hash import \
     plain as minmax_sig_buckets  # noqa: F401
 from repro_torch.kernels.mamba_scan import plain as mamba_scan  # noqa: F401
+from repro_torch.kernels.mamba_scan import \
+    plain_bwd as mamba_scan_bwd  # noqa: F401
 from repro_torch.kernels.stft_mag import plain as stft_mag  # noqa: F401
 
 

@@ -1,21 +1,24 @@
-"""The decoder for serving: parameters, decode cache, prefill, decode step.
+"""The decoder: parameters, training forward and loss, decode cache,
+prefill, decode step.
 
 The counterpart of ``repro.models.decoder`` for the dense GQA transformer
 (``block_kind="attn"``) and Mamba1 (``"mamba1"``). Parameters are a nested
 dict of tensors with the reference's keys and layouts, the layers stacked
 along a leading L dim; a Python loop over layers stands in for
-``lax.scan``. Prefill runs the ``flash_attention`` (attention) or
-``mamba_scan`` (Mamba1) kernel once per layer. The vocabulary is padded to
-a multiple of 2048, as in the reference. MoE, the parallel attention + MLP
+``lax.scan``. Prefill and the training forward run the ``flash_attention``
+(attention) or ``mamba_scan`` (Mamba1) kernel once per layer, and the
+training backward their backward kernels. The vocabulary is padded to a
+multiple of 2048, as in the reference. MoE, the parallel attention + MLP
 block, Mamba2, the shared-attention hybrid and the patch frontend raise
-``NotImplementedError`` (ROADMAP queue 1 item 6), and ``forward`` /
-``lm_loss`` belong to the training slice (item 5).
+``NotImplementedError`` (ROADMAP queue 1 item 2).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch import utils
 from repro_torch.models import layers as L
@@ -39,7 +42,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"queue 1 item 6)")
+            f"queue 1 item 2)")
 
 
 # ---------------------------------------------------------------------------
@@ -76,15 +79,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "layers": layers}
 
 
-def _leaves(tree: dict, prefix: tuple = ()):
-    """(path, leaf) pairs in the reference's flatten order (sorted keys)."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from _leaves(tree[k], prefix + (k,))
-        else:
-            yield prefix + (k,), tree[k]
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters made on ``device`` (cuda unless named) from a
     seeded ``torch.Generator``, with the reference's distributions: each
@@ -97,7 +91,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     device = utils.resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict = {}
-    for path, shp in _leaves(param_shapes(cfg)):
+    for path, shp in utils.tree_leaves(param_shapes(cfg)):
         name = path[-1]
         if name == "a_log":
             vals = torch.log(torch.arange(1, shp[-1] + 1, dtype=torch.float32,
@@ -123,6 +117,116 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: every stacked leaf indexed at i (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# forward (training / scoring)
+# ---------------------------------------------------------------------------
+
+# the products "block_dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable: the matmuls of the projections)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_body(cfg: ModelConfig):
+    """One layer as a function of (x, layer params), wrapped as
+    ``cfg.remat`` asks: "block" recomputes the whole layer in backward
+    (``torch.utils.checkpoint``, non-reentrant), "block_dots" recomputes
+    it but keeps the matmul outputs (selective checkpointing), "none"
+    keeps every activation. The three give the same loss and gradients."""
+    def body(x, lp):
+        pos = torch.arange(x.shape[1], device=x.device)
+        if cfg.block_kind == "attn":
+            x = L.attention_block(lp["attn"], x, cfg, pos)
+            return L.mlp_block(lp["mlp"], x, cfg)
+        return S.mamba1_block(lp["ssm"], x, cfg)
+
+    if cfg.remat == "block":
+        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    if cfg.remat == "block_dots":
+        return functools.partial(
+            ckpt.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    return body
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The stacked layer tree as n per-layer trees of views. One
+    ``unbind`` per leaf, so the backward stacks each leaf's layer
+    gradients once (indexing each layer would scatter a full-size zero
+    gradient per layer)."""
+    out = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            impl: str = "masked") -> tuple[torch.Tensor, torch.Tensor]:
+    """→ (final hidden states (B, S, D), MoE aux loss 0-d fp32: 0 for the
+    two ported families). ``impl`` ("masked" / "triangular", the
+    reference's attention variants) is accepted and changes nothing: the
+    ``flash_attention`` kernel computes the same function for both. Runs
+    where the parameters lie; differentiable (the kernels' backward
+    kernels on the card, autograd through the plain versions on the
+    CPU)."""
+    _check_ported(cfg)
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    body = _block_body(cfg)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        x = body(x, lp)
+    x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _chunk_loss(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+                w_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked next-token NLL of one sequence chunk: (sum, mask sum). The
+    (B, sc, V) logits are fp32; in bf16 the product is rounded to bf16
+    before the cast (as ``_logits`` does in serving), where the reference
+    accumulates to fp32 output."""
+    logits = torch.matmul(h, w_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, y[..., None].long())[..., 0]
+    nll = (lse - picked) * m
+    return nll.sum(), m.sum()
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            impl: str = "masked") -> tuple[torch.Tensor, dict]:
+    """Next-token CE in sequence chunks of ``cfg.loss_seq_chunk``, each
+    checkpointed so its logits are recomputed in backward and the full
+    (B, S, V) logits never exist. As in the reference, the tokens past the
+    last whole chunk (S mod chunk) do not count. → (loss, {"ce", "aux",
+    "tokens"}), aux 0 for the two ported families."""
+    hidden, aux = forward(params, batch, cfg, impl=impl)
+    s = hidden.shape[1]
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    w_out = params["lm_head"].to(cfg.cdtype)
+    sc = min(cfg.loss_seq_chunk, s)
+    totals = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    counts = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // sc):
+        cut = slice(i * sc, (i + 1) * sc)
+        t, c = ckpt.checkpoint(_chunk_loss, hidden[:, cut], labels[:, cut],
+                               mask[:, cut], w_out, use_reentrant=False)
+        totals, counts = totals + t, counts + c
+    loss = totals / torch.clamp(counts, min=1.0)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"ce": loss, "aux": aux, "tokens": counts}
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
 The counterparts of ``repro.models.layers`` on one device, with its
 layouts at every function: weights ``wq`` (d, Hq, hd), ``wo`` (Hq, hd, d);
 activations (B, S, H, hd); decode caches (B, S_max, Hkv, hd). Prefill
-attention (``blocked_attention``) goes through the ``flash_attention``
-kernel; decode attention is plain PyTorch. MoE and the parallel
-attention + MLP block are not ported yet (ROADMAP).
+and training attention (``blocked_attention``) go through the
+``flash_attention`` kernel, and its backward through the backward kernel
+(``ops.FlashAttentionFn``); decode attention is plain PyTorch. MoE and
+the parallel attention + MLP block are not ported yet (ROADMAP queue 1
+item 2).
 """
 from __future__ import annotations
 
@@ -55,7 +57,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return table.to(cfg.cdtype)[tokens]
+    """Rows of the table in the compute dtype. ``F.embedding`` and not
+    ``table[tokens]``: the indexing's backward (``index_put_`` with
+    accumulation) adds the rows of a repeated token in a different order
+    from run to run on the CPU, and a resumed training run must repeat the
+    uninterrupted one bit for bit; the embedding's backward sums them in
+    a fixed order."""
+    return F.embedding(tokens, table.to(cfg.cdtype))
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +98,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounds p to bf16 before P·V, as the reference's XLA path rounds it to
     the value dtype; in fp32 p stays fp32, as in the Pallas kernel. The
     kernel's tiles are its own: the reference's
-    ``cfg.attn_q_block`` / ``attn_kv_block`` have no part here."""
+    ``cfg.attn_q_block`` / ``attn_kv_block`` have no part here. On the
+    card, inputs that require grad take ``ops.FlashAttentionFn``: the
+    backward kernel writes dq, dk, dv in the views' own layout."""
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)

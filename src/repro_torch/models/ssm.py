@@ -3,8 +3,10 @@
 The counterparts of ``repro.models.ssm``'s Mamba1 functions. The prefill
 scan goes through the ``mamba_scan`` kernel, which computes the function
 of the reference's chunked associative scan (``mamba1_scan``) with the
-state held on chip; decode is the O(1) recurrence in plain PyTorch.
-Mamba2 (SSD) is not ported yet (ROADMAP).
+state held on chip, and training's backward through its backward kernel
+(``ops.MambaScanFn``; h_final is unused there, so its gradient is None and
+the kernel takes it as zero); decode is the O(1) recurrence in plain
+PyTorch. Mamba2 (SSD) is not ported yet (ROADMAP queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -9,15 +9,20 @@ temporary directory beside the step, is fsynced and renamed into place,
 so a reader never sees a half-written step; with ``background=True`` the
 leaves are copied to the host inline and serialised on a thread.
 
-Leaves may be tensors (copied to the host) or numpy arrays. A tensor keeps its dtype; callers that hold a uint32 bit
-pattern in an int32 tensor (the port's signatures and packed words) pass
-the uint32 numpy view, so the file carries the reference's dtype.
-
-``restore_checkpoint`` (a target tree with shardings) belongs to training
-and is not ported yet (ROADMAP queue 1 item 5).
+Leaves may be tensors (copied to the host) or numpy arrays, in nested
+dicts or dataclasses (a ``TrainState`` flattens to the reference's keys:
+``params/…``, ``opt/master/…``, ``opt/m/…``, ``opt/v/…``, ``opt/step`` and
+``step``). A tensor keeps its dtype; a bf16 tensor is written as its raw
+2-byte patterns (numpy ``V2``, manifest dtype ``bfloat16``), as the
+reference writes ``ml_dtypes.bfloat16`` arrays. Callers that hold a uint32
+bit pattern in an int32 tensor (the port's signatures and packed words)
+pass the uint32 numpy view, so the file carries the reference's dtype.
+``restore_checkpoint`` rebuilds a target tree on the target's device, so
+either package restores the other's training checkpoints.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -29,26 +34,48 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import utils
+
 _SEP = "\x1f"  # unit separator: safe key-path join
 
 
+def _children(tree) -> dict | None:
+    """The named children of a dict (sorted keys, as ``jax.tree_util``
+    orders a dict) or a dataclass instance (its fields in order, as a
+    registered dataclass flattens); None for a leaf."""
+    if isinstance(tree, dict):
+        return {str(k): tree[k] for k in sorted(tree)}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name: getattr(tree, f.name)
+                for f in dataclasses.fields(tree)}
+    return None
+
+
 def _flatten(tree, prefix: tuple = ()) -> dict[str, Any]:
-    """Leaves of nested dicts keyed by their path, keys in sorted order
-    (the order and keys ``jax.tree_util`` gives a dict tree)."""
-    if not isinstance(tree, dict):
+    """Leaves keyed by their path, parts joined by ``_SEP``."""
+    kids = _children(tree)
+    if kids is None:
         return {_SEP.join(prefix): tree}
     flat = {}
-    for k in sorted(tree):
-        flat.update(_flatten(tree[k], prefix + (str(k),)))
+    for k, v in kids.items():
+        flat.update(_flatten(v, prefix + (k,)))
     return flat
 
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy of a tensor (a background write must not see a later
-    in-place update of a CPU tensor); numpy leaves as given."""
+    in-place update of a CPU tensor); bf16 as its raw 2-byte patterns
+    (``V2``); numpy leaves as given."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state, *, extra: dict | None
@@ -59,7 +86,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *, extra: dict | None
     host = {k: _to_host(v) for k, v in _flatten(state).items()}
     meta = {
         "step": int(step),
-        "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+        "keys": {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
                  for k, v in host.items()},
         "extra": extra or {},
     }
@@ -129,3 +156,61 @@ def restore_flat(ckpt_dir: str, *, step: int | None = None
     with np.load(d / "arrays.npz") as arrays:
         out = {k: arrays[k] for k in arrays.files}
     return out, meta.get("extra", {}), int(step)
+
+
+def _leaf_tensor(key: str, arr: np.ndarray, ref, device) -> torch.Tensor:
+    """One stored array as a tensor of ``ref``'s shape and dtype. bf16
+    comes back from its 2-byte patterns (``V2`` or 16-bit integers) bit
+    for bit, other stored floats by value; uint32 into int32 keeps the
+    bits (the port's convention)."""
+    if tuple(arr.shape) != tuple(ref.shape):
+        raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                         f"target {tuple(ref.shape)}")
+    want = ref.dtype
+    if want == torch.bfloat16 and arr.dtype.itemsize == 2 and \
+            arr.dtype.kind in "Viu":
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    elif arr.dtype == np.uint32 and want == torch.int32:
+        t = torch.from_numpy(np.array(arr).view(np.int32))
+    else:
+        t = torch.from_numpy(np.array(arr)).to(want)
+    return t.to(device)
+
+
+def _rebuild(target, flat: dict, prefix: tuple = ()):
+    kids = _children(target)
+    if kids is None:
+        return flat[_SEP.join(prefix)]
+    out = {k: _rebuild(v, flat, prefix + (k,)) for k, v in kids.items()}
+    if isinstance(target, dict):
+        return {k: out[str(k)] for k in target}
+    return dataclasses.replace(target, **out)
+
+
+def restore_checkpoint(ckpt_dir: str, target, *, step: int | None = None,
+                       device=None) -> tuple[Any, dict]:
+    """Rebuild ``target``-structured state from step ``step`` (the latest
+    by default) → (state, extra).
+
+    ``target`` (nested dicts / dataclasses, e.g. a ``TrainState``) gives
+    the structure, each leaf's shape and dtype and where it goes: a
+    tensor's device, or ``device`` (cuda unless named) for a leaf on the
+    ``meta`` device or any other object with ``shape`` and ``dtype``.
+    A key missing from the checkpoint raises ``KeyError``, a shape that
+    differs ``ValueError``."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    meta = json.loads((d / "manifest.json").read_text())
+    rebuilt = {}
+    with np.load(d / "arrays.npz") as arrays:
+        for key, ref in _flatten(target).items():
+            if key not in arrays.files:
+                raise KeyError(f"checkpoint missing {key!r}")
+            dev = ref.device if isinstance(ref, torch.Tensor) and \
+                ref.device.type != "meta" else utils.resolve_device(device)
+            rebuilt[key] = _leaf_tensor(key, arrays[key], ref, dev)
+    return _rebuild(target, rebuilt), meta.get("extra", {})

@@ -186,6 +186,22 @@ def lex_key(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def tree_leaves(tree: dict, prefix: tuple = ()):
+    """(path, leaf) pairs of a nested dict in the reference's flatten
+    order (sorted keys, as ``jax.tree_util`` orders a dict)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from tree_leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def tree_map(fn, tree: dict) -> dict:
+    """``fn`` applied to every leaf of a nested dict, same keys."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names a device; never a silent CPU.
 

@@ -981,3 +981,165 @@ def test_lm_serve_card_equals_cpu(cuda, arch):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of flash_attention and mamba_scan
+# ---------------------------------------------------------------------------
+
+_FA_BWD_CASES = [
+    (2, 4, 2, 128, 128, 64, torch.float32, True),
+    (1, 8, 1, 64, 64, 32, torch.float32, False),
+    (2, 4, 4, 8, 128, 64, torch.float32, True),      # short q, long kv
+    (1, 5, 1, 1000, 1000, 32, torch.float32, True),  # ragged tiles
+    (1, 40, 8, 200, 333, 128, torch.bfloat16, True),  # Sq < Sk, ragged
+    (2, 6, 3, 77, 77, 128, torch.bfloat16, False),
+    (1, 3, 1, 1, 50, 64, torch.bfloat16, True)]      # one query row
+
+
+def _grad_close(got, want):
+    """``_lm_close`` with a floor of 1e-3 on the scale: a gradient whose
+    exact value is 0 (one key: dS = P (dP − rowsum(dO ∘ O)) = 0) is held
+    to rounding noise of the O(1) inputs' products, not to 0."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(float(want.float().abs().max()), 1e-3)
+    assert err <= LM_TOL[want.dtype] * scale, err
+
+
+def _fa_bwd_inputs(cuda, b, hq, hkv, sq, sk, d, dt, causal, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=g).to(cuda, dt)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    do = torch.randn((b, hq, sq, d), generator=g).to(cuda, dt)
+    o, lse = ref.flash_attention_with_lse(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+def _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, dt, causal, seed):
+    """The backward kernel against ``plain_bwd`` on the same o and
+    log-sum-exp (one launch), bitwise equal on a second launch; the
+    forward's log-sum-exp against the plain one."""
+    q, k, v, o, lse, do = _fa_bwd_inputs(cuda, b, hq, hkv, sq, sk, d, dt,
+                                         causal, seed)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        _grad_close(g_, w_)
+    from repro_torch.kernels import flash_attention as fa_k
+    out = torch.empty_like(q)
+    lse_k = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    fa_k.launch(q, k, v, out, causal, lse_k)
+    live = torch.isfinite(lse)
+    assert torch.equal(live, torch.isfinite(lse_k))
+    assert float((lse_k - lse)[live].abs().max()) <= 1e-3 if live.any() \
+        else True
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dt,causal", _FA_BWD_CASES)
+def test_flash_attention_bwd_kernel(cuda, b, hq, hkv, sq, sk, d, dt, causal):
+    _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, dt, causal, 16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", _edge_cases() + [
+    (1, 40, 8, 2048, 2048, 128, True)])          # qwen2.5-14b's training
+def test_flash_attention_bwd_bf16_tiles(cuda, b, hq, hkv, sq, sk, d, causal):
+    _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, torch.bfloat16, causal,
+                  sq * 1000 + sk)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_takes_the_kernels(cuda, dt):
+    """The model's transposed (B, S, H, D) views through autograd: one
+    forward and one backward launch, the gradients in the views' layout
+    and within the tolerance of the plain version's autograd."""
+    from repro_torch.models.layers import blocked_attention
+    g = torch.Generator().manual_seed(17)
+    base = [torch.randn((2, 90, h, 64), generator=g).to(cuda, dt)
+            for h in (8, 2, 2)]
+    do = torch.randn((2, 90, 8, 64), generator=g).to(cuda, dt)
+    ops.reset_launches()
+    x = [t.clone().requires_grad_() for t in base]
+    blocked_attention(*x).backward(do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    y = [t.float().cpu().requires_grad_() for t in base]
+    ref.flash_attention(*(t.transpose(1, 2) for t in y)).transpose(
+        1, 2).backward(do.float().cpu())
+    for a, w in zip(x, y):
+        assert a.grad.is_contiguous()
+        _lm_close(a.grad.cpu(), w.grad.to(dt))
+
+
+_MS_CASES = [
+    (2, 16, 8, 4, torch.float32), (1, 33, 24, 5, torch.float32),
+    (3, 8, 128, 16, torch.float32), (1, 100, 300, 16, torch.bfloat16),
+    (2, 70, 64, 1, torch.float32), (1, 40, 40, 32, torch.float32),
+    (1, 2048, 512, 16, torch.float32),
+    (1, 1, 200, 16, torch.float32), (1, 31, 200, 16, torch.bfloat16),
+    (2, 33, 200, 16, torch.float32), (1, 33, 72, 16, torch.bfloat16),
+    (1, 2049, 200, 16, torch.float32), (1, 2049, 200, 16, torch.bfloat16),
+    (1, 31, 100, 8, torch.float32), (1, 2049, 40, 32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,s,di,n,dt", _MS_CASES)
+def test_mamba_scan_bwd_kernel(cuda, b, s, di, n, dt):
+    """The backward kernel against ``plain_bwd`` (dh_final given on odd
+    batch sizes, None otherwise), bitwise equal on a second launch, and
+    the forward instance that stores the chunk states: its y and h_final
+    against the plain recurrence's."""
+    g = torch.Generator().manual_seed(18)
+    xdt = torch.randn((b, s, di), generator=g).to(cuda, dt)
+    dtv = (torch.randn((b, s, di), generator=g).abs() * 0.1).to(cuda, dt)
+    a = -torch.randn((di, n), generator=g).abs().to(cuda)
+    bm = torch.randn((b, s, n), generator=g).to(cuda, dt)
+    cm = torch.randn((b, s, n), generator=g).to(cuda, dt)
+    dy = torch.randn((b, s, di), generator=g).to(cuda, dt)
+    dh = torch.randn((b, di, n), generator=g).to(cuda) if b % 2 else None
+    ops.reset_launches()
+    y, h, hc = ops.mamba_scan_chunks(xdt, dtv, a, bm, cm)
+    got = ops.mamba_scan_bwd(xdt, dtv, a, bm, cm, dy, dh, hc)
+    again = ops.mamba_scan_bwd(xdt, dtv, a, bm, cm, dy, dh, hc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == 1
+    assert ops.LAUNCHES["mamba_scan_bwd"] == 2
+    y_p, h_p = ref.mamba_scan(xdt, dtv, a, bm, cm)
+    _lm_close(y, y_p)
+    _lm_close(h, h_p)
+    assert float(hc[:, 0].abs().max()) == 0.0
+    want = ref.mamba_scan_bwd(xdt, dtv, a, bm, cm, dy, dh)
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        _grad_close(g_, w_)
+
+
+def test_mamba_scan_autograd_takes_the_kernels(cuda):
+    """Through autograd with h_final unused, as in training: one forward
+    and one backward launch, gradients within the tolerance of the plain
+    version's autograd."""
+    g = torch.Generator().manual_seed(19)
+    b, s, di, n = 2, 70, 64, 16
+    base = [torch.randn((b, s, di), generator=g),
+            torch.randn((b, s, di), generator=g).abs() * 0.1,
+            -torch.randn((di, n), generator=g).abs(),
+            torch.randn((b, s, n), generator=g),
+            torch.randn((b, s, n), generator=g)]
+    dy = torch.randn((b, s, di), generator=g)
+    ops.reset_launches()
+    x = [t.to(cuda).requires_grad_() for t in base]
+    ops.mamba_scan(*x)[0].backward(dy.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == 1
+    assert ops.LAUNCHES["mamba_scan_bwd"] == 1
+    y = [t.clone().requires_grad_() for t in base]
+    ref.mamba_scan(*y)[0].backward(dy)
+    for a_, w in zip(x, y):
+        _lm_close(a_.grad.cpu(), w.grad)

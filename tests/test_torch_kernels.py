@@ -128,6 +128,7 @@ def _wrapper_inputs(rng):
                           .astype(np.float32))
     scan = [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
             for shp in ((1, 6, 8), (1, 6, 8), (8, 4), (1, 6, 4), (1, 6, 4))]
+    o, lse = ref.flash_attention_with_lse(q, kv, kv)
     return {
         "stft_mag": (lambda: ops.stft_mag(wave, window, dr, di, 5),
                      lambda: ref.stft_mag(wave, window, dr, di, 5)),
@@ -149,6 +150,11 @@ def _wrapper_inputs(rng):
                             lambda: ref.flash_attention(q, kv, kv)),
         "mamba_scan": (lambda: ops.mamba_scan(*scan),
                        lambda: ref.mamba_scan(*scan)),
+        "flash_attention_bwd": (
+            lambda: ops.flash_attention_bwd(q, kv, kv, o, lse, q),
+            lambda: ref.flash_attention_bwd(q, kv, kv, o, lse, q)),
+        "mamba_scan_bwd": (lambda: ops.mamba_scan_bwd(*scan, scan[0]),
+                           lambda: ref.mamba_scan_bwd(*scan, scan[0])),
     }
 
 
