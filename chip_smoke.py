@@ -184,7 +184,13 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     dtype of training), and at B = 1 in fp32 and bf16, on the chunk
     states of ``mamba_scan_chunks``, whose y and h_final are first held to
     the plain forward's; its bound the larger of its bytes and one
-    exponential an element on the SFU. Tolerances as phase 13's. Then
+    exponential an element on the SFU. Tolerances as phase 13's. Each
+    case's ``lm_bwd_split`` line gives the device time of every kernel one
+    call launches, from CUDA events the C entry records between them
+    (flash: ``prep``, ``dkdv``, ``combine`` (0 where the walk is not
+    split), ``dq``; scan: ``main``, ``sum_dbdc``, ``sum_da``), beside the
+    achieved TFLOP/s (flash, 10·D flops a pair) or GB/s (scan, the bytes
+    of its bound). Then
     the embedding lookup's backward at qwen2.5-14b's table and 2,048
     tokens, ``F.embedding`` (the port's) against the indexing's
     ``index_put_``, timed, and ``F.embedding``'s gradient bitwise
@@ -2387,6 +2393,28 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def _split_ms(launch, names, iters: int = 20) -> dict:
+    """Median device time of each kernel one call of a backward wrapper
+    launches: ``launch(events)`` records len(names) + 1 CUDA events on the
+    stream, before the first kernel and after each; each call sits behind
+    the same busy wait as ``_time_ms``'s."""
+    import torch
+    runs = []
+    for _ in range(iters + 2):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
+        torch.cuda._sleep(PRIME_CYCLES)
+        launch(ev)
+        runs.append(ev)
+    torch.cuda.synchronize()
+    runs = runs[2:]   # warm-up
+    out = {}
+    for i, name in enumerate(names):
+        ts = sorted(r[i].elapsed_time(r[i + 1]) for r in runs)
+        out[name] = ts[len(ts) // 2]
+    return out
+
+
 def lm_bwd_kernel_phase(dev) -> list[dict]:
     """The backward kernels of ``flash_attention`` and ``mamba_scan``
     against their plain versions (``plain_bwd``) at the training shapes,
@@ -2436,6 +2464,11 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                               BF16_OPS_PER_S if dt == torch.bfloat16
                               else FP32_OPS_PER_S)
         ms = _time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        split = _split_ms(lambda ev: fa_k.launch_bwd(
+            q, k, v, o, lse, do, *grads, True, events=ev),
+            ("prep", "dkdv", "combine", "dq"))
+        del grads
         plain_ms = _time_ms(lambda: fa_k.plain_bwd(q, k, v, o, lse, do),
                             iters=5, warmup=1)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -2447,6 +2480,7 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                      "causal_pairs": pairs, "max_abs_err": err,
                      "lse_max_abs_err": lse_err, "ms": ms,
                      "tflop_s": 10 * b * hq * d * pairs / ms * 1e-9,
+                     "split_ms": split,
                      "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": library_ms,
                      "repeatable": True})
@@ -2507,11 +2541,19 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
             el * (3 * b * s * di + 2 * b * s * n)
             + 4 * (di * n + b * di * n + hc.numel()), 7 * b * s * di * n,
             n_sfu=b * s * di * n)
+        ms = _time_ms(lambda: ops.mamba_scan_bwd(*args, dy, None, hc))
+        grads = (torch.empty_like(xdt), torch.empty_like(xdt),
+                 torch.empty_like(a), torch.empty_like(bm),
+                 torch.empty_like(cm))
+        split = _split_ms(lambda ev: ms_k.launch_bwd(
+            *args, dy, None, hc, grads, events=ev),
+            ("main", "sum_dbdc", "sum_da"))
+        del grads
         runs.append({
             "shape": [b, s, di, n], "dtype": str(dt)[6:], "max_abs_err": err,
             "fwd_chunks_ms": _time_ms(lambda: ops.mamba_scan_chunks(*args)),
             "fwd_chunks_bound_ms": fwd_bound, "fwd_chunks_bound_by": fwd_by,
-            "ms": _time_ms(lambda: ops.mamba_scan_bwd(*args, dy, None, hc)),
+            "ms": ms, "gb_s": n_bytes / ms * 1e-6, "split_ms": split,
             "plain_ms": _time_ms(lambda: ms_k.plain_bwd(*args, dy), iters=1,
                                  warmup=0),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -2528,6 +2570,13 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                 "cases": runs})
     for k in out:
         print("lm_bwd_kernel", json.dumps(k), flush=True)
+        for case in k["cases"]:
+            print("lm_bwd_split", json.dumps(
+                {"name": k["name"], "shape": case["shape"],
+                 "dtype": case["dtype"], "ms": case["ms"],
+                 "split_ms": case["split_ms"],
+                 **{r: case[r] for r in ("tflop_s", "gb_s") if r in case}}),
+                flush=True)
     return out
 
 

@@ -54,6 +54,8 @@
 // kernel, for any Sq and Sk, causal with offset Sk - Sq; strided q / k / v /
 // out (last dim contiguous), so the model's (B, S, H, D) activations are
 // read and written without a transpose copy; one launch per call.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -573,29 +575,41 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // ------------------------------------------------------------ backward
 //
-// FlashAttention-2's two-kernel backward, with no floating-point atomics so
-// that every gradient is the same bits run to run. Given the forward's
-// output O and its per-row log-sum-exp L (natural log, fp32):
-//   pre-pass   Dv_i = sum_d dO_id O_id                      (B, Hq, Sq) fp32
-//   dK / dV    one CTA per (batch, kv head, 64-key tile); it walks the
-//              group's q heads and the q tiles the causal mask allows,
-//              recomputes P = exp(S * scale - L) and accumulates
-//              dV += P^T dO and dK += dS^T Q * scale, dS = P o (dO V^T - Dv)
-//   dQ         one CTA per (batch, q head, 64-row q tile); it walks the key
-//              tiles the forward read and accumulates dQ += dS K * scale.
-// Each gradient element is summed by one thread in a fixed order, so the
-// group's q heads sum into dK / dV inside one CTA. fp32 runs exact FMAs on
-// the CUDA cores; bf16 runs every product on mma.sync (bf16 in, fp32
-// accumulate), with P rounded to bf16 before dV = P^T dO as the forward
-// rounds it before P V, and dS rounded to bf16 before its two products.
-// There is no Pallas backward: the reference differentiates XLA's
-// layers.blocked_attention. Work: 7 products of a (q tile x key tile x D)
-// each per allowed tile pair (S and dP are computed in both kernels),
-// against the 5 of a backward that accumulates dQ with atomics: 14 * D
-// flops per allowed q-k pair. Measured on an H100 80GB HBM3 (700 W): 1.008
-// ms for qwen2.5-14b's causal 2048^2 in bf16, against a 0.109 ms bound
-// (10 * D flops a pair at the bf16 tensor rate) and 0.349 ms for
-// scaled_dot_product_attention's backward (PERF.md).
+// FlashAttention-2's backward with no floating-point atomics, so that every
+// gradient is the same bits run to run (the training launcher's resume is
+// bit-exact). Given the forward's output O and its per-row log-sum-exp L
+// (natural log, fp32):
+//   pre-pass   Dv_i = sum_d dO_id O_id
+//   dK / dV    per key block, walking the group's q heads and the q tiles
+//              the causal mask allows: P = exp(S * scale - L),
+//              dS = P o (dO V^T - Dv), dV += P^T dO, dK += dS^T Q * scale
+//   dQ         per q block, walking the key tiles the forward read:
+//              dQ += dS K * scale (S and dP computed again)
+// Each gradient element is summed in a fixed order: the group's q heads
+// inside one CTA (or two halves of the walk added in order by a combine
+// kernel), dQ by one thread. There is no Pallas backward: the reference
+// differentiates XLA's layers.blocked_attention.
+//
+// What bounds it on the H100: the products. A backward needs 5 of (q tile x
+// key tile x D) a tile pair, 10 * D flops an allowed q-k pair: 0.109 ms at
+// the 989 TFLOP/s bf16 tensor rate for qwen2.5-14b's causal 2048^2 of 40 /
+// 8 heads at D = 128; the separate deterministic dQ kernel computes S and
+// dP again, 7 products in all. Three forms:
+//   bf16, D 64 / 128 (the training path; hop:: below): wgmma with TMA
+//     tiles in mbarrier rings, a producer warp and two consumer
+//     warpgroups, key blocks and q blocks launched heaviest first and a
+//     short dK / dV grid's walks split in two. Measured on an H100 80GB
+//     HBM3 (700 W) at that shape: 0.340 ms (the pre-pass 0.026, dK / dV
+//     0.165, the combine 0.017, dQ 0.139), 316 TFLOP/s of the 10 * D
+//     flops, against 0.347 ms for scaled_dot_product_attention's backward
+//     (PERF.md). What separates it from its bound: dQ's recomputed S and
+//     dP (7 products where 5 would do), the softmax work between a
+//     consumer's products, and the pre-pass and combine launches.
+//   bf16, D 32: mma.sync kernels (tc:: below; 64-key tiles of 8 warps for
+//     dK / dV, key tiles slowest in the grid so that the heaviest start
+//     first; 4 warps a 64-row q tile for dQ).
+//   fp32: exact FMAs on the CUDA cores (1.175 ms for the same heads at
+//     512^2, against a 0.100 ms bound at the fp32 rate).
 
 // Dv = rowsum(dO o O): one warp a row, lanes over D, a fixed shuffle tree.
 template <typename T>
@@ -936,7 +950,7 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
                    const float* dout, const float* lse, const float* dvec,
                    float* dq, float* dk, float* dv, const Strides* st, int b,
                    int hq, int hkv, int sq, int sk, int causal, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, cudaEvent_t* ev) {
   constexpr int kLd = D + 4;
   const size_t smem_kv = ((size_t)4 * 64 * kLd + 2 * 64 * (64 + 4) + 2 * 64) *
                          sizeof(float);
@@ -953,9 +967,14 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
   kkv<<<dim3((sk + kBK - 1) / kBK, hkv, b), kThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, dvec, dk, dv, st[0], st[1], st[2], st[4], st[6],
       st[7], hq, hq / hkv, sq, sk, causal, scale);
+  if (ev) {
+    cudaEventRecord(ev[2], stream);
+    cudaEventRecord(ev[3], stream);
+  }
   kq<<<dim3((sq + kBQ - 1) / kBQ, hq, b), kThreads, smem_q, stream>>>(
       q, k, v, dout, lse, dvec, dq, st[0], st[1], st[2], st[4], st[5], hq,
       hq / hkv, sq, sk, causal, scale);
+  if (ev) cudaEventRecord(ev[4], stream);
   return 0;
 }
 
@@ -1153,9 +1172,9 @@ fa_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   const int lane = tid & 31;
   const int grp = warp >> 2;   // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
   const int wk = warp & 3;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kBK;
+  const int hk = blockIdx.x % (hq / group);
+  const int b = blockIdx.x / (hq / group);
+  const int k0 = blockIdx.y * kBK;   // key tile 0 is a causal grid's heaviest
   const int offset = sk - sq;
 
   const int qt0 = first_q_tile(k0, offset, causal, kBQ);
@@ -1301,7 +1320,8 @@ template <int D>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                const float* lse, const float* dvec, bf16* dq, bf16* dk,
                bf16* dv, const Strides* st, int b, int hq, int hkv, int sq,
-               int sk, int causal, float scale, cudaStream_t stream) {
+               int sk, int causal, float scale, cudaStream_t stream,
+               cudaEvent_t* ev) {
   const size_t tile = (size_t)kBK * D * sizeof(bf16);
   const size_t smem_kv = 6 * tile + (4 * 32 * 32 + 4 * kBQ) * sizeof(float);
   const size_t smem_q = 6 * tile;
@@ -1314,16 +1334,810 @@ int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                            (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   const float sl2 = scale * kLog2e;
-  kkv<<<dim3((sk + kBK - 1) / kBK, hkv, b), kThreadsKV, smem_kv, stream>>>(
+  kkv<<<dim3(b * hkv, (sk + kBK - 1) / kBK), kThreadsKV, smem_kv, stream>>>(
       q, k, v, dout, lse, dvec, dk, dv, st[0], st[1], st[2], st[4], st[6],
       st[7], hq, hq / hkv, sq, sk, causal, scale, sl2);
+  if (ev) {
+    cudaEventRecord(ev[2], stream);
+    cudaEventRecord(ev[3], stream);
+  }
   kq<<<dim3(hq, (sq + kBQ - 1) / kBQ, b), kThreads, smem_q, stream>>>(
       q, k, v, dout, lse, dvec, dq, st[0], st[1], st[2], st[4], st[5],
       hq / hkv, sq, sk, causal, scale, sl2);
+  if (ev) cudaEventRecord(ev[4], stream);
   return 0;
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------- bf16, wgmma (D 64, 128)
+//
+// Three kernels:
+//   prep   one warp a row: L2 = L * log2(e) (+inf for a row with no key and
+//          for the padding rows up to a 128-row multiple) and Dv =
+//          rowsum(dO o O) (0 on padding), two (B * Hq, Sqp) fp32 planes
+//          that the other two kernels load by 16-byte bulk copies or plain
+//          loads with no edge checks;
+//   dK/dV  one CTA per (batch, kv head, 128-key block, split part): two
+//          consumer warpgroups own 64 keys each, K and V resident in shared
+//          memory; a producer warpgroup (one thread issues; setmaxnreg
+//          gives its registers to the consumers, 240 a thread, so that the
+//          two 64 x D fp32 accumulators and the S^T and dP^T tiles stay in
+//          registers) keeps TMA loads of the group's Q and dO tiles (64
+//          rows) with their L2 and Dv in a 2-stage mbarrier ring. A
+//          consumer computes S^T = K Q^T and dP^T = V dO^T with wgmma (both
+//          operands from shared memory), forms P^T and dS^T in registers and
+//          runs dV += P^T dO and dK += dS^T Q with wgmma, A from registers
+//          and B (dO, Q) read MN-major from the same tiles: no handoff
+//          through shared memory between warpgroups. The group's q heads
+//          and q tiles are walked in a fixed order. Key block 0 of a causal
+//          grid has 16x the last one's work, and qwen2.5-14b's 8 kv heads x
+//          16 key blocks are 128 CTAs on 132 SMs: when the grid is short of
+//          1.5 waves each block's walk is cut in two halves summed into
+//          fp32 partials, which a combine kernel adds in order, so that the
+//          longest CTA halves and every SM gets work. Key blocks are
+//          launched heaviest first;
+//   dQ     one CTA per (batch, q head, 128-row block), heaviest first: two
+//          consumer warpgroups own 64 rows each with Q and dO resident; the
+//          producer warp streams 64-key K and V tiles through a 2-stage
+//          ring; S and dP are recomputed (wgmma) and dQ += dS K runs with dS
+//          from registers and K read MN-major.
+// Tiles sit in shared memory as 64-column halves of 128-byte rows in TMA's
+// 128-byte swizzle, the layout wgmma's descriptors read directly. The
+// rounding points are the mma.sync kernels': P to bf16 before dV, dS to
+// bf16 before its products, fp32 accumulation, bf16 outputs.
+namespace hop {
+
+using tc::bf16;
+using tc::lse_log2;
+using tc::pack_bf16;
+using tc::smem_u32;
+
+constexpr int kWG = 128;                          // threads of a warpgroup
+constexpr int kConsumers = 2;                     // consumer warpgroups
+constexpr int kThreads = kConsumers * kWG + 32;   // and one producer warp
+// dK / dV: a whole producer warpgroup, so that setmaxnreg can hand its
+// registers to the consumers (240 each: two 64 x D fp32 accumulators and
+// the S^T and dP^T tiles)
+constexpr int kThreadsKV = (kConsumers + 1) * kWG;
+constexpr int kRows = 64;                         // wgmma M; a streamed tile
+constexpr int kBlock = kConsumers * kRows;        // keys / rows of a CTA
+constexpr int kStages = 2;                        // depth of the tile ring
+constexpr int kMaxSplit = 2;
+
+// d (64 x 64, fp32) (+)= A (64 x 16, K-major) * B (64 x 16, K-major), both
+// in shared memory.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, bf16 fragments in registers) *
+// B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, bf16 fragments in registers) *
+// B (16 x 128, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs64(d, a, b, 1);
+  else wgmma_rs128(d, a, b, 1);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins an accumulator's registers at this point of the program, so that no
+// read or write of them moves across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+// A tile of R rows x D columns is D / 64 halves of R rows x 64 columns.
+// K-major operand (64 rows from r0, the 16 columns of k step kk): rows 128
+// bytes apart, 8-row groups 1024 bytes apart, the k step an offset inside
+// the swizzled row.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(const bf16* t, int r0, int kk) {
+  return make_desc(t + (kk >> 2) * R * 64 + r0 * 64 + (kk & 3) * 16, 16,
+                   1024);
+}
+// MN-major operand: rows 16 kk .. 16 kk + 15 of the tile are the k
+// dimension, its D columns the n dimension (64 columns a half, halves R *
+// 128 bytes apart; 8-row groups 1024 bytes apart).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* t, int kk) {
+  return make_desc(t + 16 * kk * 64, R * 128, 1024);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT%=;\n"
+      "}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA load of one 64-column half of R rows of a (B, H, S, D) tensor;
+// rows past S arrive as zeros.
+__device__ __forceinline__ void tma_half(void* dst, const CUtensorMap* map,
+                                         int col, int row, int h, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h),
+      "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         int row, int h, int b,
+                                         uint64_t* bar) {
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf)
+    tma_half(dst + hf * R * 64, map, 64 * hf, row, h, b, bar);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The CTA's dynamic shared memory, rounded up to the 1024 bytes the
+// 128-byte swizzle repeats on.
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(1024) unsigned char hop_smem[];
+  return hop_smem + ((1024 - (smem_u32(hop_smem) & 1023)) & 1023);
+}
+
+// L2 and Dv planes (see above): one warp a padded row, 8-byte loads, a
+// fixed shuffle tree.
+__global__ void __launch_bounds__(256)
+prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ ldv,
+            Strides so_, Strides sdo_, int hq, int sq, int sqp, int d,
+            long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int i = (int)(row % sqp);
+  const long long bh = row / sqp;
+  const int h = (int)(bh % hq);
+  const int b = (int)(bh / hq);
+  float acc = 0.f;
+  if (i < sq) {
+    const bf16* orow = o + b * so_.b + h * so_.h + (long long)i * so_.s;
+    const bf16* drow = dout + b * sdo_.b + h * sdo_.h + (long long)i * sdo_.s;
+    for (int c = 4 * lane; c < d; c += 128) {
+      const uint2 xo = *reinterpret_cast<const uint2*>(orow + c);
+      const uint2 xd = *reinterpret_cast<const uint2*>(drow + c);
+      const float2 o0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xo.x));
+      const float2 o1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xo.y));
+      const float2 d0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xd.x));
+      const float2 d1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xd.y));
+      acc = fmaf(d0.x, o0.x, acc);
+      acc = fmaf(d0.y, o0.y, acc);
+      acc = fmaf(d1.x, o1.x, acc);
+      acc = fmaf(d1.y, o1.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    ldv[row] = i < sq ? lse_log2(lse[bh * sq + i]) : INFINITY;
+    ldv[rows + row] = acc;
+  }
+}
+
+// Shared memory of the dK / dV kernel (bytes): K and V of the block
+// resident, the Q / dO ring, the L2 / Dv ring, the barriers.
+template <int D>
+struct KvLayout {
+  static constexpr int kKV = kBlock * D * 2;
+  static constexpr int kTile = kRows * D * 2;
+  static constexpr int k = 0, v = kKV, q = 2 * kKV;
+  static constexpr int dout = q + kStages * kTile;
+  static constexpr int l = dout + kStages * kTile;   // [2][kStages][kRows]
+  static constexpr int bars = l + 2 * kStages * kRows * 4;
+  static constexpr int bytes = bars + (2 * kStages + 1) * 8;
+};
+
+// Writes a warpgroup's 64 x D accumulator (rows r0 + 16 warp + g + 8 e1,
+// columns 8 j + ci + e0) times mul: bf16 through strides, or fp32 to a
+// dense (rows, D) plane.
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], int r0,
+                                          int n_rows, float mul, bf16* out,
+                                          long long rs, float* plane) {
+  const int lane = threadIdx.x & 31;
+  const int r = r0 + 16 * ((threadIdx.x % kWG) >> 5) + (lane >> 2);
+  const int ci = 2 * (lane & 3);
+#pragma unroll
+  for (int e1 = 0; e1 < 2; ++e1) {
+    const int row = r + 8 * e1;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float x = acc[4 * j + 2 * e1] * mul;
+      const float y = acc[4 * j + 2 * e1 + 1] * mul;
+      if (plane != nullptr)
+        *reinterpret_cast<float2*>(plane + (long long)row * D + 8 * j + ci) =
+            make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + row * rs + 8 * j + ci) =
+            __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsKV, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ ldv, float* __restrict__ part,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk_,
+            Strides sdv_, int bsz, int hq, int hkv, int sq, int sk, int sqp,
+            int causal, int n_split, float scale, float sl2) {
+  using L = KvLayout<D>;
+  constexpr int kTileE = kRows * D;   // elements of a ring tile
+  unsigned char* sm = smem_base();
+  bf16* ks = reinterpret_cast<bf16*>(sm + L::k);
+  bf16* vs = reinterpret_cast<bf16*>(sm + L::v);
+  bf16* qs = reinterpret_cast<bf16*>(sm + L::q);
+  bf16* dos = reinterpret_cast<bf16*>(sm + L::dout);
+  float* ls = reinterpret_cast<float*>(sm + L::l);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvb = empty + kStages;
+
+  const int group = hq / hkv;
+  const int split = blockIdx.x % n_split;
+  const int hk = (blockIdx.x / n_split) % hkv;
+  const int b = blockIdx.x / n_split / hkv;
+  const int k0 = blockIdx.y * kBlock;   // block 0: a causal grid's heaviest
+  const int offset = sk - sq;
+  const int qt0 = causal ? max(0, k0 - offset) / kRows : 0;
+  const int nqt = max(0, (sq + kRows - 1) / kRows - qt0);
+  const int n_all = group * nqt;
+  const int per = (n_all + n_split - 1) / n_split;
+  const int it0 = min(n_all, split * per);
+  const int it1 = min(n_all, it0 + per);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers * 4);   // one arrival a consumer warp
+    }
+    bar_init(kvb, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * kWG) {   // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * kWG) {
+      bar_expect(kvb, 2 * L::kKV);
+      tma_tile<D, kBlock>(ks, &tm_k, k0, hk, b, kvb);
+      tma_tile<D, kBlock>(vs, &tm_v, k0, hk, b, kvb);
+      for (int it = it0; it < it1; ++it) {
+        const int n = it - it0, s = n % kStages;
+        bar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        const int h = hk * group + it / nqt;
+        const int q0 = (qt0 + it % nqt) * kRows;
+        bar_expect(&full[s], 2 * L::kTile + 2 * kRows * 4);
+        tma_tile<D, kRows>(qs + s * kTileE, &tm_q, q0, h, b, &full[s]);
+        tma_tile<D, kRows>(dos + s * kTileE, &tm_do, q0, h, b, &full[s]);
+        const float* src = ldv + ((long long)b * hq + h) * sqp + q0;
+        bulk_load(ls + s * kRows, src, kRows * 4, &full[s]);
+        bulk_load(ls + (kStages + s) * kRows, src + (long long)bsz * hq * sqp,
+                  kRows * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x / kWG;
+  const int warp = (threadIdx.x % kWG) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ci = 2 * (lane & 3);
+  const int kw0 = k0 + kRows * wg;                   // the warpgroup's keys
+  const int key_r = kw0 + 16 * warp + (lane >> 2);   // and key_r + 8
+  float adv[D / 2], adk[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adv[i] = adk[i] = 0.f;
+  bar_wait(kvb, 0);
+
+  for (int it = it0; it < it1; ++it) {
+    const int n = it - it0, s = n % kStages;
+    const int q0 = (qt0 + it % nqt) * kRows;
+    bar_wait(&full[s], (n / kStages) & 1);
+    if (kw0 < sk && (!causal || kw0 <= q0 + kRows - 1 + offset)) {
+      const bf16* qt = qs + s * kTileE;
+      const bf16* dt = dos + s * kTileE;
+      const float* lt = ls + s * kRows;
+      const float* dvt = ls + (kStages + s) * kRows;
+      float st[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(st, desc_k<kBlock>(ks, kRows * wg, kk),
+                   desc_k<kRows>(qt, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(dp, desc_k<kBlock>(vs, kRows * wg, kk),
+                   desc_k<kRows>(dt, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      pin(st);
+      // P^T: keys key_r + 8 e1 (rows), queries q0 + 8 j + ci + e0 (columns)
+      const bool edge = causal && kw0 + kRows - 1 > q0 + offset;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + ci + (e & 1);
+          float p = exp2f(fmaf(st[4 * j + e], sl2, -lt[c]));
+          if (edge && key_r + 8 * (e >> 1) > q0 + c + offset) p = 0.f;
+          st[4 * j + e] = p;
+        }
+      wg_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              st[4 * j + e] * (dp[4 * j + e] - dvt[8 * j + ci + (e & 1)]);
+      // P^T and dS^T rounded to bf16 as the A fragments of the k steps
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          sa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(adv, pa[kk], desc_mn<kRows>(dt, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(adk, sa[kk], desc_mn<kRows>(qt, kk));
+      wg_commit();
+      wg_wait<0>();
+      pin(adv);
+      pin(adk);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+
+  if (part != nullptr) {   // fp32 partials [2][n_split][B][Hkv][Sk][D]
+    const long long plane = (long long)bsz * hkv * sk * D;
+    float* pk = part + split * plane + ((long long)b * hkv + hk) * sk * D;
+    store_acc<D>(adk, kw0, sk, 1.f, nullptr, 0, pk);
+    store_acc<D>(adv, kw0, sk, 1.f, nullptr, 0, pk + n_split * plane);
+  } else {
+    store_acc<D>(adk, kw0, sk, scale, dk + b * sdk_.b + hk * sdk_.h, sdk_.s,
+                 nullptr);
+    store_acc<D>(adv, kw0, sk, 1.f, dv + b * sdv_.b + hk * sdv_.h, sdv_.s,
+                 nullptr);
+  }
+}
+
+// dK = scale * (sum of the parts), dV = sum of the parts, in part order.
+__global__ void __launch_bounds__(256)
+combine_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, Strides sdk_, Strides sdv_, int hkv,
+               int sk, int d, int n_split, long long plane, float scale) {
+  const long long e = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= plane) return;
+  const int col = (int)(e % d);
+  const long long r = e / d;
+  const int row = (int)(r % sk);
+  const long long bh = r / sk;
+  const int hk = (int)(bh % hkv);
+  const int b = (int)(bh / hkv);
+  float2 sk2 = make_float2(0.f, 0.f), sv2 = make_float2(0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const float2 x = *reinterpret_cast<const float2*>(part + s * plane + e);
+    const float2 y = *reinterpret_cast<const float2*>(
+        part + (n_split + s) * plane + e);
+    sk2.x += x.x; sk2.y += x.y;
+    sv2.x += y.x; sv2.y += y.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * sdk_.b + hk * sdk_.h +
+                                     row * sdk_.s + col) =
+      __floats2bfloat162_rn(sk2.x * scale, sk2.y * scale);
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * sdv_.b + hk * sdv_.h +
+                                     row * sdv_.s + col) =
+      __floats2bfloat162_rn(sv2.x, sv2.y);
+}
+
+// Shared memory of the dQ kernel (bytes): Q and dO of the block resident,
+// the K / V ring, the barriers.
+template <int D>
+struct QLayout {
+  static constexpr int kQ = kBlock * D * 2;
+  static constexpr int kTile = kRows * D * 2;
+  static constexpr int q = 0, dout = kQ, k = 2 * kQ;
+  static constexpr int v = k + kStages * kTile;
+  static constexpr int bars = v + kStages * kTile;
+  static constexpr int bytes = bars + (2 * kStages + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ ldv, bf16* __restrict__ dq, Strides sdq_,
+          int bsz, int hq, int hkv, int sq, int sk, int sqp, int causal,
+          float scale, float sl2) {
+  using L = QLayout<D>;
+  constexpr int kTileE = kRows * D;
+  unsigned char* sm = smem_base();
+  bf16* qs = reinterpret_cast<bf16*>(sm + L::q);
+  bf16* dos = reinterpret_cast<bf16*>(sm + L::dout);
+  bf16* ks = reinterpret_cast<bf16*>(sm + L::k);
+  bf16* vs = reinterpret_cast<bf16*>(sm + L::v);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qb = empty + kStages;
+
+  const int h = blockIdx.x % hq;
+  const int b = blockIdx.x / hq;
+  const int hk = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;   // heaviest first
+  const int offset = sk - sq;
+  const int n_kt = (sk + kRows - 1) / kRows;
+  // key tiles up to the diagonal of the last real row of [r0, r0 + rows)
+  auto tiles = [&](int r0, int rows) {
+    if (r0 >= sq) return 0;
+    if (!causal) return n_kt;
+    const int last = min(r0 + rows, sq) - 1 + offset;
+    return last < 0 ? 0 : min(n_kt, last / kRows + 1);
+  };
+  const int n_tiles = tiles(q0, kBlock);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers * 4);
+    }
+    bar_init(qb, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * kWG) {
+    if (threadIdx.x == kConsumers * kWG) {
+      bar_expect(qb, 2 * L::kQ);
+      tma_tile<D, kBlock>(qs, &tm_q, q0, h, b, qb);
+      tma_tile<D, kBlock>(dos, &tm_do, q0, h, b, qb);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        bar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        bar_expect(&full[s], 2 * L::kTile);
+        tma_tile<D, kRows>(ks + s * kTileE, &tm_k, t * kRows, hk, b, &full[s]);
+        tma_tile<D, kRows>(vs + s * kTileE, &tm_v, t * kRows, hk, b, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWG;
+  const int warp = (threadIdx.x % kWG) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ci = 2 * (lane & 3);
+  const int qw0 = q0 + kRows * wg;
+  const int row_r = qw0 + 16 * warp + (lane >> 2);   // and row_r + 8
+  const int my_tiles = tiles(qw0, kRows);
+  const long long bh = (long long)b * hq + h;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // padded planes: no edge check
+    l2[r] = ldv[bh * sqp + row_r + 8 * r];
+    dl[r] = ldv[(long long)bsz * hq * sqp + bh * sqp + row_r + 8 * r];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  bar_wait(qb, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    bar_wait(&full[s], (t / kStages) & 1);
+    if (t < my_tiles) {
+      const int k0 = t * kRows;
+      const bf16* kt = ks + s * kTileE;
+      const bf16* vt = vs + s * kTileE;
+      float st[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(st, desc_k<kBlock>(qs, kRows * wg, kk),
+                   desc_k<kRows>(kt, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(dp, desc_k<kBlock>(dos, kRows * wg, kk),
+                   desc_k<kRows>(vt, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      pin(st);
+      // P: rows row_r + 8 e1, keys k0 + 8 j + ci + e0
+      const bool edge =
+          k0 + kRows > sk || (causal && k0 + kRows - 1 > qw0 + offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[4 * j + e], sl2, -l2[e >> 1]));
+          if (edge) {
+            const int kj = k0 + 8 * j + ci + (e & 1);
+            if (kj >= sk || (causal && kj > row_r + 8 * (e >> 1) + offset))
+              p = 0.f;
+          }
+          st[4 * j + e] = p;
+        }
+      wg_wait<0>();
+      pin(dp);
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i0 = 8 * kk + 2 * r;   // rows: r & 1 picks row_r + 8
+          const float d0 = dl[r & 1];
+          sa[kk][r] = pack_bf16(st[i0] * (dp[i0] - d0),
+                                st[i0 + 1] * (dp[i0 + 1] - d0));
+        }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, sa[kk], desc_mn<kRows>(kt, kk));
+      wg_commit();
+      wg_wait<0>();
+      pin(acc);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+  store_acc<D>(acc, qw0, sq, scale, dq + b * sdq_.b + h * sdq_.h, sdq_.s,
+               nullptr);
+}
+
+using EncodeFn = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (!fn) {
+    cudaDriverEntryPointQueryResult found;
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// A TMA map of a (B, H, S, D) bf16 tensor by its element strides, boxes of
+// 64 columns x `rows` rows in the 128-byte swizzle; the stride of a
+// length-1 axis (never stepped) is replaced by a valid one.
+bool make_map(CUtensorMap* map, const void* base, int bsz, int h, int s, int d,
+              Strides st, int rows) {
+  const EncodeFn encode = encoder();
+  if (!encode) return false;
+  cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                           (cuuint64_t)st.b * 2};
+  if (s == 1) strides[0] = (cuuint64_t)d * 2;
+  if (h == 1) strides[1] = strides[0] * s;
+  if (bsz == 1) strides[2] = strides[1] * h;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h,
+                              (cuuint64_t)bsz};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Rows of the L2 / Dv planes a (batch, q head) takes: Sq up to the dQ
+// kernel's 128-row blocks.
+int padded_rows(int sq) { return (sq + kBlock - 1) / kBlock * kBlock; }
+
+// Parts the dK / dV walk of a key block is cut into: 2 when the grid is
+// short of 1.5 waves of the card's SMs.
+int n_split(int bsz, int hkv, int sk) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long ctas = (long long)bsz * hkv * ((sk + kBlock - 1) / kBlock);
+  return 2 * ctas < 3LL * sms ? kMaxSplit : 1;
+}
+
+// Floats of scratch: the L2 / Dv planes, then the split's fp32 partials.
+long long scratch_floats(int bsz, int hq, int hkv, int sq, int sk, int d) {
+  const int ns = n_split(bsz, hkv, sk);
+  return 2LL * bsz * hq * padded_rows(sq) +
+         (ns > 1 ? 2LL * ns * bsz * hkv * sk * d : 0);
+}
+
+template <int D>
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+               const float* lse, const bf16* dout, bf16* dq, bf16* dk,
+               bf16* dv, float* scratch, const Strides* st, int bsz, int hq,
+               int hkv, int sq, int sk, int causal, float scale,
+               cudaStream_t stream, cudaEvent_t* ev) {
+  // st: q, k, v, o, dO, dQ, dK, dV
+  const int sqp = padded_rows(sq);
+  const long long rows = (long long)bsz * hq * sqp;
+  CUtensorMap mq, mdo, mk, mv, mq2, mdo2, mk2, mv2;
+  if (!make_map(&mq, q, bsz, hq, sq, D, st[0], kRows) ||
+      !make_map(&mdo, dout, bsz, hq, sq, D, st[4], kRows) ||
+      !make_map(&mk, k, bsz, hkv, sk, D, st[1], kBlock) ||
+      !make_map(&mv, v, bsz, hkv, sk, D, st[2], kBlock) ||
+      !make_map(&mq2, q, bsz, hq, sq, D, st[0], kBlock) ||
+      !make_map(&mdo2, dout, bsz, hq, sq, D, st[4], kBlock) ||
+      !make_map(&mk2, k, bsz, hkv, sk, D, st[1], kRows) ||
+      !make_map(&mv2, v, bsz, hkv, sk, D, st[2], kRows))
+    return (int)cudaErrorInvalidValue;
+  const int ns = n_split(bsz, hkv, sk);
+  float* part = ns > 1 ? scratch + 2 * rows : nullptr;
+  const int smem_kv = KvLayout<D>::bytes + 1024;
+  const int smem_q = QLayout<D>::bytes + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (e != cudaSuccess) return (int)e;
+  const float sl2 = scale * tc::kLog2e;
+  if (ev) cudaEventRecord(ev[0], stream);
+  prep_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o, dout, lse, scratch, st[3], st[4], hq, sq, sqp, D, rows);
+  if (ev) cudaEventRecord(ev[1], stream);
+  dkdv_kernel<D><<<dim3(bsz * hkv * ns, (sk + kBlock - 1) / kBlock),
+                   kThreadsKV, smem_kv, stream>>>(
+      mq, mk, mv, mdo, scratch, part, dk, dv, st[6], st[7], bsz, hq, hkv, sq,
+      sk, sqp, causal, ns, scale, sl2);
+  if (ev) cudaEventRecord(ev[2], stream);
+  if (part != nullptr) {
+    const long long plane = (long long)bsz * hkv * sk * D;
+    combine_kernel<<<(unsigned)((plane / 2 + 255) / 256), 256, 0, stream>>>(
+        part, dk, dv, st[6], st[7], hkv, sk, D, ns, plane, scale);
+  }
+  if (ev) cudaEventRecord(ev[3], stream);
+  dq_kernel<D><<<dim3(bsz * hq, sqp / kBlock), kThreads, smem_q, stream>>>(
+      mq2, mk2, mv2, mdo2, scratch, dq, st[5], bsz, hq, hkv, sq, sk, sqp,
+      causal, scale, sl2);
+  if (ev) cudaEventRecord(ev[4], stream);
+  return 0;
+}
+
+}  // namespace hop
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
@@ -1361,44 +2175,69 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
                  void* dq, void* dk, void* dv, const Strides* st, int b,
                  int hq, int hkv, int sq, int sk, int causal, float scale,
-                 cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2)
-    return tc::launch_bwd<D>(
-        static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-        static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
-        lse, dvec, static_cast<tc::bf16*>(dq), static_cast<tc::bf16*>(dk),
-        static_cast<tc::bf16*>(dv), st, b, hq, hkv, sq, sk, causal, scale,
-        stream);
-  else
+                 cudaStream_t stream, cudaEvent_t* ev) {
+  if constexpr (sizeof(T) == 2) {
+    if constexpr (D != 32) {
+      return -1;   // bf16 at D 64 / 128 runs the wgmma kernels
+    } else {
+      return tc::launch_bwd<D>(
+          static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+          static_cast<const tc::bf16*>(v),
+          static_cast<const tc::bf16*>(dout), lse, dvec,
+          static_cast<tc::bf16*>(dq), static_cast<tc::bf16*>(dk),
+          static_cast<tc::bf16*>(dv), st, b, hq, hkv, sq, sk, causal, scale,
+          stream, ev);
+    }
+  } else {
     return launch_bwd_f32<D>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         dvec, static_cast<float*>(dq), static_cast<float*>(dk),
         static_cast<float*>(dv), st, b, hq, hkv, sq, sk, causal, scale,
-        stream);
+        stream, ev);
+  }
 }
+
+// bf16 at D = 64 / 128 runs the wgmma kernels; fp32, and bf16 at D = 32,
+// the Dv pre-pass and the mma.sync / FMA kernels.
+bool uses_wgmma(bool bf16_in, int d) { return bf16_in && d != 32; }
 
 template <typename T>
 int launch_bwd_t(int d, const void* q, const void* k, const void* v,
                  const void* o, const float* lse, const void* dout, void* dq,
-                 void* dk, void* dv, float* dvec, const Strides* st, int b,
+                 void* dk, void* dv, float* scratch, const Strides* st, int b,
                  int hq, int hkv, int sq, int sk, int causal, float scale,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, cudaEvent_t* ev) {
   if (d != 32 && d != 64 && d != 128) return -1;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (uses_wgmma(kBf16, d)) {
+    using hop::bf16;
+    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+    auto m = [](void* p) { return static_cast<bf16*>(p); };
+    if (d == 64)
+      return hop::launch_bwd<64>(c(q), c(k), c(v), c(o), lse, c(dout), m(dq),
+                                 m(dk), m(dv), scratch, st, b, hq, hkv, sq,
+                                 sk, causal, scale, stream, ev);
+    return hop::launch_bwd<128>(c(q), c(k), c(v), c(o), lse, c(dout), m(dq),
+                                m(dk), m(dv), scratch, st, b, hq, hkv, sq, sk,
+                                causal, scale, stream, ev);
+  }
   const long long rows = (long long)b * hq * sq;
+  if (ev) cudaEventRecord(ev[0], stream);
   fa_bwd_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dvec, st[3],
+      static_cast<const T*>(o), static_cast<const T*>(dout), scratch, st[3],
       st[4], hq, sq, d, rows);
+  if (ev) cudaEventRecord(ev[1], stream);
   switch (d) {
-    case 32: return launch_bwd_d<T, 32>(q, k, v, dout, lse, dvec, dq, dk, dv,
-                                        st, b, hq, hkv, sq, sk, causal, scale,
-                                        stream);
-    case 64: return launch_bwd_d<T, 64>(q, k, v, dout, lse, dvec, dq, dk, dv,
-                                        st, b, hq, hkv, sq, sk, causal, scale,
-                                        stream);
-    default: return launch_bwd_d<T, 128>(q, k, v, dout, lse, dvec, dq, dk,
+    case 32: return launch_bwd_d<T, 32>(q, k, v, dout, lse, scratch, dq, dk,
+                                        dv, st, b, hq, hkv, sq, sk, causal,
+                                        scale, stream, ev);
+    case 64: return launch_bwd_d<T, 64>(q, k, v, dout, lse, scratch, dq, dk,
+                                        dv, st, b, hq, hkv, sq, sk, causal,
+                                        scale, stream, ev);
+    default: return launch_bwd_d<T, 128>(q, k, v, dout, lse, scratch, dq, dk,
                                          dv, st, b, hq, hkv, sq, sk, causal,
-                                         scale, stream);
+                                         scale, stream, ev);
   }
 }
 
@@ -1428,32 +2267,47 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+// Floats of scratch flash_attention_bwd_launch needs for these shapes.
+extern "C" long long flash_attention_bwd_scratch(int is_bf16, int b, int hq,
+                                                 int hkv, int sq, int sk,
+                                                 int d) {
+  if (uses_wgmma(is_bf16 != 0, d))
+    return hop::scratch_floats(b, hq, hkv, sq, sk, d);
+  return (long long)b * hq * sq;
+}
+
 // The gradients of flash_attention_launch's output: q, k, v, o (the
 // forward's output), dout (its gradient) and dq, dk, dv, each given by its
 // (batch, head, seq) strides in st[3 * tensor + axis] in that order (last
 // dim contiguous; bf16 tensors 16-byte aligned with strides multiples of
-// 8); lse (B, Hq, Sq) fp32 from the forward; dvec (B, Hq, Sq) fp32 scratch.
-// dk / dv sum the q heads of each kv head's group. Deterministic: no
-// atomics, each gradient element is summed by one thread in a fixed order.
-// Returns cudaGetLastError(), or -1 for a head size it was not built for.
+// 8); lse (B, Hq, Sq) fp32 from the forward; scratch holds
+// flash_attention_bwd_scratch(...) floats. dk / dv sum the q heads of each
+// kv head's group. Deterministic: no atomics, each gradient element is
+// summed in a fixed order. events, when not null, holds 5 CUDA events that
+// are recorded on the stream before the first kernel and after the Dv
+// pre-pass, the dK / dV kernel, the combine kernel (after dK / dV again
+// where there is none) and the dQ kernel. Returns cudaGetLastError(), or
+// -1 for a head size it was not built for.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
-    float* dvec, int is_bf16, int b, int hq, int hkv, int sq, int sk, int d,
-    const long long* strides, int causal, float scale, void* stream) {
+    float* scratch, int is_bf16, int b, int hq, int hkv, int sq, int sk,
+    int d, const long long* strides, int causal, float scale, void* stream,
+    void* const* events) {
   if (b == 0 || hq == 0 || sq == 0 || sk == 0)
     return (int)cudaGetLastError();
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaStream_t s = (cudaStream_t)stream;
+  cudaEvent_t* ev = events ? (cudaEvent_t*)events : nullptr;
   const int rc =
       is_bf16 ? launch_bwd_t<tc::bf16>(d, q, k, v, o, lse, dout, dq, dk, dv,
-                                       dvec, st, b, hq, hkv, sq, sk, causal,
-                                       scale, s)
+                                       scratch, st, b, hq, hkv, sq, sk,
+                                       causal, scale, s, ev)
               : launch_bwd_t<float>(d, q, k, v, o, lse, dout, dq, dk, dv,
-                                    dvec, st, b, hq, hkv, sq, sk, causal,
-                                    scale, s);
+                                    scratch, st, b, hq, hkv, sq, sk, causal,
+                                    scale, s, ev);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

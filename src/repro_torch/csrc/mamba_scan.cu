@@ -295,31 +295,285 @@ mamba_scan_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
 //   dB_t      += lambda_t xdt_t                 (over the channels)
 //   dC_t      += dy_t h_t                       (over the channels)
 //   lambda_{t-1} = g_t lambda_t
-// The forward kernel stores h at each 32-step chunk boundary (h_chunks,
-// (B, ceil(S / 32), Di, N) fp32). The backward takes the chunks in reverse:
-// it recomputes the chunk's h_t from its boundary with the forward's exact
-// arithmetic (so the states are the forward's bits) into shared memory,
-// then walks the chunk backwards carrying lambda in registers. The thread
-// layout is the forward's (SPT states of one channel a thread, LPC lanes a
-// channel). dxdt and ddt reduce over the channel's lanes once a chunk by the
-// forward's recursive halving; dB and dC reduce over the CTA's channels in
-// shared memory every 8 steps, in a fixed order, into per-CTA partials
-// (B, n_cta, S, N); da stays in registers over time and is written as
-// per-batch-row partials (B, Di, N). A second kernel sums the partials in a
-// fixed order: no floating-point atomics, so the gradients are the same bits
-// run to run. The kernel forms g_t = expf(dt * a) twice an element (the
-// recompute and the adjoint, the forward's one-lane arithmetic each); the
-// function needs it once, since g_t could sit in shared memory beside h_t.
 // There is no Pallas backward: the reference differentiates XLA's chunked
-// ssm.mamba1_scan. Measured on an H100 80GB HBM3 (700 W): 3.119 ms at the
-// training microbatch of falcon-mamba-7b, (2, 2048, 8192, 16) in fp32,
-// against a 0.221 ms bound (its 740 MB at the HBM rate; one exponential an
-// element takes 0.128 ms on the SFU); the shared-memory round trips of the
-// states and of the 8-step channel reductions separate the two (PERF.md).
-constexpr int kSub = 8;   // steps of dB / dC reduced together
+// ssm.mamba1_scan.
+//
+// What bounds it on the H100: at the training microbatch of
+// falcon-mamba-7b, (2, 2048, 8192, 16) in fp32, the 740 MB of inputs,
+// chunk states and outputs take 0.221 ms at 3.35 TB/s and the 537 M
+// exponentials (one an element) 0.128 ms on the SFU; the ~20 fp32
+// operations an element and the reductions over states and channels make
+// it an issue-bound kernel on the SMs. Measured on an H100 80GB HBM3
+// (700 W): 1.42 ms at that shape (the main kernel 1.385, the dB / dC sum
+// 0.032, the da sum 0.007), 521 GB/s; what holds it there is issue: per
+// step a thread of 2 states spends ~6 shuffles and ~8 shared-memory
+// accesses beside its ~40 fp32 operations (PERF.md).
+//
+// Design. The forward kernel stores h at each 32-step chunk boundary
+// (h_chunks, (B, ceil(S / 32), Di, N) fp32). A thread owns SPT = 2 states
+// of one channel (LPC = N / 2 lanes a channel) and a CTA of 512 threads 64
+// channels of one batch row (at N = 16), one CTA an SM. Chunks are taken in
+// reverse, each as two 16-step halves. The chunk's 32 steps are recomputed
+// from the stored state with the forward's exact arithmetic (expf,
+// __fmul_rn, __fmaf_rn: the states are the forward's bits), h_t and
+// g_t = exp(dt_t a) both kept: the first half's in shared memory (one
+// 16-byte store a step a thread), the second half's in registers (64 of
+// them). The adjoint walks the second half, then the first, and forms no
+// exponential of its own. The chunk's dt, xdt, dy, B and C are staged with
+// 16-byte cp.async into one of two buffers while the previous chunk
+// computes, and the next chunk's stored state is loaded into registers
+// ahead of its use. Each step reduces dxdt and ddt over the channel's
+// lanes (a shuffle butterfly, one value each after log2(LPC) levels) and
+// dB and dC over the warp's channels (halving 4 values to one a lane over
+// the channel bits of the lane index), and leaves the warp's dB / dC in
+// shared memory; once a half the CTA sums its 16 warps in order into
+// per-CTA partials (B, Di / 64, S, N) and writes the half's dxdt and ddt
+// rows coalesced. A second kernel sums the partials over the CTAs in order
+// and da's per-batch-row partials over the batch: no floating-point
+// atomics, so the gradients are the same bits run to run.
+constexpr int kHalf = kChunk / 2;   // steps of a half chunk
+constexpr int kBwdThreads = 512;    // threads of a backward CTA, at most
+constexpr int kBwdChannels = 64;    // channels of a backward CTA (N <= 16)
 
-template <typename T, int SPT, int LPC>
-__global__ void __launch_bounds__(kThreads)
+// Sums the V values of v over the lanes that differ in lane-index bits O,
+// O / 2, ..., LPC (the warp's channels), in a fixed butterfly: while more
+// than one value is left each level halves them (a lane keeps the upper
+// half if its bit O is set and adds its partner's sums of it), then plain
+// butterfly levels. idx: the first value index the lane ends with; dup:
+// the lane bits of the plain levels (lanes with any of them set hold a
+// copy).
+template <int O, int M, int LPC, int V>
+__device__ __forceinline__ void chan_reduce(float (&v)[V], int lane, int& idx,
+                                            int& dup) {
+  if constexpr (O >= LPC && O >= 1) {
+    if constexpr (M > 1) {
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < M / 2; ++i) {
+        const float send = up ? v[i] : v[i + M / 2];
+        const float keep = up ? v[i + M / 2] : v[i];
+        v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
+      }
+      if (up) idx += M / 2;
+      chan_reduce<O / 2, M / 2, LPC, V>(v, lane, idx, dup);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      dup |= O;
+      chan_reduce<O / 2, 1, LPC, V>(v, lane, idx, dup);
+    }
+  }
+}
+
+// The final value count of chan_reduce over the channel bits 16 .. LPC.
+template <int LPC, int V>
+__host__ __device__ constexpr int chan_left() {
+  int m = V;
+  for (int o = 16; o >= LPC && o >= 1; o /= 2)
+    if (m > 1) m /= 2;
+  return m;
+}
+
+// The backward's thread layout for NP padded states: SPT states a thread,
+// LPC lanes a channel, NT threads and CH channels a CTA (64 channels, 16
+// at N = 32, where a warp's reductions need twice the shared memory).
+template <int NP>
+struct BwdShape {
+  static constexpr int SPT = NP < 2 ? NP : 2;
+  static constexpr int LPC = NP / SPT;
+  static constexpr int NT = LPC <= 8 ? kBwdChannels * LPC : 256;
+  static constexpr int CH = NT / LPC;
+};
+
+template <typename T, int SPT, int LPC, int NT>
+struct BwdLayout {
+  static constexpr int CH = NT / LPC;       // channels of the CTA
+  static constexpr int NP = SPT * LPC;      // states, padded
+  static constexpr int NW = NT / 32;        // warps
+  static constexpr int kD = kChunk * CH;    // a staged (step, channel) array
+  static constexpr int kN = kChunk * NP;    // a staged (step, state) array
+  static constexpr int kStage = 3 * kD + 2 * kN;       // dt, xdt, dy, B, C
+  static constexpr int kHg = kHalf * NT * 2 * SPT;     // floats: h, g
+  static constexpr int kRed = kHalf * NW * 2 * NP;     // floats: dB / dC
+  static constexpr int kOut = 2 * kHalf * CH;          // floats: dxdt, ddt
+  // bytes: the first half's h / g, the warps' dB / dC, dxdt / ddt (fp32),
+  // then 2 x the staged inputs (T)
+  static constexpr size_t bytes =
+      (size_t)(kHg + kRed + kOut) * 4 + 2 * (size_t)kStage * sizeof(T);
+};
+
+// One step of the adjoint at row t of a half (t < kHalf): lam and dak carry
+// over; the warp's dB / dC and the channel's dxdt / ddt go to red / out.
+// ht, gt: h_t and g_t; hp: h_{t-1}.
+template <typename T, int SPT, int LPC, int NT>
+__device__ __forceinline__ void adjoint_step(
+    int t, const T* dts, const T* xs, const T* dys, const T* bs,
+    const T* cs, float* red, float* outx, float* outt,
+    const float (&av)[SPT], const float (&ht)[SPT], const float (&gt)[SPT],
+    const float (&hp)[SPT], float (&lam)[SPT], float (&dak)[SPT]) {
+  using L = BwdLayout<T, SPT, LPC, NT>;
+  constexpr int CH = L::CH, NP = L::NP;
+  constexpr int V = 2 * SPT;
+  constexpr int kLeft = chan_left<LPC, V>();
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int c = threadIdx.x / LPC;
+  const int q = threadIdx.x % LPC;
+  const int n0 = q * SPT;
+  const float dtv = to_f(dts[t * CH + c]);
+  const float xv = to_f(xs[t * CH + c]);
+  const float dyv = to_f(dys[t * CH + c]);
+  float bv[SPT], cv[SPT], v[V];
+  load_vec<SPT>(bv, bs + t * NP + n0);
+  load_vec<SPT>(cv, cs + t * NP + n0);
+  float sx = 0.f, st = 0.f;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    lam[j] = __fmaf_rn(dyv, cv[j], lam[j]);
+    sx = __fmaf_rn(lam[j], bv[j], sx);
+    const float dg = __fmul_rn(__fmul_rn(lam[j], hp[j]), gt[j]);
+    st = __fmaf_rn(dg, av[j], st);
+    dak[j] = __fmaf_rn(dg, dtv, dak[j]);
+    v[j] = __fmul_rn(lam[j], xv);           // dB
+    v[SPT + j] = __fmul_rn(dyv, ht[j]);     // dC
+    lam[j] = __fmul_rn(gt[j], lam[j]);
+  }
+  // dxdt, ddt over the channel's lanes: the first level splits the two
+  // (lanes with bit LPC / 2 set keep ddt), the rest add
+  if constexpr (LPC > 1) {
+    const bool up = (q & (LPC / 2)) != 0;
+    float r = __fadd_rn(up ? st : sx,
+                        __shfl_xor_sync(0xffffffffu, up ? sx : st, LPC / 2));
+#pragma unroll
+    for (int o = LPC / 4; o >= 1; o /= 2)
+      r = __fadd_rn(r, __shfl_xor_sync(0xffffffffu, r, o));
+    if (q == 0) outx[t * CH + c] = r;
+    if (q == LPC / 2) outt[t * CH + c] = r;
+  } else {
+    outx[t * CH + c] = sx;
+    outt[t * CH + c] = st;
+  }
+  // dB, dC over the warp's channels
+  int idx = 0, dup = 0;
+  chan_reduce<16, V, LPC, V>(v, lane, idx, dup);
+  if ((lane & dup) == 0) {
+#pragma unroll
+    for (int i = 0; i < kLeft; ++i) {
+      const int k = idx + i;   // value k: kind k / SPT, state n0 + k % SPT
+      red[(t * L::NW + w) * 2 * NP + (k / SPT) * NP + n0 + k % SPT] = v[i];
+    }
+  }
+}
+
+// The first half of a chunk forward from its stored state hb: h_t, g_t of
+// steps t < len to shared memory (hg[t][tid], h and g of each state), the
+// state after them to hm.
+template <typename T, int SPT, int LPC, int NT>
+__device__ __forceinline__ void recompute_first(
+    const T* dts, const T* xs, const T* bs, float* hg,
+    const float (&av)[SPT], const float (&hb)[SPT], float (&hm)[SPT],
+    int len) {
+  using L = BwdLayout<T, SPT, LPC, NT>;
+  const int c = threadIdx.x / LPC;
+  const int n0 = (threadIdx.x % LPC) * SPT;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) hm[j] = hb[j];
+#pragma unroll 4
+  for (int t = 0; t < len; ++t) {
+    const float dtv = to_f(dts[t * L::CH + c]);
+    const float xv = to_f(xs[t * L::CH + c]);
+    float bv[SPT], hgv[2 * SPT];
+    load_vec<SPT>(bv, bs + t * L::NP + n0);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const float g = expf(__fmul_rn(dtv, av[j]));
+      hm[j] = __fmaf_rn(g, hm[j], __fmul_rn(xv, bv[j]));
+      hgv[2 * j] = hm[j];
+      hgv[2 * j + 1] = g;
+    }
+    store_vec<2 * SPT>(hg + (t * NT + threadIdx.x) * 2 * SPT, hgv);
+  }
+}
+
+// The adjoint of the first half (steps len - 1 .. 0) from its h, g in
+// shared memory; h_{-1} is the chunk's stored state hb.
+template <typename T, int SPT, int LPC, int NT>
+__device__ __forceinline__ void adjoint_first(
+    const T* dts, const T* xs, const T* dys, const T* bs, const T* cs,
+    const float* hg, float* red, float* outx, float* outt,
+    const float (&av)[SPT], const float (&hb)[SPT], float (&lam)[SPT],
+    float (&dak)[SPT], int len) {
+  float cur[2 * SPT];
+  load_vec<2 * SPT>(cur, hg + ((len - 1) * NT + threadIdx.x) * 2 * SPT);
+  for (int t = len - 1; t >= 0; --t) {
+    float prev[2 * SPT] = {};
+    if (t > 0) {
+      load_vec<2 * SPT>(prev, hg + ((t - 1) * NT + threadIdx.x) * 2 * SPT);
+    } else {
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) prev[2 * j] = hb[j];
+    }
+    float ht[SPT], gt[SPT], hp[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      ht[j] = cur[2 * j];
+      gt[j] = cur[2 * j + 1];
+      hp[j] = prev[2 * j];
+    }
+    adjoint_step<T, SPT, LPC, NT>(t, dts, xs, dys, bs, cs, red, outx, outt,
+                                  av, ht, gt, hp, lam, dak);
+#pragma unroll
+    for (int i = 0; i < 2 * SPT; ++i) cur[i] = prev[i];
+  }
+}
+
+// The second half: h_t, g_t of steps t < len recomputed from hm into
+// registers, then the adjoint from t = len - 1 down to 0 (h_{-1} = hm).
+template <bool kFull, typename T, int SPT, int LPC, int NT>
+__device__ __forceinline__ void second_half(
+    const T* dts, const T* xs, const T* dys, const T* bs, const T* cs,
+    float* red, float* outx, float* outt, const float (&av)[SPT],
+    const float (&hm)[SPT], float (&lam)[SPT], float (&dak)[SPT], int len) {
+  using L = BwdLayout<T, SPT, LPC, NT>;
+  const int c = threadIdx.x / LPC;
+  const int n0 = (threadIdx.x % LPC) * SPT;
+  float hh[kHalf][SPT], gg[kHalf][SPT];
+  {
+    float h[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) h[j] = hm[j];
+#pragma unroll
+    for (int t = 0; t < kHalf; ++t) {
+      if (!kFull && t >= len) break;
+      const float dtv = to_f(dts[t * L::CH + c]);
+      const float xv = to_f(xs[t * L::CH + c]);
+      float bv[SPT];
+      load_vec<SPT>(bv, bs + t * L::NP + n0);
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const float g = expf(__fmul_rn(dtv, av[j]));
+        h[j] = __fmaf_rn(g, h[j], __fmul_rn(xv, bv[j]));
+        hh[t][j] = h[j];
+        gg[t][j] = g;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = kHalf - 1; t >= 0; --t) {
+    if (!kFull && t >= len) continue;
+    float ht[SPT], gt[SPT], hp[SPT];   // copies: the arrays stay registers
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      ht[j] = hh[t][j];
+      gt[j] = gg[t][j];
+      hp[j] = t > 0 ? hh[t > 0 ? t - 1 : 0][j] : hm[j];
+    }
+    adjoint_step<T, SPT, LPC, NT>(t, dts, xs, dys, bs, cs, red, outx, outt,
+                                  av, ht, gt, hp, lam, dak);
+  }
+}
+
+template <typename T, int SPT, int LPC, int NT>
+__global__ void __launch_bounds__(NT, kBwdThreads / NT)
 mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
                       const float* __restrict__ a, const T* __restrict__ bm,
                       const T* __restrict__ cm, const T* __restrict__ dy,
@@ -327,16 +581,15 @@ mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
                       const float* __restrict__ h_chunks,
                       T* __restrict__ dxdt, T* __restrict__ ddt,
                       float* __restrict__ da_part, float* __restrict__ db_part,
-                      float* __restrict__ dc_part, int s, int di, int n) {
-  constexpr int CH = kThreads / LPC;
-  constexpr int NP = SPT * LPC;
-  constexpr int kD = kChunk * CH;
-  constexpr int kN = kChunk * NP;
-  constexpr int kOut = kChunk / LPC;
+                      int s, int di, int n, int vec_d, int vec_n) {
+  using L = BwdLayout<T, SPT, LPC, NT>;
+  constexpr int CH = L::CH, NP = L::NP, NW = L::NW;
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);   // [kChunk][SPT][kThreads]
-  float* red = hs + kChunk * SPT * kThreads;     // [kSub][2][CH][NP]
-  T* sm = reinterpret_cast<T*>(red + kSub * 2 * CH * NP);   // dt, xdt, dy, B, C
+  float* hg = reinterpret_cast<float*>(smem4);   // [kHalf][NT][2 SPT]
+  float* red = hg + L::kHg;                      // [kHalf][NW][2][NP]
+  float* outx = red + L::kRed;                   // [kHalf][CH]
+  float* outt = outx + kHalf * CH;               // [kHalf][CH]
+  T* stg0 = reinterpret_cast<T*>(outx + L::kOut);   // 2 x staged inputs
 
   const int tid = threadIdx.x;
   const int c = tid / LPC;
@@ -349,7 +602,7 @@ mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
   const int valid_d = min(CH, di - d0);
   const int n_ck = (s + kChunk - 1) / kChunk;
   const long long row = (long long)b * s;
-  float av[SPT], lam[SPT], dak[SPT];
+  float av[SPT], lam[SPT], dak[SPT], hb[SPT], hn[SPT] = {};
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
     const bool ok = d < di && n0 + j < n;
@@ -358,118 +611,93 @@ mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
                  ? dh_final[((long long)b * di + d) * n + n0 + j] : 0.f;
     dak[j] = 0.f;
   }
-  T* dts = sm;
-  T* xs = dts + kD;
-  T* dys = xs + kD;
-  T* bs = dys + kD;
-  T* cs = bs + kN;
-
-  for (int k = n_ck - 1; k >= 0; --k) {
+  auto load_state = [&](int k, float (&h)[SPT]) {
+#pragma unroll
+    for (int j = 0; j < SPT; ++j)
+      h[j] = d < di && n0 + j < n
+                 ? h_chunks[(((long long)b * n_ck + k) * di + d) * n + n0 + j]
+                 : 0.f;
+  };
+  auto stage_chunk = [&](int k) {
     const int t0 = k * kChunk;
     const int len = min(kChunk, s - t0);
     const long long gd = (row + t0) * di + d0;
     const long long gn = (row + t0) * n;
-    __syncthreads();   // the previous chunk is done with shared memory
-    stage(dts, CH, dt + gd, di, len, valid_d, false);
-    stage(xs, CH, xdt + gd, di, len, valid_d, false);
-    stage(dys, CH, dy + gd, di, len, valid_d, false);
-    stage(bs, NP, bm + gn, n, len, n, false);
-    stage(cs, NP, cm + gn, n, len, n, false);
-    float hb[SPT], h[SPT];
+    T* buf = stg0 + (k & 1) * L::kStage;
+    stage(buf, CH, dt + gd, di, len, valid_d, vec_d);
+    stage(buf + L::kD, CH, xdt + gd, di, len, valid_d, vec_d);
+    stage(buf + 2 * L::kD, CH, dy + gd, di, len, valid_d, vec_d);
+    stage(buf + 3 * L::kD, NP, bm + gn, n, len, n, vec_n);
+    stage(buf + 3 * L::kD + L::kN, NP, cm + gn, n, len, n, vec_n);
+  };
+  // the CTA's dB / dC partials and dxdt / ddt rows of the len steps from
+  // t0 (after a barrier: every warp's reductions are in red / out)
+  auto flush = [&](int t0, int len) {
+    for (int o = tid; o < kHalf * 2 * NP; o += NT) {
+      const int t = o / (2 * NP);
+      const int kind = (o / NP) & 1;
+      const int nn = o % NP;
+      if (t < len && nn < n) {
+        const float* r = red + t * NW * 2 * NP + kind * NP + nn;
+        float acc = r[0];
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      hb[j] = d < di && n0 + j < n
-                  ? h_chunks[(((long long)b * n_ck + k) * di + d) * n + n0 + j]
-                  : 0.f;
-      h[j] = hb[j];
+        for (int w = 1; w < NW; ++w) acc = __fadd_rn(acc, r[w * 2 * NP]);
+        db_part[(((long long)kind * gridDim.y + b) * gridDim.x + blk) * s * n +
+                (long long)(t0 + t) * n + nn] = acc;
+      }
     }
+    for (int o = tid; o < 2 * kHalf * CH; o += NT) {
+      const int kind = o / (kHalf * CH);
+      const int t = (o / CH) % kHalf;
+      const int cc = o % CH;
+      if (t < len && cc < valid_d)
+        from_f((kind ? ddt : dxdt) + (row + t0 + t) * di + d0 + cc,
+               outx[o]);
+    }
+  };
+
+  stage_chunk(n_ck - 1);
+  cp_async_commit();
+  load_state(n_ck - 1, hb);
+  for (int k = n_ck - 1; k >= 0; --k) {
+    cp_async_wait_all();
+    __syncthreads();   // chunk k has landed; the last flush is done
+    if (k > 0) {
+      stage_chunk(k - 1);
+      load_state(k - 1, hn);
+    }
+    cp_async_commit();
+    const T* buf = stg0 + (k & 1) * L::kStage;
+    const T* dts = buf;
+    const T* xs = buf + L::kD;
+    const T* dys = buf + 2 * L::kD;
+    const T* bs = buf + 3 * L::kD;
+    const T* cs = bs + L::kN;
+    const int t0 = k * kChunk;
+    const int len = min(kChunk, s - t0);
+    const int len_a = min(kHalf, len);
+    float hm[SPT];
+    recompute_first<T, SPT, LPC, NT>(dts, xs, bs, hg, av, hb, hm, len_a);
+    if (len > kHalf) {   // the second half, from registers
+      constexpr int kD2 = kHalf * CH, kN2 = kHalf * NP;
+      if (len == kChunk)
+        second_half<true, T, SPT, LPC, NT>(
+            dts + kD2, xs + kD2, dys + kD2, bs + kN2, cs + kN2, red, outx,
+            outt, av, hm, lam, dak, len - kHalf);
+      else
+        second_half<false, T, SPT, LPC, NT>(
+            dts + kD2, xs + kD2, dys + kD2, bs + kN2, cs + kN2, red, outx,
+            outt, av, hm, lam, dak, len - kHalf);
+      __syncthreads();
+      flush(t0 + kHalf, len - kHalf);
+      __syncthreads();
+    }
+    adjoint_first<T, SPT, LPC, NT>(dts, xs, dys, bs, cs, hg, red, outx, outt,
+                                   av, hb, lam, dak, len_a);
     __syncthreads();
-
-    // h_t of the chunk, as the forward computes it
+    flush(t0, len_a);
 #pragma unroll
-    for (int t = 0; t < kChunk; ++t) {
-      if (t >= len) break;
-      const float dtv = to_f(dts[t * CH + c]);
-      const float xv = to_f(xs[t * CH + c]);
-      float bv[SPT];
-      load_vec<SPT>(bv, bs + t * NP + n0);
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const float g = expf(__fmul_rn(dtv, av[j]));
-        h[j] = __fmaf_rn(g, h[j], __fmul_rn(xv, bv[j]));
-        hs[(t * SPT + j) * kThreads + tid] = h[j];
-      }
-    }
-
-    // the adjoint, backwards through the chunk; hc carries h_t from one
-    // step to the next (h_{t-1} of step t is h_t of step t - 1)
-    float px[kChunk], pt[kChunk], hc[SPT];
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) hc[j] = hs[((len - 1) * SPT + j) * kThreads + tid];
-#pragma unroll
-    for (int t = kChunk - 1; t >= 0; --t) {
-      if (t >= len) {
-        px[t] = pt[t] = 0.f;
-      } else {
-        const float dtv = to_f(dts[t * CH + c]);
-        const float xv = to_f(xs[t * CH + c]);
-        const float dyv = to_f(dys[t * CH + c]);
-        float bv[SPT], cv[SPT], rbv[SPT], rcv[SPT];
-        load_vec<SPT>(bv, bs + t * NP + n0);
-        load_vec<SPT>(cv, cs + t * NP + n0);
-        float sx = 0.f, st = 0.f;
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          lam[j] = __fmaf_rn(dyv, cv[j], lam[j]);
-          const float hprev =
-              t > 0 ? hs[((t - 1) * SPT + j) * kThreads + tid] : hb[j];
-          const float g = expf(__fmul_rn(dtv, av[j]));
-          sx = __fmaf_rn(lam[j], bv[j], sx);
-          const float dg = __fmul_rn(__fmul_rn(lam[j], hprev), g);
-          st = __fmaf_rn(dg, av[j], st);
-          dak[j] = __fmaf_rn(dg, dtv, dak[j]);
-          rbv[j] = __fmul_rn(lam[j], xv);
-          rcv[j] = __fmul_rn(dyv, hc[j]);
-          lam[j] = __fmul_rn(g, lam[j]);
-          hc[j] = hprev;
-        }
-        float* rb = red + ((t % kSub) * 2 * CH + c) * NP + n0;
-        store_vec<SPT>(rb, rbv);
-        store_vec<SPT>(rb + CH * NP, rcv);
-        px[t] = sx;
-        pt[t] = st;
-      }
-      if (t % kSub == 0) {   // dB, dC of steps t .. t + kSub - 1
-        __syncthreads();
-        for (int o = tid; o < kSub * 2 * NP; o += kThreads) {
-          const int stp = o / (2 * NP);
-          const int kind = (o / NP) & 1;
-          const int nn = o % NP;
-          const int tt = t0 + t + stp;
-          if (nn < n && t + stp < len) {
-            const float* r = red + ((stp * 2 + kind) * CH) * NP + nn;
-            float acc = 0.f;
-            for (int cc = 0; cc < valid_d; ++cc) acc = __fadd_rn(acc, r[cc * NP]);
-            float* outp = kind ? dc_part : db_part;
-            outp[(((long long)b * gridDim.x + blk) * s + tt) * n + nn] = acc;
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    int tb = 0;
-    halve<LPC / 2, kChunk / 2>(px, q, tb);
-    tb = 0;
-    halve<LPC / 2, kChunk / 2>(pt, q, tb);
-    if (d < di) {
-#pragma unroll
-      for (int i = 0; i < kOut; ++i)
-        if (tb + i < len) {
-          from_f(dxdt + (row + t0 + tb + i) * di + d, px[i]);
-          from_f(ddt + (row + t0 + tb + i) * di + d, pt[i]);
-        }
-    }
+    for (int j = 0; j < SPT; ++j) hb[j] = hn[j];
   }
 #pragma unroll
   for (int j = 0; j < SPT; ++j)
@@ -478,19 +706,22 @@ mamba_scan_bwd_kernel(const T* __restrict__ xdt, const T* __restrict__ dt,
 }
 
 // out[o, i] = sum over m of in[o, m, i], m in order (the partials' fixed
-// reduction order).
+// reduction order); rows o >= o_split go to out2 (row o - o_split).
 template <typename T>
 __global__ void __launch_bounds__(256)
-sum_middle_kernel(const float* __restrict__ in, T* __restrict__ out, int o_n,
-                  int m_n, long long i_n) {
+sum_middle_kernel(const float* __restrict__ in, T* __restrict__ out,
+                  T* __restrict__ out2, int o_split, int o_n, int m_n,
+                  long long i_n) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)o_n * i_n) return;
   const long long o = idx / i_n;
   const long long i = idx - o * i_n;
   const float* p = in + o * m_n * i_n + i;
   float acc = 0.f;
+#pragma unroll 8
   for (int m = 0; m < m_n; ++m) acc = __fadd_rn(acc, p[m * i_n]);
-  from_f(out + idx, acc);
+  if (o < o_split) from_f(out + idx, acc);
+  else from_f(out2 + (idx - o_split * i_n), acc);
 }
 
 bool aligned16(const void* p) {
@@ -531,38 +762,40 @@ int launch_bwd(const void* xdt, const void* dt, const float* a,
                const void* bm, const void* cm, const void* dy,
                const float* dh_final, const float* h_chunks, void* dxdt,
                void* ddt, float* da, void* db, void* dc, float* scratch,
-               int bsz, int s, int di, int n, cudaStream_t stream) {
-  constexpr int SPT = NP < kSpt ? NP : kSpt;
-  constexpr int LPC = NP / SPT;
-  constexpr int CH = kThreads / LPC;
-  const int n_blk = (di + CH - 1) / CH;
-  const size_t smem = (size_t)(kChunk * SPT * kThreads + kSub * 2 * CH * NP) *
-                          sizeof(float) +
-                      (size_t)(3 * kChunk * CH + 2 * kChunk * NP) * sizeof(T);
-  auto kernel = mamba_scan_bwd_kernel<T, SPT, LPC>;
+               int bsz, int s, int di, int n, cudaStream_t stream,
+               cudaEvent_t* ev) {
+  using S = BwdShape<NP>;
+  using L = BwdLayout<T, S::SPT, S::LPC, S::NT>;
+  constexpr size_t esz = sizeof(T);
+  const int n_blk = (di + S::CH - 1) / S::CH;
+  auto kernel = mamba_scan_bwd_kernel<T, S::SPT, S::LPC, S::NT>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return (int)e;
-  // scratch: da (B, Di, N), then dB and dC partials (B, n_blk, S, N) each
+  const int vec_d = S::CH * esz % 16 == 0 && di * esz % 16 == 0 &&
+                    aligned16(xdt) && aligned16(dt) && aligned16(dy);
+  const int vec_n = NP * esz % 16 == 0 && n * esz % 16 == 0 &&
+                    aligned16(bm) && aligned16(cm);
+  // scratch: da (B, Di, N), then the dB and dC partials (2, B, n_blk, S, N)
   float* da_part = scratch;
   float* db_part = da_part + (size_t)bsz * di * n;
-  float* dc_part = db_part + (size_t)bsz * n_blk * s * n;
-  kernel<<<dim3(n_blk, bsz), kThreads, smem, stream>>>(
+  if (ev) cudaEventRecord(ev[0], stream);
+  kernel<<<dim3(n_blk, bsz), S::NT, L::bytes, stream>>>(
       static_cast<const T*>(xdt), static_cast<const T*>(dt), a,
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const T*>(dy), dh_final, h_chunks, static_cast<T*>(dxdt),
-      static_cast<T*>(ddt), da_part, db_part, dc_part, s, di, n);
+      static_cast<T*>(ddt), da_part, db_part, s, di, n, vec_d, vec_n);
+  if (ev) cudaEventRecord(ev[1], stream);
   const long long sn = (long long)s * n;
-  const unsigned g_bc = (unsigned)((bsz * sn + 255) / 256);
-  if (g_bc > 0) {
-    sum_middle_kernel<T><<<g_bc, 256, 0, stream>>>(db_part, static_cast<T*>(db),
-                                                   bsz, n_blk, sn);
-    sum_middle_kernel<T><<<g_bc, 256, 0, stream>>>(dc_part, static_cast<T*>(dc),
-                                                   bsz, n_blk, sn);
-  }
+  sum_middle_kernel<T><<<(unsigned)((2 * bsz * sn + 255) / 256), 256, 0,
+                         stream>>>(db_part, static_cast<T*>(db),
+                                   static_cast<T*>(dc), bsz, 2 * bsz, n_blk,
+                                   sn);
+  if (ev) cudaEventRecord(ev[2], stream);
   const long long dn = (long long)di * n;
   sum_middle_kernel<float><<<(unsigned)((dn + 255) / 256), 256, 0, stream>>>(
-      da_part, da, 1, bsz, dn);
+      da_part, da, da, 1, 1, bsz, dn);
+  if (ev) cudaEventRecord(ev[3], stream);
   return (int)cudaGetLastError();
 }
 
@@ -579,13 +812,13 @@ int launch_n(const void* xdt, const void* dt, const float* a, const void* bm,
 }
 
 #define MS_BWD_ARGS xdt, dt, a, bm, cm, dy, dhf, hc, dx, ddt, da, db, dc, \
-    scratch, bsz, s, di, n, st
+    scratch, bsz, s, di, n, st, ev
 template <typename T>
 int launch_bwd_n(const void* xdt, const void* dt, const float* a,
                  const void* bm, const void* cm, const void* dy,
                  const float* dhf, const float* hc, void* dx, void* ddt,
                  float* da, void* db, void* dc, float* scratch, int bsz,
-                 int s, int di, int n, cudaStream_t st) {
+                 int s, int di, int n, cudaStream_t st, cudaEvent_t* ev) {
   if (n <= 1) return launch_bwd<T, 1>(MS_BWD_ARGS);
   if (n <= 2) return launch_bwd<T, 2>(MS_BWD_ARGS);
   if (n <= 4) return launch_bwd<T, 4>(MS_BWD_ARGS);
@@ -628,9 +861,7 @@ extern "C" int mamba_scan_launch(const void* xdt, const void* dt,
 // Floats of scratch mamba_scan_bwd_launch needs: da's per-batch-row
 // partials and dB / dC's per-CTA partials.
 extern "C" long long mamba_scan_bwd_scratch(int bsz, int s, int di, int n) {
-  const int np = padded_state(n);
-  const int spt = np < kSpt ? np : kSpt;
-  const int ch = kThreads / (np / spt);
+  const int ch = padded_state(n) == 32 ? BwdShape<32>::CH : kBwdChannels;
   const long long n_blk = (di + ch - 1) / ch;
   return (long long)bsz * di * n + 2LL * bsz * n_blk * s * n;
 }
@@ -640,22 +871,25 @@ extern "C" long long mamba_scan_bwd_scratch(int bsz, int s, int di, int n) {
 // the forward's inputs and its h_chunks: dxdt, ddt (B, S, Di) and db, dc
 // (B, S, N) in the inputs' type, da (Di, N) fp32; scratch holds
 // mamba_scan_bwd_scratch(...) floats. All contiguous. Deterministic (no
-// atomics; fixed-order sums). Returns cudaGetLastError(), or -1 for N
-// outside [1, 32].
+// atomics; fixed-order sums). events, when not null, holds 4 CUDA events
+// recorded on the stream before the main kernel and after it, the dB / dC
+// sum and the da sum. Returns cudaGetLastError(), or -1 for N outside
+// [1, 32].
 extern "C" int mamba_scan_bwd_launch(
     const void* xdt, const void* dt, const float* a, const void* bm,
     const void* cm, const void* dy, const float* dh_final,
     const float* h_chunks, void* dxdt, void* ddt, float* da, void* db,
     void* dc, float* scratch, int is_bf16, int bsz, int s, int di, int n,
-    void* stream) {
+    void* stream, void* const* events) {
   if (n < 1 || n > kMaxN) return -1;
   if (bsz == 0 || di == 0 || s == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
+  cudaEvent_t* ev = events ? (cudaEvent_t*)events : nullptr;
   if (is_bf16)
     return launch_bwd_n<__nv_bfloat16>(xdt, dt, a, bm, cm, dy, dh_final,
                                        h_chunks, dxdt, ddt, da, db, dc,
-                                       scratch, bsz, s, di, n, st);
+                                       scratch, bsz, s, di, n, st, ev);
   return launch_bwd_n<float>(xdt, dt, a, bm, cm, dy, dh_final, h_chunks,
                              dxdt, ddt, da, db, dc, scratch, bsz, s, di, n,
-                             st);
+                             st, ev);
 }

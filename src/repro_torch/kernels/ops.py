@@ -279,8 +279,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do`` and the forward's log-sum-exp ``lse`` (fp32 (B, Hq, Sq)); dk
     and dv sum each kv head's group. Same shapes, dtypes and card limits
     as ``flash_attention``; ``do`` is copied to a contiguous tensor when
-    the kernel cannot read it in place. One launch (three kernels), no
-    atomics: the same bits run to run."""
+    the kernel cannot read it in place. One launch (three or four
+    kernels), no atomics: the same bits run to run."""
     name = "flash_attention_bwd"
     _require(o.shape == do.shape == q.shape and o.dtype == do.dtype
              == q.dtype, name, "o and do must match q's shape and dtype")

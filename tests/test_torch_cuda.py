@@ -1055,6 +1055,25 @@ def test_flash_attention_bwd_bf16_tiles(cuda, b, hq, hkv, sq, sk, d, causal):
                   sq * 1000 + sk)
 
 
+# bf16 at the edges of the wgmma kernels' tiles: 64-row q tiles and
+# 128-key blocks (dK / dV), 128-row blocks and 64-key tiles (dQ), one past
+# and one short of each; groups 1, 5 and 8; D 32 (mma.sync), 64 and 128;
+# Sq > Sk (non-causal: the plain version's output is NaN on a causal row
+# with no key); and a grid of 256 dK / dV CTAs, which is not split
+_FA_BWD_TILE_EDGES = [
+    (1, 5, 1, 129, 129, 128, True), (1, 8, 1, 127, 127, 64, True),
+    (2, 2, 2, 65, 191, 128, True), (1, 5, 1, 63, 257, 64, False),
+    (1, 8, 1, 129, 63, 128, False), (1, 5, 1, 127, 129, 32, True),
+    (1, 8, 2, 64, 128, 128, True), (2, 16, 16, 1024, 1024, 128, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", _FA_BWD_TILE_EDGES)
+def test_flash_attention_bwd_wgmma_tile_edges(cuda, b, hq, hkv, sq, sk, d,
+                                              causal):
+    _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, torch.bfloat16, causal,
+                  sq * 7 + sk)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_attention_autograd_takes_the_kernels(cuda, dt):
     """The model's transposed (B, S, H, D) views through autograd: one
@@ -1087,7 +1106,11 @@ _MS_CASES = [
     (1, 1, 200, 16, torch.float32), (1, 31, 200, 16, torch.bfloat16),
     (2, 33, 200, 16, torch.float32), (1, 33, 72, 16, torch.bfloat16),
     (1, 2049, 200, 16, torch.float32), (1, 2049, 200, 16, torch.bfloat16),
-    (1, 31, 100, 8, torch.float32), (1, 2049, 40, 32, torch.bfloat16)]
+    (1, 31, 100, 8, torch.float32), (1, 2049, 40, 32, torch.bfloat16),
+    # Di off the backward's 64-channel blocks (16 at N = 32), S one past
+    # and one short of its 16-step halves and 32-step chunks
+    (1, 17, 65, 16, torch.float32), (2, 15, 127, 16, torch.bfloat16),
+    (1, 47, 130, 32, torch.float32), (1, 33, 70, 8, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,s,di,n,dt", _MS_CASES)

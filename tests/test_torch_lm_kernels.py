@@ -119,6 +119,67 @@ def test_kernel_numerics_stay_within_the_card_tolerance(
     assert err <= _KERNEL_TOL[dtype] * float(want.float().abs().max()), err
 
 
+def _emulate_bwd(q, k, v, do, causal):
+    """The bf16 backward kernels' numerics in PyTorch, on the emulated
+    forward's bf16 output and its fp32 log-sum-exp: fp32 products of the
+    bf16 inputs, P = exp2(S·scale·log2(e) − L·log2(e)), Dv = rowsum(dO ∘
+    O) in fp32, P rounded to bf16 before dV = Pᵀ dO, dS = P ∘ (dP − Dv)
+    rounded to bf16 before dQ = dS K and dK = dSᵀ Q, the group's q heads
+    summed in fp32, each gradient rounded to bf16 once."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / np.sqrt(d)
+    log2e = 1.4426950408889634
+    o = _emulate_kernel(q, k, v, causal, round_p=True)
+    qf, dof, of = q.float(), do.float(), o.float()
+    kx = k.repeat_interleave(group, 1).float()
+    vx = v.repeat_interleave(group, 1).float()
+    s = qf @ kx.transpose(-1, -2)
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + sk - sq
+    lse = torch.logsumexp(torch.where(keep, s * scale, -np.inf), -1)
+    l2 = torch.where(torch.isfinite(lse), lse * log2e, np.inf)
+    p = torch.where(keep, torch.exp2(s * (scale * log2e) - l2[..., None]),
+                    0.0)
+    dvec = (dof * of).sum(-1, keepdim=True)
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    ds = (p * (dof @ vx.transpose(-1, -2) - dvec)).bfloat16().float()
+    dq = ds @ kx * scale
+    dk = ds.transpose(-1, -2) @ qf * scale
+    dk = dk.reshape(b, hkv, group, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, group, sk, d).sum(2)
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    # chip_smoke.py's backward case with the heads cut 40/8 → 5/1 and the
+    # lengths 2048 → 256, causal; Sq < Sk; the non-causal card case
+    (1, 5, 1, 256, 256, 128, True),
+    (1, 5, 1, 129, 256, 64, True),
+    (2, 6, 3, 77, 77, 128, False)])
+def test_bwd_kernel_numerics_stay_within_the_card_tolerance(
+        b, hq, hkv, sq, sk, d, causal):
+    """The bf16 backward rounds P and dS to bf16 before their products and
+    each gradient once; on chip_smoke's inputs (standard normal q, k, v,
+    dO, made with numpy) that stays inside the card's 2⁻⁷·max of the
+    JAX package's vjp of its reference attention, for each gradient."""
+    import jax
+    rng = np.random.default_rng(21)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16() for shape in (
+        (b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)))
+    got = _emulate_bwd(q, k, v, do, causal)
+    x = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+    _, vjp = jax.vjp(lambda *a: jref.flash_attention(*a, causal=causal), *x)
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= _KERNEL_TOL[torch.bfloat16] * float(np.abs(w).max()), err
+
+
 def _scan_inputs(rng, b, s, di, n):
     xdt = rng.standard_normal((b, s, di)).astype(np.float32)
     dt = np.abs(rng.standard_normal((b, s, di))).astype(np.float32) * 0.1
@@ -200,6 +261,101 @@ def test_scan_kernel_y_order_stays_within_the_card_tolerance():
     err = float((got_y - want_y).abs().max())
     assert err <= _KERNEL_TOL[torch.float32] * float(want_y.abs().max()), err
     np.testing.assert_allclose(got_h.numpy(), want_h.numpy(), atol=ATOL)
+
+
+def _fma(x, y, z):
+    """fp32 fma: one rounding of the exact x·y + z (float64 holds it)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _lane_tree(x):
+    """The backward's butterfly over the 8 lanes of a channel (the last
+    axis, one value a lane): ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 +
+    x7))."""
+    x = x[..., :4] + x[..., 4:]
+    x = x[..., :2] + x[..., 2:]
+    return x[..., 0] + x[..., 1]
+
+
+def _channel_sum(v, warps=16, per_warp=4):
+    """dB / dC's order over the channels (axis 1): a warp's 4 channels in
+    its butterfly, (v0 + v2) + (v1 + v3); the 64-channel CTA's 16 warps in
+    order; then the CTAs' partials in order from 0, as the sum kernel adds
+    them."""
+    bsz, di, n = v.shape
+    w = v.reshape(bsz, di // (warps * per_warp), warps, per_warp, n)
+    w = (w[:, :, :, 0] + w[:, :, :, 2]) + (w[:, :, :, 1] + w[:, :, :, 3])
+    acc = w[:, :, 0]
+    for i in range(1, warps):
+        acc = acc + w[:, :, i]
+    total = torch.zeros((bsz, n))
+    for i in range(acc.shape[1]):
+        total = total + acc[:, i]
+    return total
+
+
+def _emulate_scan_bwd(xdt, dt, a, b, c, dy):
+    """The backward kernel's numerics at N = 16 in PyTorch: the forward's
+    states, the adjoint's fmas and products as the kernel rounds them, a
+    thread's 2 states summed by an fma chain and the channel's 8 lanes by
+    ``_lane_tree`` (dxdt, ddt), dB / dC in ``_channel_sum``'s order, da an
+    fma chain over time a batch row, then the rows in order."""
+    bsz, s, di = xdt.shape
+    h = torch.zeros((bsz, di, a.shape[1]))
+    hs = []
+    for t in range(s):
+        g = torch.exp(dt[:, t, :, None] * a)
+        h = _fma(g, h, xdt[:, t, :, None] * b[:, t, None, :])
+        hs.append(h)
+    lam = torch.zeros_like(h)
+    dak = torch.zeros_like(h)
+    dx, ddt = torch.zeros_like(xdt), torch.zeros_like(xdt)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    zero = torch.zeros((bsz, di, 8))
+    for t in reversed(range(s)):
+        lam = _fma(dy[:, t, :, None], c[:, t, None, :], lam)
+        hprev = hs[t - 1] if t else torch.zeros_like(h)
+        g = torch.exp(dt[:, t, :, None] * a)
+        dg = (lam * hprev) * g
+        bt = b[:, t, None, :].expand_as(lam)
+        sx = _fma(lam[..., 1::2], bt[..., 1::2],
+                  _fma(lam[..., 0::2], bt[..., 0::2], zero))
+        st = _fma(dg[..., 1::2], a[None, :, 1::2].expand_as(sx),
+                  _fma(dg[..., 0::2], a[None, :, 0::2].expand_as(sx), zero))
+        dx[:, t], ddt[:, t] = _lane_tree(sx), _lane_tree(st)
+        dak = _fma(dg, dt[:, t, :, None].expand_as(dg), dak)
+        db[:, t] = _channel_sum(lam * xdt[:, t, :, None])
+        dc[:, t] = _channel_sum(dy[:, t, :, None] * hs[t])
+        lam = g * lam
+    da = torch.zeros_like(a)
+    for i in range(bsz):
+        da = da + dak[i]
+    return dx, ddt, da, db, dc
+
+
+def test_scan_bwd_summation_order_stays_within_the_card_tolerance():
+    """The backward kernel sums dxdt / ddt over a channel's lanes, dB / dC
+    over the channels (a warp's butterfly, the CTA's warps, the CTAs) and
+    da over time and the batch in other orders than ``plain_bwd``; on
+    chip_smoke.py's inputs (A = −(1..N), a softplus-sized dt, made with
+    numpy) at the training microbatch's B = 2 and N = 16, four CTAs of 64
+    channels and 256 steps, every gradient stays inside the card's
+    5e-5·max|plain|."""
+    rng = np.random.default_rng(22)
+    b, s, di, n = 2, 256, 256, 16
+    xdt, dy = (torch.from_numpy(rng.standard_normal((b, s, di)).astype(
+        np.float32)) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, di)).astype(np.float32)) - 4.6)
+    a = -torch.arange(1, n + 1, dtype=torch.float32).expand(di, n)
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, s, n)).astype(
+        np.float32)) for _ in range(2))
+    got = _emulate_scan_bwd(xdt, dt, a, bm, cm, dy)
+    want = ref.mamba_scan_bwd(xdt, dt, a, bm, cm, dy)
+    for g, w, name in zip(got, want, ("dxdt", "ddt", "da", "db", "dc")):
+        err = float((g - w).abs().max())
+        assert err <= _KERNEL_TOL[torch.float32] * float(w.abs().max()), \
+            (name, err)
 
 
 def test_bf16_inputs_keep_their_dtype_on_the_plain_path(rng):
