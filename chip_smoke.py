@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's batch FAST detection, streaming detection,
-offline Min-Max LSH search, LM serving, detection serving, detector
-snapshots, elastic pool membership, the location / magnitude tier and LM
-training on one NVIDIA GPU, end to end.
+offline Min-Max LSH search, LM serving (every LM family), detection
+serving, detector snapshots, elastic pool membership, the location /
+magnitude tier and LM training on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -91,7 +91,11 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
 13. The LM kernels against their plain versions on the card, timed and
     bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
     40 / 8 heads, 2048 × 2048, D = 128, bf16, causal), plus Sq < Sk, a
-    ragged 1000 × 1000 and an fp32 case; ``mamba_scan`` at
+    ragged 1000 × 1000 and an fp32 case, and at the other families'
+    2048-token prefills (heads / kv heads / D: yi-9b 32 / 4 / 128,
+    codeqwen1.5-7b 32 / 32 / 128, command-r-35b 64 / 8 / 128, the two MoE
+    16 / 16 / 128, musicgen-large and zamba2-1.2b 32 / 32 / 64,
+    internvl2-1b 14 / 2 / 64); ``mamba_scan`` at
     falcon-mamba-7b's (B = 1, S = 2048, Di = 8192, N = 16, fp32).
     Tolerance max abs err ≤ 5e-5·max|plain| in fp32 (summation order, the
     online-softmax rescale) and ≤ 2⁻⁷·max|plain| for a bf16 output (one
@@ -101,18 +105,25 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     ``haar2d_rate``). ``mamba_scan``'s bound counts its exponentials on
     the SFU (16 a clock an SM) beside its bytes and fp32 operations.
 14. LM parity: ``ServeEngine`` on the card against the port's CPU path on
-    the fp32 variants of the default smoke model and the qwen2.5-14b and
-    falcon-mamba-7b smoke configs, same parameters, 4 requests: equal
-    token lists, prefill logits within 1e-4·max|logit|.
-15. LM serving at full width: ``qwen25_14b.config()`` and
-    ``falcon_mamba_7b.config()`` with every width unchanged and
-    ``n_layers`` cut to 4, bf16 parameters made on the card by
-    ``init_params`` (seed 0), ``ServeEngine(n_slots=4, max_len=2560)``
-    answering 8 requests (prompts of 512–2048 tokens, 32 new tokens each)
-    after a warm-up run of the same prompts, launch counters zeroed just
-    before and read just after:
-    ``flash_attention`` (qwen) and ``mamba_scan`` (falcon-mamba) launch
-    exactly once per layer per request.
+    the fp32 variants of the default smoke model and the ten LM archs'
+    smoke configs (command-r-35b's with 4 / 2 heads, ``LM_PARITY_CHANGES``:
+    its head dim 16 is outside the kernel's), same parameters, 4
+    requests: equal token lists, prefill logits within 1e-4·max|logit|
+    (internvl2-1b's also on a prompt with ``patch_embeds``), and for the
+    two MoE archs the prefills' routed expert ids equal.
+15. LM serving at full width: every LM arch's ``config()`` with every
+    width unchanged, ``n_layers`` cut to 4 but for zamba2-1.2b (38
+    layers: 6 shared-attention groups and a tail of 2) and internvl2-1b
+    (24), which run whole (``LM_SERVE_MODELS``), bf16 parameters made on
+    the card by ``init_params`` (seed 0), ``ServeEngine(n_slots=4,
+    max_len=2560)`` answering 8 requests (prompts of 512–2048 tokens, 32
+    new tokens each) after a warm-up run of the same prompts, launch
+    counters zeroed just before and read just after: ``mamba_scan``
+    (falcon-mamba) exactly once per layer per request, ``flash_attention``
+    once per attention layer per request (zamba2: per shared block, 6 ×
+    8). Tokens/s, prefill and decode walls, peak memory, parameter bytes,
+    and for the MoE archs the share of the prefills' routed (token, slot)
+    pairs that capacity dropped.
 16. Detection serving at full width over phase 7's pool (4 stations ×
     24 h, taken through ``pool_serving_state()``), ``serve_config()`` (32
     slots, queue 1,024, top-k 64): 64 request windows of 60 s starting on
@@ -233,7 +244,8 @@ four kernels of the detection core, each with the batch replay's count
 (phase 5) beside it under ``launches_by_path``; the offline search (phase
 11) for ``minmax_hash``; the LM serve runs (phase 15) for
 ``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b),
-each also with the training run's count under ``launches_by_path``; the
+each also with the training run's count under ``launches_by_path`` and
+every serve run's under ``launches_by_model``; the
 training runs (phase 26) for ``flash_attention_bwd`` and
 ``mamba_scan_bwd``.
 The serving phase's counts stand beside them under ``launches_by_path``
@@ -242,6 +254,7 @@ also carry their error, time, bound and library time at the serving
 shapes (``serving_shape``), and so do the located paths' (phases 18, 19,
 21 and 22: ``elastic``, ``located_batch``, ``located_stream``,
 ``serve_locate``) for the kernels each runs.
+Before them it prints the script's seconds (``chip_smoke_seconds``).
 Without CUDA it exits 2 and prints no result. Writes
 ``chiprun_out/chip_smoke.json`` with everything printed.
 """
@@ -327,6 +340,21 @@ SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # bf16 before P·V (at most ~2⁻⁹·max|v|)
 LM_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
 LM_SERVE_LAYERS = 4
+# phase 15's models: (arch, n_layers cut to LM_SERVE_LAYERS), the kernel
+# of each model's layers; zamba2-1.2b runs whole (a 4-layer cut has no
+# shared-attention group at shared_attn_every = 6) and so does
+# internvl2-1b (small enough)
+LM_SERVE_MODELS = (("qwen2.5-14b", True), ("falcon-mamba-7b", True),
+                   ("yi-9b", True), ("codeqwen1.5-7b", True),
+                   ("musicgen-large", True), ("command-r-35b", True),
+                   ("deepseek-moe-16b", True),
+                   ("moonshot-v1-16b-a3b", True), ("zamba2-1.2b", False),
+                   ("internvl2-1b", False))
+# phase 14's change to a smoke config: command-r-35b-smoke's head dim is
+# 128 / 8 = 16, outside the flash_attention kernel's HEAD_DIMS; with 4 /
+# 2 heads it is 32 (the CPU tests hold the smoke config as it is)
+LM_PARITY_CHANGES = {"command-r-35b-smoke": {"n_heads": 4,
+                                             "n_kv_heads": 2}}
 # full-width training (phase 26): n_layers cut to 4 as the serve phase
 # cuts it, seq 2048, (global batch, microbatches) per model, timed steps
 # after one warm-up step
@@ -2186,13 +2214,23 @@ def lm_kernel_phase(dev) -> list[dict]:
     out = []
 
     # --- flash_attention: (B, Hq, Hkv, Sq, Sk, D, dtype), the first is
-    # qwen2.5-14b's 2048-token prefill, the one the kernels line reports
+    # qwen2.5-14b's 2048-token prefill, the one the kernels line reports;
+    # then the other families' 2048-token prefills (model, the heads and
+    # head dim of their attention layers)
     cases = [(1, 40, 8, 2048, 2048, 128, torch.bfloat16),
              (1, 40, 8, 512, 2048, 128, torch.bfloat16),
              (1, 40, 8, 1000, 1000, 128, torch.bfloat16),
              (1, 40, 8, 2048, 2048, 128, torch.float32)]
+    family_cases = {"yi-9b": (32, 4, 128), "codeqwen1.5-7b": (32, 32, 128),
+                    "command-r-35b": (64, 8, 128),
+                    "deepseek-moe-16b / moonshot-v1-16b-a3b": (16, 16, 128),
+                    "musicgen-large / zamba2-1.2b": (32, 32, 64),
+                    "internvl2-1b": (14, 2, 64)}
+    cases += [(1, hq, hkv, 2048, 2048, d, torch.bfloat16)
+              for hq, hkv, d in family_cases.values()]
+    models = ["qwen2.5-14b"] * 4 + list(family_cases)
     runs = []
-    for b, hq, hkv, sq, sk, d, dt in cases:
+    for (b, hq, hkv, sq, sk, d, dt), model in zip(cases, models):
         q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
         k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
         v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
@@ -2208,7 +2246,8 @@ def lm_kernel_phase(dev) -> list[dict]:
                               else FP32_OPS_PER_S)
         ms = _time_ms(lambda: ops.flash_attention(q, k, v))
         runs.append({
-            "shape": [b, hq, hkv, sq, sk, d], "dtype": str(dt)[6:],
+            "model": model, "shape": [b, hq, hkv, sq, sk, d],
+            "dtype": str(dt)[6:],
             "causal_pairs": pairs, "max_abs_err": err, "ms": ms,
             "tflop_s": 4 * b * hq * d * pairs / ms * 1e-9,
             "ms_unprimed": _time_ms(lambda: ops.flash_attention(q, k, v),
@@ -2221,8 +2260,8 @@ def lm_kernel_phase(dev) -> list[dict]:
             if sq == sk else None})
         del q, k, v
     print("flash_attention_rate", json.dumps([
-        {key: r[key] for key in ("shape", "dtype", "ms", "tflop_s",
-                                 "ms_unprimed")}
+        {key: r[key] for key in ("model", "shape", "dtype", "ms", "tflop_s",
+                                 "ms_unprimed", "library_ms")}
         for r in runs]), flush=True)
     main = runs[0]
     out.append({"name": "flash_attention", "route": "cuda",
@@ -2267,14 +2306,48 @@ def lm_kernel_phase(dev) -> list[dict]:
 
 
 def _lm_smoke_configs():
+    """The fp32 variants of the launcher's smoke model and of every LM
+    arch's smoke config, with ``LM_PARITY_CHANGES`` applied."""
     import dataclasses
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import LM_ARCHS, get_smoke_config
     from repro_torch.launch.serve import default_smoke_model
     f32 = dict(param_dtype="float32", compute_dtype="float32",
                cache_dtype="float32")
-    return [dataclasses.replace(c, **f32) for c in (
-        default_smoke_model(), get_smoke_config("qwen2.5-14b"),
-        get_smoke_config("falcon-mamba-7b"))]
+    out = []
+    for c in [default_smoke_model()] + [get_smoke_config(a)
+                                        for a in LM_ARCHS]:
+        out.append(dataclasses.replace(
+            c, **f32, **LM_PARITY_CHANGES.get(c.name, {})))
+    return out
+
+
+class _RecordRoutes:
+    """Within the ``with``: every MoE routing's expert ids (T, k), in call
+    order (``layers._route`` wrapped; the tensors stay where they are).
+    Instrumentation of this script only: the model code is untouched."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.ids, self._route = [], L._route
+
+        def route(h2, router_w, cfg):
+            out = self._route(h2, router_w, cfg)
+            self.ids.append(out[0])
+            return out
+
+        L._route = route
+        return self.ids
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L._route = self._route
+
+
+def _attn_layers(cfg) -> int:
+    """The layers that run the flash_attention kernel in a prefill."""
+    if cfg.shared_attn_every:
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers if cfg.block_kind == "attn" else 0
 
 
 def _tree_to(tree: dict, dev) -> dict:
@@ -2287,7 +2360,9 @@ def _tree_to(tree: dict, dev) -> dict:
 def lm_parity_phase(dev) -> dict:
     """``ServeEngine`` on the card against the port's CPU path (which
     ``tests/test_torch_serve.py`` holds to the JAX package), fp32 smoke
-    configs, the same parameters and requests."""
+    configs, the same parameters and requests; the prefill logits, and
+    for MoE the prefills' routed expert ids, on the same prompts (the
+    patch frontend's prefill also on a prompt with ``patch_embeds``)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import Request, ServeEngine
@@ -2298,20 +2373,39 @@ def lm_parity_phase(dev) -> dict:
         rng = np.random.default_rng(0)
         prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 17)))
                    .astype(np.int32) for _ in range(4)]
+        batches = [{"tokens": pr[None]} for pr in prompts]
+        if cfg.frontend == "patch":
+            batches.append({
+                "tokens": rng.integers(1, cfg.vocab_size, (1, 24)).astype(
+                    np.int32),
+                "patch_embeds": rng.standard_normal(
+                    (1, cfg.n_patches, cfg.d_model)).astype(np.float32)})
         runs = []
         for d in (dev, torch.device("cpu")):
             p = _tree_to(params, d)
             reqs = [Request(i, pr, 8) for i, pr in enumerate(prompts)]
             stats = ServeEngine(cfg, n_slots=2, max_len=64, params=p).run(
                 reqs)
-            logits = torch.stack([prefill(p, {"tokens": torch.as_tensor(
-                pr[None], device=d)}, cfg)[0][0].cpu() for pr in prompts])
-            runs.append(([r.out for r in reqs], stats["ticks"], logits))
+            with _RecordRoutes() as routes:
+                logits = torch.stack([prefill(p, {
+                    k: torch.as_tensor(v, device=d) for k, v in b.items()},
+                    cfg)[0][0].cpu() for b in batches])
+            runs.append(([r.out for r in reqs], stats["ticks"], logits,
+                         [r.cpu() for r in routes]))
         err = float((runs[0][2] - runs[1][2]).abs().max())
         out[cfg.name] = {"tokens": runs[0][0], "ticks": runs[0][1],
                          "tokens_equal_cpu": runs[0][:2] == runs[1][:2],
                          "prefill_logit_max_abs_err": err,
-                         "max_abs_logit": float(runs[1][2].abs().max())}
+                         "max_abs_logit": float(runs[1][2].abs().max()),
+                         "prefill_batches": len(batches)}
+        if cfg.name in LM_PARITY_CHANGES:
+            out[cfg.name]["changed"] = LM_PARITY_CHANGES[cfg.name]
+        if cfg.is_moe:
+            card, cpu = runs[0][3], runs[1][3]
+            out[cfg.name]["routings"] = len(cpu)
+            out[cfg.name]["routed_pairs"] = sum(r.numel() for r in cpu)
+            out[cfg.name]["expert_ids_equal_cpu"] = len(card) == len(cpu) \
+                and all(torch.equal(a, b) for a, b in zip(card, cpu))
     print("lm_parity", json.dumps(out), flush=True)
     for name, r in out.items():
         _need(r["tokens_equal_cpu"],
@@ -2319,24 +2413,34 @@ def lm_parity_phase(dev) -> dict:
         _need(r["prefill_logit_max_abs_err"] <= 1e-4 * r["max_abs_logit"],
               f"LM parity {name}: prefill logits differ by "
               f"{r['prefill_logit_max_abs_err']}")
+        _need(r.get("expert_ids_equal_cpu", True),
+              f"LM parity {name}: the card routes tokens to other experts")
     return out
 
 
 def lm_serve_phase(dev) -> dict:
-    """qwen2.5-14b and falcon-mamba-7b at full width (n_layers cut to 4)
-    serving 8 requests each, launches counted around each run."""
+    """Every LM arch at full width (``LM_SERVE_MODELS``: n_layers cut to 4
+    but for zamba2-1.2b and internvl2-1b) serving 8 requests each,
+    launches counted around each run; for MoE, the share of the prefills'
+    routed (token, slot) pairs that capacity dropped."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs import falcon_mamba_7b, qwen25_14b
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import init_params
-    n_req, max_new = 8, 32
+    from repro_torch.models import layers as L
+    n_req, max_new, n_slots = 8, 32, 4
     out = {}
-    for full, kernel in ((qwen25_14b.config(), "flash_attention"),
-                         (falcon_mamba_7b.config(), "mamba_scan")):
-        cfg = dataclasses.replace(full, n_layers=LM_SERVE_LAYERS)
+    for arch, cut in LM_SERVE_MODELS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=LM_SERVE_LAYERS) if cut \
+            else full
+        kernel = "mamba_scan" if cfg.block_kind == "mamba1" \
+            else "flash_attention"
+        want = (cfg.n_layers if kernel == "mamba_scan"
+                else _attn_layers(cfg)) * n_req
         torch.cuda.empty_cache()
         params = init_params(cfg, 0, dev)
         torch.cuda.synchronize()
@@ -2349,23 +2453,33 @@ def lm_serve_phase(dev) -> dict:
         # warm-up: every prompt length once, so the timed run below pays
         # no first-use costs (library handles, per-shape GEMM choices)
         t0 = time.perf_counter()
-        ServeEngine(cfg, n_slots=4, max_len=2560, params=params).run(
+        ServeEngine(cfg, n_slots=n_slots, max_len=2560, params=params).run(
             [Request(i, q.prompt, 2) for i, q in enumerate(reqs)])
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        eng = ServeEngine(cfg, n_slots=4, max_len=2560, params=params)
+        eng = ServeEngine(cfg, n_slots=n_slots, max_len=2560, params=params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        stats = eng.run(reqs)
+        with _RecordRoutes() as routes:
+            stats = eng.run(reqs)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
-        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
-             "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                        "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
-                        "d_ff": cfg.d_ff, "d_inner": cfg.d_inner,
-                        "ssm_state": cfg.ssm_state,
-                        "vocab_size": cfg.vocab_size},
+        widths = {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                  "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+                  "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size}
+        if cfg.is_moe:
+            widths.update(n_experts=cfg.n_experts, moe_top_k=cfg.moe_top_k,
+                          expert_ff=cfg.expert_ff,
+                          n_shared_experts=cfg.n_shared_experts)
+        if cfg.block_kind != "attn":
+            widths.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state)
+        if cfg.block_kind == "mamba2":
+            widths.update(ssm_heads=cfg.ssm_heads,
+                          ssm_head_dim=cfg.ssm_head_dim,
+                          shared_attn_every=cfg.shared_attn_every)
+        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]}
+             if cut else {}, "widths": widths,
              "prompt_lens": [int(n) for n in lens], "max_new": max_new,
              "warmup_s": warm_s,
              "wall_s": stats["wall_s"], "prefill_s": stats["prefill_s"],
@@ -2376,15 +2490,27 @@ def lm_serve_phase(dev) -> dict:
              "param_bytes": sum(t.numel() * t.element_size()
                                 for t in _leaves(params)),
              "launches": launches}
+        if cfg.is_moe:
+            # the decode steps route n_slots tokens, the prefills their
+            # prompts' 512-2048
+            kept = dropped = 0
+            for ids in routes:
+                if ids.shape[0] == n_slots:
+                    continue
+                rank = L._rank_within_expert(ids.reshape(-1), cfg.n_experts)
+                n_drop = int((rank >= L._capacity(ids.shape[0], cfg)).sum())
+                dropped += n_drop
+                kept += ids.numel() - n_drop
+            r["prefill_routed_pairs"] = kept + dropped
+            r["prefill_dropped_share"] = dropped / (kept + dropped)
         print("lm_serve", cfg.name, json.dumps(r), flush=True)
         _need(all(q.done and len(q.out) == max_new + 1 for q in reqs),
               f"{cfg.name}: a request was not served in full")
-        want = cfg.n_layers * n_req
         _need(launches[kernel] == want,
               f"{cfg.name}: {kernel} launched {launches[kernel]} times, not "
-              f"{want} (n_layers x requests)")
+              f"{want} (its layers x requests)")
         out[full.name] = r
-        del eng, params
+        del eng, params, routes
     return out
 
 
@@ -2930,6 +3056,7 @@ def _device_breakdown(prof, wall: float, name: str) -> dict:
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3019,13 +3146,22 @@ def main() -> int:
             k["launches_by_path"] = {
                 path: report[path][LM_KERNEL_MODEL[k["name"]]]["launches"][
                     k["name"]] for path in ("lm_serve", "lm_train")}
+        if k["name"] in ("flash_attention", "mamba_scan"):
+            # every serve run's count, by model
+            k["launches_by_model"] = {
+                m: r["launches"][k["name"]]
+                for m, r in report["lm_serve"].items()
+                if r["launches"].get(k["name"])}
     report["kernels"] = kernels
     # the Min-Max kernels also carry the plan of each shape they ran at,
     # the detection core's kernels their launches on each driver's path
     line = [{**{key: k[key] for key in KERNEL_KEYS},
              **{x: k[x] for x in ("plans", "launches_by_path",
-                                  "serving_shape") if x in k}}
+                                  "launches_by_model", "serving_shape")
+                if x in k}}
             for k in kernels]
+    report["seconds"] = time.perf_counter() - t_start
+    print("chip_smoke_seconds", json.dumps(report["seconds"]), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=float))

@@ -1,26 +1,28 @@
 """Configurations of the port (the reference's widths) and the LM
 architecture registry: ``--arch <id>`` → config / smoke config.
 
-The registry names every architecture of ``repro.configs``. The port
-serves the dense GQA transformer (``qwen2.5-14b``) and Mamba1
-(``falcon-mamba-7b``) so far; the other LM architectures raise
-``NotImplementedError`` until ROADMAP queue 1 item 2 ports their families.
+The registry names every architecture of ``repro.configs``, and the port
+builds, serves and trains each of the ten LM architectures: the dense GQA
+transformers (qwen2.5-14b, yi-9b, codeqwen1.5-7b, musicgen-large), the
+parallel attention + MLP block (command-r-35b), MoE (deepseek-moe-16b,
+moonshot-v1-16b-a3b), Mamba1 (falcon-mamba-7b), the Mamba2 + shared
+attention hybrid (zamba2-1.2b) and the patch frontend (internvl2-1b).
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
-    "musicgen-large": None,
-    "codeqwen1.5-7b": None,
-    "yi-9b": None,
-    "command-r-35b": None,
+    "musicgen-large": "musicgen_large",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "yi-9b": "yi_9b",
+    "command-r-35b": "command_r_35b",
     "qwen2.5-14b": "qwen25_14b",
     "falcon-mamba-7b": "falcon_mamba_7b",
-    "internvl2-1b": None,
-    "deepseek-moe-16b": None,
-    "moonshot-v1-16b-a3b": None,
-    "zamba2-1.2b": None,
+    "internvl2-1b": "internvl2_1b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "fast_seismic": "fast_seismic",
 }
 
@@ -31,10 +33,6 @@ ALL_ARCHS = list(_MODULES)
 def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ALL_ARCHS}")
-    if _MODULES[arch] is None:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP queue 1 item 2 (the "
-            f"remaining LM families) brings it to repro_torch")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
@@ -44,4 +42,3 @@ def get_config(arch: str):
 
 def get_smoke_config(arch: str):
     return _mod(arch).smoke_config()
-

@@ -4,11 +4,18 @@ The counterpart of ``repro.launch.serve``: requests queue up, prefill
 fills empty slots one sequence at a time, one decode step advances all
 slots each tick, and finished sequences (max tokens or a full cache) are
 evicted and replaced. Per-slot positions live in the decode cache's
-``pos`` vector. Prefill goes through the ``flash_attention`` /
-``mamba_scan`` kernels (once per layer per request) on the card.
+``pos`` vector. Every LM architecture of the registry serves; prefill
+goes through the ``flash_attention`` kernel once per attention layer (the
+hybrid's shared blocks included) and ``mamba_scan`` once per Mamba1
+layer, per request, on the card. Requests carry tokens only, as the
+reference's engine takes them (the patch frontend's ``patch_embeds`` go
+through ``models.prefill`` / ``forward``).
 
-Usage (the card by default; ``--device cpu`` runs the plain versions):
+Usage (the card by default; ``--device cpu`` runs the plain versions;
+``--arch`` takes the arch's smoke config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smoke --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from repro_torch import utils
 from repro_torch.configs import LM_ARCHS, get_smoke_config
 from repro_torch.models import (ModelConfig, decode_step, init_cache,
                                 init_params, prefill)
+from repro_torch.models.decoder import SEQ_CACHES
 
 
 def default_smoke_model() -> ModelConfig:
@@ -72,7 +80,9 @@ class ServeEngine:
         self.prefill_s = 0.0
 
     def _prefill_slot(self, slot: int, req: Request):
-        """Single-sequence prefill → copy KV/state into the slot."""
+        """Single-sequence prefill → copy KV/state into the slot: the
+        sequence caches (``SEQ_CACHES``) into its first S positions with
+        zeros after them, the SSM states whole."""
         t0 = time.perf_counter()
         toks = torch.as_tensor(req.prompt[None, :].astype(np.int32),
                                device=self.device)
@@ -81,7 +91,7 @@ class ServeEngine:
         for k, dst in self.cache.items():
             if k == "pos":
                 dst[slot] = s
-            elif k in ("k", "v"):          # (L, B, max_len, Hkv, hd)
+            elif k in SEQ_CACHES:          # (L, B, max_len, Hkv, hd)
                 dst[:, slot, :s] = cache1[k][:, 0]
                 dst[:, slot, s:] = 0
             else:                          # conv / ssm states

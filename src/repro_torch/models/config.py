@@ -5,8 +5,7 @@ experts), Mamba1/Mamba2 SSMs, and Zamba2-style hybrids with a shared
 attention block; modality frontends (ViT patches / EnCodec tokens) are
 stubs whose precomputed embeddings arrive as inputs. The fields and their
 defaults are those of ``repro.models.config``; ``cdtype`` / ``pdtype``
-are ``torch.dtype``s. The port runs ``attn`` (dense) and ``mamba1``
-stacks so far (``models.decoder`` raises for the rest).
+are ``torch.dtype``s.
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
 """The decoder: parameters, training forward and loss, decode cache,
-prefill, decode step.
+prefill, decode step, for every LM family of the registry.
 
-The counterpart of ``repro.models.decoder`` for the dense GQA transformer
-(``block_kind="attn"``) and Mamba1 (``"mamba1"``). Parameters are a nested
-dict of tensors with the reference's keys and layouts, the layers stacked
-along a leading L dim; a Python loop over layers stands in for
-``lax.scan``. Prefill and the training forward run the ``flash_attention``
-(attention) or ``mamba_scan`` (Mamba1) kernel once per layer, and the
-training backward their backward kernels. The vocabulary is padded to a
-multiple of 2048, as in the reference. MoE, the parallel attention + MLP
-block, Mamba2, the shared-attention hybrid and the patch frontend raise
-``NotImplementedError`` (ROADMAP queue 1 item 2).
+The counterpart of ``repro.models.decoder``: the dense GQA transformer
+(``block_kind="attn"``, with the parallel attention + MLP block or MoE in
+place of the MLP), Mamba1 (``"mamba1"``), Mamba2 (``"mamba2"``), the
+Zamba2 hybrid (``shared_attn_every``: groups of Mamba2 layers, each
+followed by one shared attention + MLP block, then the tail) and the
+patch frontend. Parameters are a nested dict of tensors with the
+reference's keys and layouts, the layers stacked along a leading L dim; a
+Python loop over layers stands in for ``lax.scan``. Prefill and the
+training forward run the ``flash_attention`` kernel once per attention
+layer (the hybrid's: once per shared block) or ``mamba_scan`` once per
+Mamba1 layer, and the training backward their backward kernels. The
+vocabulary is padded to a multiple of 2048, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,51 +34,71 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return utils.round_up(cfg.vocab_size, VOCAB_PAD)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    missing = [what for what, on in (
-        ("MoE", cfg.is_moe), ("the parallel attention + MLP block",
-                              cfg.parallel_block),
-        ("mamba2", cfg.block_kind == "mamba2"),
-        ("the shared-attention hybrid", cfg.shared_attn_every > 0),
-        ("the patch frontend", cfg.frontend == "patch")) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"queue 1 item 2)")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
+
+
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    d, hd, hq, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {"ln": (d,), "wq": (d, hq, hd), "wk": (d, hkv, hd),
+            "wv": (d, hkv, hd), "wo": (hq, hd, d)}
+
+
+def _mlp_shapes(d: int, f: int) -> dict:
+    return {"ln": (d,), "wg": (d, f), "wu": (d, f), "wd": (f, d)}
 
 
 def _layer_param_shapes(cfg: ModelConfig) -> dict:
     """Per-layer parameter shapes (without the leading L stack dim)."""
     d, hd, hq, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     if cfg.block_kind == "attn":
-        attn = {"ln": (d,), "wq": (d, hq, hd), "wk": (d, hkv, hd),
-                "wv": (d, hkv, hd), "wo": (hq, hd, d)}
+        attn = _attn_shapes(cfg)
         if cfg.qkv_bias:
             attn.update({"bq": (hq, hd), "bk": (hkv, hd), "bv": (hkv, hd)})
-        return {"attn": attn, "mlp": {"ln": (d,), "wg": (d, cfg.d_ff),
-                                      "wu": (d, cfg.d_ff),
-                                      "wd": (cfg.d_ff, d)}}
-    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    return {"ssm": {"ln": (d,), "in_proj": (d, 2 * di),
-                    "conv_w": (cfg.ssm_conv, di), "conv_b": (di,),
-                    "x_proj": (di, r + 2 * n), "dt_w": (r, di),
-                    "dt_bias": (di,), "a_log": (di, n), "d_skip": (di,),
-                    "out_proj": (di, d)}}
+        if not cfg.is_moe:
+            return {"attn": attn, "mlp": _mlp_shapes(d, cfg.d_ff)}
+        e, f = cfg.n_experts, cfg.expert_ff
+        moe = {"ln": (d,), "router": (d, e), "wg": (e, d, f),
+               "wu": (e, d, f), "wd": (e, f, d)}
+        if cfg.n_shared_experts:
+            sf = cfg.n_shared_experts * f
+            moe.update({"swg": (d, sf), "swu": (d, sf), "swd": (sf, d)})
+        return {"attn": attn, "moe": moe}
+    di, n = cfg.d_inner, cfg.ssm_state
+    if cfg.block_kind == "mamba1":
+        r = cfg.dt_rank
+        return {"ssm": {"ln": (d,), "in_proj": (d, 2 * di),
+                        "conv_w": (cfg.ssm_conv, di), "conv_b": (di,),
+                        "x_proj": (di, r + 2 * n), "dt_w": (r, di),
+                        "dt_bias": (di,), "a_log": (di, n), "d_skip": (di,),
+                        "out_proj": (di, d)}}
+    if cfg.block_kind == "mamba2":
+        hh, conv_dim = cfg.ssm_heads, di + 2 * n
+        return {"ssm": {"ln": (d,), "in_proj": (d, 2 * di + 2 * n + hh),
+                        "conv_w": (cfg.ssm_conv, conv_dim),
+                        "conv_b": (conv_dim,), "dt_bias": (hh,),
+                        "a_log": (hh,), "d_skip": (hh,), "out_ln": (di,),
+                        "out_proj": (di, d)}}
+    raise ValueError(cfg.block_kind)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Full parameter tree as shape tuples (stacked layer dim first)."""
-    _check_ported(cfg)
+    """Full parameter tree as shape tuples (stacked layer dim first); the
+    hybrid adds ``shared_attn`` (and ``shared_mlp`` where d_ff > 0), the
+    patch frontend ``patch_proj`` (d, d)."""
     v, d = padded_vocab(cfg), cfg.d_model
     layers = {blk: {k: (cfg.n_layers, *shp) for k, shp in leaves.items()}
               for blk, leaves in _layer_param_shapes(cfg).items()}
-    return {"embed": (v, d), "final_ln": (d,), "lm_head": (d, v),
+    tree = {"embed": (v, d), "final_ln": (d,), "lm_head": (d, v),
             "layers": layers}
+    if cfg.shared_attn_every:
+        tree["shared_attn"] = _attn_shapes(cfg)
+        if cfg.d_ff:
+            tree["shared_mlp"] = _mlp_shapes(d, cfg.d_ff)
+    if cfg.frontend == "patch":
+        tree["patch_proj"] = (d, d)
+    return tree
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -99,7 +121,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             leaf = vals.expand(shp).to(cfg.pdtype)
         elif name == "dt_bias":
             leaf = torch.full(shp, -4.6, dtype=cfg.pdtype, device=device)
-        elif name in ("ln", "final_ln"):
+        elif name in ("ln", "out_ln", "final_ln"):
             leaf = torch.ones(shp, dtype=cfg.pdtype, device=device)
         else:
             scale = min(1.0 / math.sqrt(shp[-2]) if len(shp) >= 2 else 0.02,
@@ -134,18 +156,50 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _groups(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
+    """The stack as (first layer, end, shared block after it) runs: one
+    run of every layer, or for the hybrid ``n_layers // k`` groups of k
+    layers, each followed by the shared attention + MLP block, then the
+    tail of ``n_layers % k`` layers without one."""
+    k = cfg.shared_attn_every
+    if not k:
+        return [(0, cfg.n_layers, False)]
+    n_groups = cfg.n_layers // k
+    runs = [(g * k, (g + 1) * k, True) for g in range(n_groups)]
+    if cfg.n_layers % k:
+        runs.append((n_groups * k, cfg.n_layers, False))
+    return runs
+
+
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The block after an attention layer's attention: MoE → (x, aux) or
+    the SwiGLU MLP → (x, None)."""
+    if cfg.is_moe:
+        return L.moe_block(lp["moe"], x, cfg)
+    return L.mlp_block(lp["mlp"], x, cfg), None
+
+
+def _parallel(cfg: ModelConfig) -> bool:
+    return cfg.parallel_block and not cfg.is_moe
+
+
 def _block_body(cfg: ModelConfig):
-    """One layer as a function of (x, layer params), wrapped as
-    ``cfg.remat`` asks: "block" recomputes the whole layer in backward
-    (``torch.utils.checkpoint``, non-reentrant), "block_dots" recomputes
-    it but keeps the matmul outputs (selective checkpointing), "none"
-    keeps every activation. The three give the same loss and gradients."""
+    """One layer as a function of (x, layer params) → (x, MoE aux or
+    None), wrapped as ``cfg.remat`` asks: "block" recomputes the whole
+    layer in backward (``torch.utils.checkpoint``, non-reentrant),
+    "block_dots" recomputes it but keeps the matmul outputs (selective
+    checkpointing), "none" keeps every activation. The three give the
+    same loss and gradients."""
     def body(x, lp):
         pos = torch.arange(x.shape[1], device=x.device)
-        if cfg.block_kind == "attn":
-            x = L.attention_block(lp["attn"], x, cfg, pos)
-            return L.mlp_block(lp["mlp"], x, cfg)
-        return S.mamba1_block(lp["ssm"], x, cfg)
+        if cfg.block_kind == "mamba1":
+            return S.mamba1_block(lp["ssm"], x, cfg), None
+        if cfg.block_kind == "mamba2":
+            return S.mamba2_block(lp["ssm"], x, cfg), None
+        if _parallel(cfg):
+            return L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x, cfg,
+                                             pos), None
+        return _ffn(lp, L.attention_block(lp["attn"], x, cfg, pos), cfg)
 
     if cfg.remat == "block":
         return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
@@ -170,22 +224,54 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return out
 
 
+def _embed_inputs(params: dict, batch: dict,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings; with the patch frontend and ``patch_embeds`` (B,
+    P, D) in the batch, their projection takes the first P positions and
+    the last P token embeddings fall off the end, as in the reference."""
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        pe = torch.einsum("bpd,de->bpe", batch["patch_embeds"].to(cfg.cdtype),
+                          params["patch_proj"].to(cfg.cdtype))
+        x = torch.cat([pe, x[:, : x.shape[1] - pe.shape[1]]], dim=1)
+    return x
+
+
+def _shared_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  pos: torch.Tensor):
+    """The hybrid's shared attention (+ MLP) block, prefill / training →
+    (x, (k, v))."""
+    x, kv = L.attention_block(params["shared_attn"], x, cfg, pos,
+                              return_kv=True)
+    if "shared_mlp" in params:
+        x = L.mlp_block(params["shared_mlp"], x, cfg)
+    return x, kv
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig,
             impl: str = "masked") -> tuple[torch.Tensor, torch.Tensor]:
-    """→ (final hidden states (B, S, D), MoE aux loss 0-d fp32: 0 for the
-    two ported families). ``impl`` ("masked" / "triangular", the
-    reference's attention variants) is accepted and changes nothing: the
-    ``flash_attention`` kernel computes the same function for both. Runs
-    where the parameters lie; differentiable (the kernels' backward
-    kernels on the card, autograd through the plain versions on the
-    CPU)."""
-    _check_ported(cfg)
-    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    """→ (final hidden states (B, S, D), MoE aux loss 0-d fp32: the sum of
+    every MoE layer's, 0 for the other families). ``batch`` holds
+    ``tokens`` and, for the patch frontend, optionally ``patch_embeds``.
+    ``impl`` ("masked" / "triangular", the reference's attention variants)
+    is accepted and changes nothing: the ``flash_attention`` kernel
+    computes the same function for both. Runs where the parameters lie;
+    differentiable (the kernels' backward kernels on the card, autograd
+    through the plain versions on the CPU)."""
+    x = _embed_inputs(params, batch, cfg)
     body = _block_body(cfg)
-    for lp in _unstack(params["layers"], cfg.n_layers):
-        x = body(x, lp)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo, hi, shared in _groups(cfg):
+        for lp in layers[lo:hi]:
+            x, a = body(x, lp)
+            if a is not None:
+                aux = aux + a
+        if shared:
+            x, _ = _shared_block(params, x, cfg,
+                                 torch.arange(x.shape[1], device=x.device))
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _chunk_loss(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
@@ -206,8 +292,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     """Next-token CE in sequence chunks of ``cfg.loss_seq_chunk``, each
     checkpointed so its logits are recomputed in backward and the full
     (B, S, V) logits never exist. As in the reference, the tokens past the
-    last whole chunk (S mod chunk) do not count. → (loss, {"ce", "aux",
-    "tokens"}), aux 0 for the two ported families."""
+    last whole chunk (S mod chunk) do not count. The loss adds
+    ``router_aux_coef`` × the MoE aux loss (0 for the other families). →
+    (loss, {"ce", "aux", "tokens"})."""
     hidden, aux = forward(params, batch, cfg, impl=impl)
     s = hidden.shape[1]
     labels = batch["labels"]
@@ -234,27 +321,44 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+# the caches with a sequence dim (dim 2): (L or groups, B, S, Hkv, hd)
+SEQ_CACHES = ("k", "v", "sa_k", "sa_v")
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device=None) -> dict:
     """Decode cache: ``pos`` (B,) int32; attention: k / v (L, B, S, Hkv,
     hd); Mamba1: conv (L, B, d_conv − 1, Di) in the cache dtype and ssm
-    (L, B, Di, N) fp32. Zeros, on ``device`` (cuda unless named)."""
-    _check_ported(cfg)
+    (L, B, Di, N) fp32; Mamba2: conv (L, B, d_conv − 1, Di + 2N) and ssm
+    (L, B, H, P, N) fp32; the hybrid also sa_k / sa_v (n_layers //
+    shared_attn_every, B, S, Hkv, hd). Zeros, on ``device`` (cuda unless
+    named)."""
     device = utils.resolve_device(device)
     kvdt = dtype(cfg.cache_dtype)
-    ldim = cfg.n_layers
-    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
-                                device=device)}
+    ldim, b = cfg.n_layers, batch_size
+    cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device)}
+    kv = (max_len, cfg.n_kv_heads, cfg.hd)
+    di, n = cfg.d_inner, cfg.ssm_state
     if cfg.block_kind == "attn":
-        shp = (ldim, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        cache["k"] = torch.zeros(shp, dtype=kvdt, device=device)
-        cache["v"] = torch.zeros(shp, dtype=kvdt, device=device)
-    else:
-        di, n = cfg.d_inner, cfg.ssm_state
-        cache["conv"] = torch.zeros((ldim, batch_size, cfg.ssm_conv - 1, di),
+        cache["k"] = torch.zeros((ldim, b, *kv), dtype=kvdt, device=device)
+        cache["v"] = torch.zeros((ldim, b, *kv), dtype=kvdt, device=device)
+    elif cfg.block_kind == "mamba1":
+        cache["conv"] = torch.zeros((ldim, b, cfg.ssm_conv - 1, di),
                                     dtype=kvdt, device=device)
-        cache["ssm"] = torch.zeros((ldim, batch_size, di, n),
+        cache["ssm"] = torch.zeros((ldim, b, di, n), dtype=torch.float32,
+                                   device=device)
+    else:
+        cache["conv"] = torch.zeros((ldim, b, cfg.ssm_conv - 1, di + 2 * n),
+                                    dtype=kvdt, device=device)
+        cache["ssm"] = torch.zeros((ldim, b, cfg.ssm_heads,
+                                    cfg.ssm_head_dim, n),
                                    dtype=torch.float32, device=device)
+    if cfg.shared_attn_every:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        cache["sa_k"] = torch.zeros((groups, b, *kv), dtype=kvdt,
+                                    device=device)
+        cache["sa_v"] = torch.zeros((groups, b, *kv), dtype=kvdt,
+                                    device=device)
     return cache
 
 
@@ -266,32 +370,70 @@ def _logits(x: torch.Tensor, lm_head: torch.Tensor,
     return torch.matmul(x, lm_head.to(cfg.cdtype)).float()
 
 
-def prefill(params: dict, batch: dict, cfg: ModelConfig
-            ) -> tuple[torch.Tensor, dict]:
-    """Prefill: forward pass over ``batch["tokens"]`` (B, S) that also
-    builds the decode cache → (last-position logits (B, V) fp32, cache
-    with pos = S). Runs where the parameters lie."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    pos = torch.arange(s, device=tokens.device)
-    cache = init_cache(cfg, b, s, tokens.device)
-    kvdt = dtype(cfg.cache_dtype)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        if cfg.block_kind == "attn":
+def _prefill_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                   pos: torch.Tensor, cache: dict, i: int) -> torch.Tensor:
+    """Layer ``i`` of the prefill; writes its cache entries."""
+    if cfg.block_kind == "attn":
+        if _parallel(cfg):
+            x, (k, v) = L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x,
+                                                  cfg, pos, return_kv=True)
+        else:
             x, (k, v) = L.attention_block(lp["attn"], x, cfg, pos,
                                           return_kv=True)
-            x = L.mlp_block(lp["mlp"], x, cfg)
-            cache["k"][i] = k.to(kvdt)
-            cache["v"][i] = v.to(kvdt)
-        else:
-            x, st = S.mamba1_block(lp["ssm"], x, cfg, return_state=True)
-            cache["conv"][i] = st["conv"]
-            cache["ssm"][i] = st["ssm"]
+            x, _ = _ffn(lp, x, cfg)       # decode drops the MoE aux
+        cache["k"][i] = k
+        cache["v"][i] = v
+        return x
+    block = S.mamba1_block if cfg.block_kind == "mamba1" else S.mamba2_block
+    x, st = block(lp["ssm"], x, cfg, return_state=True)
+    cache["conv"][i] = st["conv"]
+    cache["ssm"][i] = st["ssm"]
+    return x
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """Prefill: forward pass over ``batch["tokens"]`` (B, S) (and the
+    patch frontend's ``patch_embeds`` where given) that also builds the
+    decode cache → (last-position logits (B, V) fp32, cache with pos =
+    S). Runs where the parameters lie."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _embed_inputs(params, batch, cfg)
+    pos = torch.arange(s, device=tokens.device)
+    cache = init_cache(cfg, b, s, tokens.device)
+    g = 0
+    for lo, hi, shared in _groups(cfg):
+        for i in range(lo, hi):
+            x = _prefill_layer(_layer(params["layers"], i), x, cfg, pos,
+                               cache, i)
+        if shared:
+            x, (k, v) = _shared_block(params, x, cfg, pos)
+            cache["sa_k"][g] = k
+            cache["sa_v"][g] = v
+            g += 1
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
     cache["pos"].fill_(s)
     return _logits(x[:, -1], params["lm_head"], cfg), cache
+
+
+def _decode_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                  pos: torch.Tensor, cache: dict, i: int) -> torch.Tensor:
+    """Layer ``i`` of a decode step; updates its cache entries in place."""
+    if cfg.block_kind == "attn":
+        kv = {"k": cache["k"][i], "v": cache["v"][i]}
+        if _parallel(cfg):
+            x, _ = L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x, cfg,
+                                             None, cache=kv, pos=pos)
+            return x
+        x, _ = L.attention_block_decode(lp["attn"], x, kv, pos, cfg)
+        return _ffn(lp, x, cfg)[0]       # the MoE aux is dropped
+    step = S.mamba1_decode if cfg.block_kind == "mamba1" else S.mamba2_decode
+    x, new = step(lp["ssm"], x, {"conv": cache["conv"][i],
+                                 "ssm": cache["ssm"][i]}, cfg)
+    cache["conv"][i] = new["conv"]
+    cache["ssm"][i] = new["ssm"]
+    return x
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -301,18 +443,17 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     returns new arrays): the returned dict shares them."""
     pos = cache["pos"]
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        if cfg.block_kind == "attn":
+    g = 0
+    for lo, hi, shared in _groups(cfg):
+        for i in range(lo, hi):
+            x = _decode_layer(_layer(params["layers"], i), x, cfg, pos,
+                              cache, i)
+        if shared:
             x, _ = L.attention_block_decode(
-                lp["attn"], x, {"k": cache["k"][i], "v": cache["v"][i]}, pos,
-                cfg)
-            x = L.mlp_block(lp["mlp"], x, cfg)
-        else:
-            x, new = S.mamba1_decode(
-                lp["ssm"], x, {"conv": cache["conv"][i],
-                               "ssm": cache["ssm"][i]}, cfg)
-            cache["conv"][i] = new["conv"]
-            cache["ssm"][i] = new["ssm"]
+                params["shared_attn"], x,
+                {"k": cache["sa_k"][g], "v": cache["sa_v"][g]}, pos, cfg)
+            if "shared_mlp" in params:
+                x = L.mlp_block(params["shared_mlp"], x, cfg)
+            g += 1
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
     return _logits(x[:, 0], params["lm_head"], cfg), dict(cache, pos=pos + 1)

@@ -1,13 +1,16 @@
-"""Transformer building blocks: RMSNorm, RoPE, attention, SwiGLU.
+"""Transformer building blocks: RMSNorm, RoPE, attention, SwiGLU, the
+parallel attention + MLP block, MoE (shared + routed experts).
 
 The counterparts of ``repro.models.layers`` on one device, with its
-layouts at every function: weights ``wq`` (d, Hq, hd), ``wo`` (Hq, hd, d);
+layouts at every function: weights ``wq`` (d, Hq, hd), ``wo`` (Hq, hd, d),
+routed experts ``wg`` / ``wu`` (E, d, F) and ``wd`` (E, F, d);
 activations (B, S, H, hd); decode caches (B, S_max, Hkv, hd). Prefill
 and training attention (``blocked_attention``) go through the
 ``flash_attention`` kernel, and its backward through the backward kernel
-(``ops.FlashAttentionFn``); decode attention is plain PyTorch. MoE and
-the parallel attention + MLP block are not ported yet (ROADMAP queue 1
-item 2).
+(``ops.FlashAttentionFn``); decode attention is plain PyTorch. The MoE's
+routing, dispatch and grouped expert products are plain PyTorch, as the
+reference runs them in XLA; its expert-parallel ``shard_map`` branch is
+multi-device (ROADMAP queue 1 item 3): here every expert is local.
 """
 from __future__ import annotations
 
@@ -178,10 +181,149 @@ def attention_block_decode(params: dict, x: torch.Tensor, cache: dict,
 # ---------------------------------------------------------------------------
 
 
+def _swiglu(h: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+            wd: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(silu(h·wg) ⊙ h·wu)·wd over (B, S, d) in the compute dtype."""
+    cd = cfg.cdtype
+    g = torch.einsum("bsd,df->bsf", h, wg.to(cd))
+    u = torch.einsum("bsd,df->bsf", h, wu.to(cd))
+    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, wd.to(cd))
+
+
 def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, params["ln"], cfg.rms_eps)
-    cd = cfg.cdtype
-    g = torch.einsum("bsd,df->bsf", h, params["wg"].to(cd))
-    u = torch.einsum("bsd,df->bsf", h, params["wu"].to(cd))
-    y = torch.einsum("bsf,fd->bsd", F.silu(g) * u, params["wd"].to(cd))
-    return x + y
+    return x + _swiglu(h, params["wg"], params["wu"], params["wd"], cfg)
+
+
+def parallel_attn_mlp_block(attn_params: dict, mlp_params: dict,
+                            x: torch.Tensor, cfg: ModelConfig,
+                            positions: torch.Tensor | None, *,
+                            cache: dict | None = None,
+                            pos: torch.Tensor | None = None,
+                            return_kv: bool = False):
+    """Command-r-style parallel block: y = x + (attn(ln(x)) + mlp(ln(x))),
+    one norm (the attention's ``ln``) for both branches, their sum added
+    to the residual once, as in the reference.
+
+    Prefill / training: ``positions`` (S,), attention through the
+    ``flash_attention`` kernel; ``return_kv`` → (y, (k, v)). Decode:
+    ``cache`` {"k", "v"} (B, S, Hkv, hd) written in place at ``pos`` (B,)
+    by ``write_kv`` (either ``uniform_decode_pos`` mode) → (y, cache)."""
+    h = rms_norm(x, attn_params["ln"], cfg.rms_eps)
+    extra = None
+    if cache is not None:
+        q, k_new, v_new = qkv_project(attn_params, h, cfg, pos[:, None])
+        write_kv(cache["k"], k_new, pos, cfg)
+        write_kv(cache["v"], v_new, pos, cfg)
+        o = decode_attention(q, cache["k"], cache["v"], pos)
+        extra = cache
+    else:
+        q, k, v = qkv_project(attn_params, h, cfg, positions)
+        o = blocked_attention(q, k, v)
+        if return_kv:
+            extra = (k, v)
+    ao = torch.einsum("bshk,hkd->bsd", o, attn_params["wo"].to(cfg.cdtype))
+    mo = _swiglu(h, mlp_params["wg"], mlp_params["wu"], mlp_params["wd"],
+                 cfg)
+    y = x + (ao + mo)
+    return y if extra is None else (y, extra)
+
+
+# ---------------------------------------------------------------------------
+# MoE (shared + routed experts, every expert local)
+# ---------------------------------------------------------------------------
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots an expert takes per call: ⌈T·k·capacity_factor / E⌉, at
+    least 8. T is the call's token count: a prefill's B·S, a decode
+    step's B."""
+    c = int(math.ceil(n_tokens * cfg.moe_top_k * cfg.capacity_factor
+                      / cfg.n_experts))
+    return max(8, c)
+
+
+def _route(h2: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
+    """(T, D) tokens → (top-k expert ids (T, k) int64, combine weights
+    (T, k) fp32 summing to 1, Switch-style load-balance aux loss).
+
+    The logits are fp32 (on the card TF32 must be off, or the routing
+    drifts from the CPU's). Top-k is the first k of a stable descending
+    sort, so among equal probabilities the lower expert id comes first,
+    as ``jax.lax.top_k`` orders them (``torch.topk``'s order among ties
+    is unspecified)."""
+    k, e = cfg.moe_top_k, cfg.n_experts
+    logits = torch.matmul(h2.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    density = F.one_hot(top_e[:, 0], e).float().mean(0)
+    aux = e * (density * probs.mean(0)).sum()
+    return top_e, top_w, aux
+
+
+def _rank_within_expert(flat_e: torch.Tensor,
+                        n_experts: int) -> torch.Tensor:
+    """Arrival rank of each (token, slot) within its expert, in
+    token-major order of ``flat_e`` (T·k,): the number of earlier entries
+    with the same expert. int64. The one-hot is (E, T·k), so that the
+    running count runs along the contiguous dim (a scan along the outer
+    dim of a (T·k, E) one-hot took half of an MoE prefill's device
+    time on the card)."""
+    flat_e = flat_e.long()
+    experts = torch.arange(n_experts, device=flat_e.device)
+    onehot = (flat_e[None, :] == experts[:, None]).long()   # (E, T·k)
+    csum = onehot.cumsum(1) - 1
+    return csum.gather(0, flat_e[None, :])[0]
+
+
+def _moe_local(h2: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor,
+               wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+               e_base: int, cfg: ModelConfig) -> torch.Tensor:
+    """Dispatch → grouped expert products → combine, for the experts
+    ``e_base`` .. ``e_base + wg.shape[0] − 1``.
+
+    h2: (T, D); wg / wu: (E_loc, D, F); wd: (E_loc, F, D) → (T, D), zero
+    for the (token, slot) pairs routed elsewhere or past an expert's
+    capacity (the later arrivals). Every kept (expert, rank) pair is
+    unique, so the dispatch assigns the kept rows into a zero buffer
+    (no accumulation); the dropped pairs all land in the extra row
+    ``cap``, which is cut."""
+    t, d = h2.shape
+    e_loc = wg.shape[0]
+    k = cfg.moe_top_k
+    cap = _capacity(t, cfg)
+    flat_e = top_e.reshape(-1).long()                     # (T·k,)
+    rank = _rank_within_expert(flat_e, cfg.n_experts)
+    local_e = flat_e - e_base
+    ok = (local_e >= 0) & (local_e < e_loc) & (rank < cap)
+    le = torch.where(ok, local_e, 0)
+    rr = torch.where(ok, rank, cap)                       # cap → dropped
+    buf = h2.new_zeros((e_loc, cap + 1, d))
+    buf[le, rr] = h2.repeat_interleave(k, dim=0)
+    buf = buf[:, :cap]
+    cd = h2.dtype
+    g = torch.bmm(buf, wg.to(cd))
+    u = torch.bmm(buf, wu.to(cd))
+    y = torch.bmm(F.silu(g) * u, wd.to(cd))               # (E_loc, cap, D)
+    y = torch.cat([y, y.new_zeros((e_loc, 1, d))], dim=1)
+    gathered = torch.where(ok[:, None], y[le, rr], 0)     # (T·k, D)
+    w = top_w.reshape(-1)[:, None].to(cd)
+    return (gathered * w).reshape(t, k, d).sum(dim=1)
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Shared-expert + routed-expert MoE residual block → (y, aux loss).
+    The routed experts see the call's B·S tokens at once (capacity by
+    ``_capacity``); the shared experts are a dense SwiGLU over all of
+    them."""
+    b, s, d = x.shape
+    h = rms_norm(x, params["ln"], cfg.rms_eps)
+    h2 = h.reshape(b * s, d)
+    top_e, top_w, aux = _route(h2, params["router"], cfg)
+    y = _moe_local(h2, top_e, top_w, params["wg"], params["wu"],
+                   params["wd"], 0, cfg).reshape(b, s, d)
+    if cfg.n_shared_experts > 0:
+        y = y + _swiglu(h, params["swg"], params["swu"], params["swd"], cfg)
+    return x + y, aux

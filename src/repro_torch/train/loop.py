@@ -83,6 +83,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     def loss_fn(params, mb):
         return lm_loss(params, mb, cfg, impl=attn_impl)[0]
 
+    def grad(loss, tensors):
+        # leaves the loss does not reach (the parallel block's MLP norm, a
+        # patch projection without patch inputs) get zeros, as in JAX
+        return torch.autograd.grad(loss, tensors, allow_unused=True,
+                                   materialize_grads=True)
+
     def step(state: TrainState, batch: dict):
         n_mb = n_microbatches
         params = state.params
@@ -100,14 +106,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                 total = total + ckpt.checkpoint(loss_fn, params, mb(i),
                                                 use_reentrant=False)
             loss_mean = total / n_mb
-            flat = list(torch.autograd.grad(loss_mean, tensors))
+            flat = list(grad(loss_mean, tensors))
             loss_sum = loss_mean.detach() * n_mb
         else:
             flat, loss_sum = None, torch.zeros(
                 (), dtype=torch.float32, device=tensors[0].device)
             for i in range(n_mb):
                 loss = loss_fn(params, mb(i))
-                grads = torch.autograd.grad(loss, tensors)
+                grads = grad(loss, tensors)
                 loss_sum = loss_sum + loss.detach()
                 if flat is None:       # 0 + g in accum_dtype: g rounded
                     flat = [g.to(accum_dt).contiguous() for g in grads]

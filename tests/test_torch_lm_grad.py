@@ -1,8 +1,9 @@
 """The port's training gradients against the JAX package on the CPU:
-``lm_loss`` and its gradients against ``jax.value_and_grad`` of the
-reference's ``lm_loss`` on the smoke configs (fp32 and bf16, the three
-remat settings), and the backward formulas of the two LM kernels
-(``plain_bwd``) against ``jax.vjp`` of ``repro.kernels.ref``.
+``lm_loss`` (with the MoE aux loss) and its gradients against
+``jax.value_and_grad`` of the reference's ``lm_loss`` on every LM arch's
+smoke config (fp32 with the three remat settings; bf16), and the
+backward formulas of the two LM kernels (``plain_bwd``) against
+``jax.vjp`` of ``repro.kernels.ref``.
 
 Parameters come from the reference's ``init_params`` (converted), inputs
 from numpy seeds. Tolerances: fp32 1e-5 relative to max|reference| for
@@ -33,7 +34,15 @@ from repro_torch.models import config as model_config
 from repro_torch.models import forward, lm_loss
 from repro_torch.utils import tree_leaves as leaves
 
-SMOKE_ARCHS = ("qwen2.5-14b", "falcon-mamba-7b")
+SMOKE_ARCHS = tuple(jconfigs.LM_ARCHS)
+# bf16 leaves out the MoE archs: the two packages round attention at other
+# places in bf16 (see BF16_TOL), and that noise sends 2 of the smoke
+# batch's 128 tokens to another expert at the first MoE layer, a
+# discontinuity no tolerance on the gradients covers; the same bf16
+# inputs route identically (tests/test_torch_lm_families.py), and fp32
+# holds the MoE archs above
+BF16_ARCHS = tuple(a for a in SMOKE_ARCHS
+                   if not jconfigs.get_smoke_config(a).is_moe)
 LOSS_TOL = 1e-5
 GRAD_TOL = 2e-5
 BF16_TOL = 2.0 ** -7
@@ -85,7 +94,10 @@ def _port(cfg, jparams, batch):
         t.requires_grad_(True)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     loss, metrics = lm_loss(params, tb, cfg)
-    grads = torch.autograd.grad(loss, tensors)
+    # leaves the loss does not reach (the parallel block's MLP norm, the
+    # patch projection without patch inputs) get zeros, as in JAX
+    grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                materialize_grads=True)
     return float(loss), metrics, [p for p, _ in leaves(params)], grads
 
 
@@ -103,7 +115,8 @@ def _check(arch, dt, remat, loss_tol, grad_tol):
                                     batch)
     assert abs(loss - jloss) <= loss_tol * abs(jloss)
     assert float(met["tokens"]) == float(jmet["tokens"])
-    assert float(met["aux"]) == 0.0
+    assert abs(float(met["aux"]) - float(jmet["aux"])) <= loss_tol * abs(
+        float(jmet["aux"]))
     for path, g in zip(paths, grads):
         want = _jleaf(jgrads, path)
         got = g.float().numpy()
@@ -118,7 +131,7 @@ def test_lm_loss_and_grads_match_reference_fp32(arch, remat):
     _check(arch, "float32", remat, LOSS_TOL, GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+@pytest.mark.parametrize("arch", BF16_ARCHS)
 def test_lm_loss_and_grads_match_reference_bf16(arch):
     _check(arch, "bfloat16", "block", BF16_TOL, BF16_GRAD_TOL)
 

@@ -1,7 +1,7 @@
 """The port's LM stack against the JAX package on the CPU: the arch
 registry and config, layers and blocks, one block at each model's full
-width, the decoder's prefill + decode, ``init_params`` and
-``convert.lm_params``.
+width, the decoder's prefill + decode and training forward for every LM
+arch, ``init_params`` and ``convert.lm_params``.
 
 Inputs and parameters come from numpy seeds (or from the reference's own
 ``init_params``, converted) and go through both packages. Tolerances:
@@ -33,7 +33,7 @@ from repro_torch.models import ssm as S
 
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
-SMOKE_ARCHS = ("smoke", "qwen2.5-14b", "falcon-mamba-7b")
+SMOKE_ARCHS = ("smoke", *jconfigs.LM_ARCHS)
 
 
 def _port_cfg(jcfg, **kw):
@@ -82,7 +82,7 @@ def _layer0(tree):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", jconfigs.LM_ARCHS)
 def test_registry_configs_equal_the_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         jcfg = getattr(jconfigs, get)(arch)
@@ -98,16 +98,16 @@ def test_registry_configs_equal_the_reference(arch):
 
 
 def test_registry_names_unported_archs():
+    """Every LM architecture loads (none is left unported), its parameter
+    tree has the reference's shapes, and an unknown name raises."""
     for arch in configs.LM_ARCHS:
-        if arch in ("qwen2.5-14b", "falcon-mamba-7b"):
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(arch)
+        for get in ("get_config", "get_smoke_config"):
+            cfg = getattr(configs, get)(arch)
+            jcfg = getattr(jconfigs, get)(arch)
+            assert dict(_flat(D.param_shapes(cfg))) == dict(
+                _flat(JD.param_shapes(jcfg)))
     with pytest.raises(KeyError):
         configs.get_smoke_config("gpt-2")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        D.param_shapes(_port_cfg(jconfigs.get_smoke_config(
-            "deepseek-moe-16b")))
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +275,8 @@ def _decoder_run(jcfg, tol, rng):
     logits, cache = D.prefill(tp, {"tokens": torch.from_numpy(toks)}, cfg)
     _close(logits, jlogits, tol)
     assert logits.shape == (b, D.padded_vocab(cfg))
-    if cfg.block_kind == "attn":            # room for the decode steps
-        for k in ("k", "v"):
+    for k in D.SEQ_CACHES:                  # room for the decode steps
+        if k in cache:
             jcache[k] = _pad_seq(jcache[k], steps)
             cache[k] = _pad_seq(cache[k], steps)
     jstep = jax.jit(functools.partial(JD.decode_step, cfg=jcfg))
@@ -297,6 +297,22 @@ def test_decoder_prefill_and_decode_fp32(rng, arch):
     _decoder_run(_f32(_smoke(arch)), FP32_TOL, rng)
 
 
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_forward_hidden_states_and_aux_fp32(rng, arch):
+    """The training forward: final hidden states and the MoE aux loss (0
+    for the other families)."""
+    jcfg = _f32(_smoke(arch))
+    jp, tp = _params(jcfg)
+    toks = rng.integers(1, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    h, aux = D.forward(tp, {"tokens": torch.from_numpy(toks)},
+                       _port_cfg(jcfg))
+    jh, jaux = JD.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    _close(h, jh)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * abs(float(jaux))
+    assert (float(jaux) > 0) == jcfg.is_moe
+
+
 def test_decoder_prefill_and_decode_qwen_bf16(rng):
     # bf16: the reference rounds p to bf16 before P·V, the port does not
     _decoder_run(jconfigs.get_smoke_config("qwen2.5-14b"), BF16_TOL, rng)
@@ -315,7 +331,7 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), tree[k]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", jconfigs.LM_ARCHS)
 def test_init_params_matches_reference_distributions(arch):
     # vocab 4000 → padded 4096 rows: the embedding's scale is 1/√4096,
     # below the 0.02 cap, so both scale rules are exercised
@@ -333,7 +349,7 @@ def test_init_params_matches_reference_distributions(arch):
         assert tuple(t.shape) == j.shape == shapes[path], path
         assert t.dtype == torch.bfloat16 and j.dtype.name == "bfloat16"
         tf, jf = t.float().numpy(), np.asarray(j, np.float32)
-        if path[-1] in ("a_log", "dt_bias", "ln", "final_ln"):
+        if path[-1] in ("a_log", "dt_bias", "ln", "out_ln", "final_ln"):
             np.testing.assert_array_equal(tf, jf, err_msg=str(path))
         elif jf.size >= 10_000:
             assert abs(tf.std() / jf.std() - 1) < 0.05, path

@@ -1,13 +1,14 @@
 """The port's ``ServeEngine`` on the CPU against ``repro.launch.serve``'s,
-on the fp32 variants of the three smoke configs, with the JAX engine's
-own parameters converted by ``convert.lm_params``: per-request token
-lists identical, ``ticks`` and ``generated`` equal.
+on the fp32 variants of the launcher's smoke model and every LM arch's
+smoke config, with the JAX engine's own parameters converted by
+``convert.lm_params``: per-request token lists identical, ``ticks`` and
+``generated`` equal.
 
 Few requests (4), 2 slots and 6 new tokens, because the reference
 compiles prefill anew for every request. Prompts are 4–16 tokens: the
 reference's prefill needs a length that is at most, or a multiple of, its
-attention block (32 in the qwen smoke config) and scan chunk (16 in the
-falcon-mamba smoke config).
+attention block (32 in the smoke configs) and scan chunk (16 in the
+falcon-mamba and zamba2 smoke configs).
 """
 import dataclasses
 
@@ -15,7 +16,7 @@ import jax
 import numpy as np
 import pytest
 
-from repro.configs import get_smoke_config
+from repro.configs import LM_ARCHS, get_smoke_config
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import ServeEngine as JServeEngine
 from repro.launch.train import default_smoke_model
@@ -30,7 +31,7 @@ def _f32(cfg):
                                cache_dtype="float32")
 
 
-@pytest.mark.parametrize("arch", ["smoke", "qwen2.5-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smoke", *LM_ARCHS])
 def test_serve_engine_tokens_equal_reference(arch):
     jcfg = default_smoke_model() if arch == "smoke" else _f32(
         get_smoke_config(arch))

@@ -266,7 +266,9 @@ def _jtrain_state(jcfg, seed):
 
 
 @pytest.mark.parametrize("accum_mode", ["scan_grads", "grad_of_scan"])
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b",
+                                  "command-r-35b", "deepseek-moe-16b",
+                                  "zamba2-1.2b"])
 def test_three_train_steps_match_reference(arch, accum_mode):
     """Three ``make_train_step`` steps (2 microbatches, fp32 accumulation)
     from the same ``TrainState`` on the same batches: parameters, master,
