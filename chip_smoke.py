@@ -2,7 +2,8 @@
 """Run the PyTorch port's batch FAST detection, streaming detection,
 offline Min-Max LSH search, LM serving (every LM family), detection
 serving, detector snapshots, elastic pool membership, the location /
-magnitude tier and LM training on one NVIDIA GPU, end to end.
+magnitude tier, LM training (every family) and the one-chunk
+``detect_step`` on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -186,9 +187,12 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     ``flash_attention_bwd`` at qwen2.5-14b's training shape (B = 1, 40 / 8
     heads, 2048², D = 128, bf16, causal, on the forward kernel's own
     output and log-sum-exp, which are first held to ``plain_with_lse``'s:
-    the output as phase 13's, the log-sum-exp within 1e-3 absolute) and
-    an fp32 case at S = 512, its bound 10·D flops an allowed q–k pair at
-    the tensor (or fp32) rate and its library column the backward of
+    the output as phase 13's, the log-sum-exp within 1e-3 absolute), an
+    fp32 case at S = 512 and phase 26's other attention microbatches in
+    bf16 (deepseek-moe-16b 1 × 16 / 16, D 128; zamba2-1.2b 2 × 32 / 32,
+    D 64; internvl2-1b 2 × 14 / 2, D 64), its bound 10·D flops an
+    allowed q–k pair at the tensor (or fp32) rate and its library column
+    the backward of
     ``scaled_dot_product_attention`` on the same tensors;
     ``mamba_scan_bwd`` at the training path's microbatch of
     falcon-mamba-7b (B = 2, S = 2048, Di = 8192, N = 16, fp32: the scan
@@ -206,31 +210,53 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     tokens, ``F.embedding`` (the port's) against the indexing's
     ``index_put_``, timed, and ``F.embedding``'s gradient bitwise
     repeatable (the launcher's resume relies on it).
-25. Training parity: on the fp32 qwen2.5-14b and falcon-mamba-7b smoke
-    configs (remat "block"), the card's ``lm_loss`` and gradients and
-    three ``make_train_step`` steps in each ``accum_mode`` against the
-    port's CPU path from the same parameters and batches (loss 1e-5
+25. Training parity: on the fp32 smoke config of every LM arch and the
+    launcher's smoke model (``_lm_smoke_configs()``, command-r-35b's
+    with ``LM_PARITY_CHANGES``; remat "block"; internvl2-1b's batches
+    with seeded ``patch_embeds``), the card's ``lm_loss`` and gradients
+    and three ``make_train_step`` steps in each ``accum_mode`` against
+    the port's CPU path from the same parameters and batches (loss 1e-5
     relative, gradients 2e-5 of each leaf's max, grad norm 1e-4
     relative; parameters within lr (3e-4) at most and 1e-6 in RMS: an
     element whose gradient sits at its rounding noise moves by up to ~lr
-    in AdamW's first steps); the forward kernel launches twice a layer
-    (forward and the remat recompute), the backward kernel once.
-26. Training at full width: ``qwen25_14b.config()`` and
-    ``falcon_mamba_7b.config()`` with ``n_layers`` cut to 4, bf16
-    parameters from ``init_train_state`` (seed 0), ``make_train_step``
-    with remat "block", fp32 accumulation and ``LM_TRAIN``'s global batch
-    (2 / 4 sequences of 2,048 tokens) in 2 microbatches, on
-    ``TokenPipeline`` batches (dedup on the card); one warm-up step, then
-    4 timed steps with launch counters zeroed just before and read just
-    after: the forward kernel 2 × and the backward kernel 1 × n_layers ×
-    microbatches × steps. Step walls, tokens/s, the AdamW update alone
-    (``apply_updates`` on the trained state) and its share of the step,
-    peak memory, parameter and optimizer bytes, the losses.
-27. Resume: ``python -m repro_torch.launch.train --arch smoke --device
-    cuda`` for 8 steps, again with ``--inject-failure-at 5`` (exit 42
-    before step 5's checkpoint), then ``--resume``: the final
-    checkpoint's every leaf and the final loss equal the uninterrupted
-    run's bit for bit.
+    in AdamW's first steps); the MoE archs' routed expert ids equal in
+    every routing; a layer's kernel launches twice (forward and the remat
+    recompute) and its backward kernel once, the hybrid's shared
+    attention block (outside the checkpointed stack, as in the
+    reference) its forward once.
+26. Training at full width, ``LM_TRAIN``: qwen2.5-14b, falcon-mamba-7b
+    and deepseek-moe-16b with ``n_layers`` cut to 4, zamba2-1.2b (38)
+    and internvl2-1b (24, with seeded bf16 ``patch_embeds`` of (B, 256,
+    896) on every batch) whole, bf16 parameters from
+    ``init_train_state`` (seed 0), ``make_train_step`` with remat
+    "block", fp32 accumulation and the global batch (2 or 4 sequences of
+    2,048 tokens) in 2 microbatches, on ``TokenPipeline`` batches (dedup
+    on the card); one warm-up step, then 4 timed steps with launch
+    counters zeroed just before and read just after, each kernel's count
+    exactly phase 25's rule × microbatches × steps. Step walls, tokens/s,
+    the AdamW update alone (``apply_updates`` on the trained state) and
+    its share of the step, peak memory, parameter count, parameter and
+    optimizer bytes (``utils.tree_bytes``), the losses. command-r-35b does
+    not fit one card at its widths and trains at its smoke config only.
+27. Resume: ``python -m repro_torch.launch.train --device cuda`` for 8
+    steps with ``--arch smoke``, ``--arch deepseek-moe-16b --smoke`` and
+    ``--arch zamba2-1.2b --smoke``, each again with
+    ``--inject-failure-at 5`` (exit 42 before step 5's checkpoint), then
+    ``--resume``: the final checkpoint's every leaf and the final loss
+    equal the uninterrupted run's bit for bit (the three archs' runs side
+    by side).
+28. MoE repeatability: deepseek-moe-16b's bf16 smoke config, gradients
+    twice and a train step from two copies of one state, every leaf
+    equal, and the warnings of PyTorch's deterministic mode on that step
+    (reported); at full width (4 layers, seq 2048) one microbatch's gradients
+    twice, equal, and a 2-microbatch train step twice from the seeded
+    state, every leaf's digest (the int64 sums of its bit patterns, plain
+    and weighted by position) equal.
+29. ``core.detect.detect_step`` at the paper widths on each station of
+    phase 4's 20-minute trace as one chunk (the CPU's statistics at rate
+    1.0): every output equal to the CPU path's, launch counters zeroed
+    just before and read just after (``stft_mag``, ``haar2d``,
+    ``minmax_sig_buckets`` once a call), the card's walls.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -244,16 +270,16 @@ four kernels of the detection core, each with the batch replay's count
 (phase 5) beside it under ``launches_by_path``; the offline search (phase
 11) for ``minmax_hash``; the LM serve runs (phase 15) for
 ``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b),
-each also with the training run's count under ``launches_by_path`` and
-every serve run's under ``launches_by_model``; the
+each also with the training run's count under ``launches_by_path``; the
 training runs (phase 26) for ``flash_attention_bwd`` and
-``mamba_scan_bwd``.
+``mamba_scan_bwd``; the four LM kernels with every serve and training
+run's count under ``launches_by_model``.
 The serving phase's counts stand beside them under ``launches_by_path``
 (``serve``) for ``stft_mag``, ``haar2d`` and ``minmax_hash``, whose entries
 also carry their error, time, bound and library time at the serving
 shapes (``serving_shape``), and so do the located paths' (phases 18, 19,
 21 and 22: ``elastic``, ``located_batch``, ``located_stream``,
-``serve_locate``) for the kernels each runs.
+``serve_locate``) and ``detect_step``'s (29) for the kernels each runs.
 Before them it prints the script's seconds (``chip_smoke_seconds``).
 Without CUDA it exits 2 and prints no result. Writes
 ``chiprun_out/chip_smoke.json`` with everything printed.
@@ -268,6 +294,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -324,14 +351,14 @@ KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
 # launches_by_path: the batch replay (phase 5), the streaming service
 # (phase 7), the offline search (phase 11), detection serving (phase 16),
 # the elastic stream (18), the located batch replay (19), the located
-# stream (21) and serving with --locate (22)
-LOCATED_PATHS = ("located_batch", "located_stream", "serve_locate",
-                 "elastic")
+# stream (21), serving with --locate (22) and detect_step (29)
+MORE_PATHS = ("located_batch", "located_stream", "serve_locate", "elastic",
+              "detect_step")
 KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve")
-                + LOCATED_PATHS,
-                "haar2d": ("paper", "stream_paper", "serve") + LOCATED_PATHS,
+                + MORE_PATHS,
+                "haar2d": ("paper", "stream_paper", "serve") + MORE_PATHS,
                 "minmax_sig_buckets": ("paper", "stream_paper")
-                + LOCATED_PATHS,
+                + MORE_PATHS,
                 "jaccard_popcount": ("paper", "stream_paper", "elastic"),
                 "minmax_hash": ("offline_paper", "serve", "serve_locate")}
 SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
@@ -355,19 +382,28 @@ LM_SERVE_MODELS = (("qwen2.5-14b", True), ("falcon-mamba-7b", True),
 # 2 heads it is 32 (the CPU tests hold the smoke config as it is)
 LM_PARITY_CHANGES = {"command-r-35b-smoke": {"n_heads": 4,
                                              "n_kv_heads": 2}}
-# full-width training (phase 26): n_layers cut to 4 as the serve phase
-# cuts it, seq 2048, (global batch, microbatches) per model, timed steps
-# after one warm-up step
+# full-width training (phase 26): seq 2048, per model (global batch,
+# microbatches, n_layers cut to 4 as the serve phase cuts it); timed
+# steps after one warm-up step. One arch of each family that fits one
+# card: zamba2-1.2b and internvl2-1b run whole, as in phase 15;
+# command-r-35b does not fit (its 4-layer cut's training state is ~126
+# GB) and trains at its smoke config only (phase 25)
 LM_TRAIN_LAYERS = 4
 LM_TRAIN_SEQ = 2048
-LM_TRAIN = {"qwen2.5-14b": (2, 2), "falcon-mamba-7b": (4, 2)}
+LM_TRAIN = {"qwen2.5-14b": (2, 2, True), "falcon-mamba-7b": (4, 2, True),
+            "deepseek-moe-16b": (2, 2, True), "zamba2-1.2b": (4, 2, False),
+            "internvl2-1b": (4, 2, False)}
 LM_TRAIN_STEPS = 4
 # the LM kernels' launches by path: the serve runs (phase 15) and the
-# training runs (phase 26), of the model that runs each kernel
+# training runs (phase 26), of the model that runs each kernel; every
+# other model's count stands under launches_by_model
 LM_KERNEL_MODEL = {"flash_attention": "qwen2.5-14b",
                    "flash_attention_bwd": "qwen2.5-14b",
                    "mamba_scan": "falcon-mamba-7b",
                    "mamba_scan_bwd": "falcon-mamba-7b"}
+# the launcher runs of the resume phase (27): --arch, with --smoke
+RESUME_ARCHS = (("smoke", False), ("deepseek-moe-16b", True),
+                ("zamba2-1.2b", True))
 # the serving phase: request windows of 60 s on the fingerprint grid, a
 # burst of SERVE_REQUESTS, then SERVE_OVERLOAD more at once (past the
 # serve_config() queue bound of 1,024, so SERVE_OVERLOAD - 1,024 shed); the
@@ -2431,6 +2467,7 @@ def lm_serve_phase(dev) -> dict:
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import init_params
     from repro_torch.models import layers as L
+    from repro_torch.utils import tree_bytes
     n_req, max_new, n_slots = 8, 32, 4
     out = {}
     for arch, cut in LM_SERVE_MODELS:
@@ -2487,8 +2524,7 @@ def lm_serve_phase(dev) -> dict:
              "decode_ticks": stats["ticks"], "generated": stats["generated"],
              "tokens_per_s": stats["tokens_per_s"],
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-             "param_bytes": sum(t.numel() * t.element_size()
-                                for t in _leaves(params)),
+             "param_bytes": tree_bytes(params),
              "launches": launches}
         if cfg.is_moe:
             # the decode steps route n_slots tokens, the prefills their
@@ -2512,11 +2548,6 @@ def lm_serve_phase(dev) -> dict:
         out[full.name] = r
         del eng, params, routes
     return out
-
-
-def _leaves(tree: dict):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _split_ms(launch, names, iters: int = 20) -> dict:
@@ -2555,10 +2586,14 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
 
     # --- flash_attention_bwd: (B, Hq, Hkv, S, D, dtype), causal; the
     # first is qwen2.5-14b's training shape, the one the kernels line
-    # reports
+    # reports; the last three phase 26's microbatches of deepseek-moe-16b,
+    # zamba2-1.2b's shared block and internvl2-1b (GQA group 7)
     runs = []
     for b, hq, hkv, s, d, dt in ((1, 40, 8, 2048, 128, torch.bfloat16),
-                                 (1, 40, 8, 512, 128, torch.float32)):
+                                 (1, 40, 8, 512, 128, torch.float32),
+                                 (1, 16, 16, 2048, 128, torch.bfloat16),
+                                 (2, 32, 32, 2048, 64, torch.bfloat16),
+                                 (2, 14, 2, 2048, 64, torch.bfloat16)):
         q, do = (torch.randn((b, hq, s, d), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=g, device=dev).to(dt)
@@ -2747,7 +2782,20 @@ def embedding_bwd_phase(dev) -> dict:
     return out
 
 
+def _patch_embeds(cfg, b: int, seed: int, dev):
+    """Seeded (B, n_patches, d_model) patch embeddings in the compute
+    dtype: the patch frontend's input (the reference's
+    ``configs/shapes.input_specs`` layout)."""
+    import numpy as np
+    import torch
+    x = np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return torch.as_tensor(x, device=dev).to(cfg.cdtype)
+
+
 def _train_batch(cfg, b: int, s: int, seed: int, dev) -> dict:
+    """Seeded random tokens with next-token labels (the last position
+    masked out), and patch embeddings for the patch frontend."""
     import numpy as np
     import torch
     toks = np.random.default_rng(seed).integers(
@@ -2755,46 +2803,71 @@ def _train_batch(cfg, b: int, s: int, seed: int, dev) -> dict:
     labels = np.concatenate([toks[:, 1:], np.zeros((b, 1), np.int32)], 1)
     mask = np.ones((b, s), np.float32)
     mask[:, -1] = 0.0
-    return {k: torch.as_tensor(v, device=dev) for k, v in
-            (("tokens", toks), ("labels", labels), ("loss_mask", mask))}
+    out = {k: torch.as_tensor(v, device=dev) for k, v in
+           (("tokens", toks), ("labels", labels), ("loss_mask", mask))}
+    if cfg.frontend == "patch":
+        out["patch_embeds"] = _patch_embeds(cfg, b, seed, dev)
+    return out
+
+
+def _train_launches(cfg) -> dict:
+    """The LM kernels' launches for one microbatch of a training step with
+    remat "block": the layer stack's kernel twice a layer (the forward and
+    the recompute) and its backward once a layer. The hybrid's shared
+    attention block runs outside the checkpointed stack, as in the
+    reference, so it launches its forward once an invocation."""
+    if cfg.block_kind == "mamba1":
+        return {"mamba_scan": 2 * cfg.n_layers,
+                "mamba_scan_bwd": cfg.n_layers}
+    a = _attn_layers(cfg)
+    return {"flash_attention": a if cfg.shared_attn_every else 2 * a,
+            "flash_attention_bwd": a}
+
+
+def _same_routes(card: list, cpu: list) -> bool:
+    """Two ``_RecordRoutes`` lists equal, routing for routing."""
+    import torch
+    return len(card) == len(cpu) and all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(card, cpu))
 
 
 def lm_train_parity_phase(dev) -> dict:
     """Training on the card against the port's CPU path (which
     ``tests/test_torch_lm_grad.py`` and ``tests/test_torch_train.py``
-    hold to the JAX package) on the fp32 smoke configs, remat "block":
-    ``lm_loss`` and its gradients, then three ``make_train_step`` steps
-    (2 microbatches) in each ``accum_mode`` from the same state.
-    Tolerances: loss 1e-5 relative and gradients 2e-5 of each leaf's
-    max|CPU|, as the CPU parity tests; the metrics' loss 1e-5 and grad
-    norm 1e-4 relative; parameters after three steps within lr (3e-4)
-    and their RMS difference within 1e-6: AdamW's first steps move an
-    element by ~lr · g / |g|, so an element whose gradient is near its
-    rounding noise can land up to ~lr away (run 1 of this phase: 2.7e-5),
-    while the bulk must agree."""
+    hold to the JAX package) on every fp32 smoke config
+    (``_lm_smoke_configs()``), remat "block", the patch frontend with
+    ``patch_embeds``: ``lm_loss`` and its gradients, then three
+    ``make_train_step`` steps (2 microbatches) in each ``accum_mode`` from
+    the same state. Tolerances: loss 1e-5 relative and gradients 2e-5 of
+    each leaf's max|CPU|, as the CPU parity tests; the metrics' loss 1e-5
+    and grad norm 1e-4 relative; parameters after three steps within lr
+    (3e-4) and their RMS difference within 1e-6: AdamW's first steps move
+    an element by ~lr · g / |g|, so an element whose gradient is near its
+    rounding noise can land up to ~lr away (2.7e-5 seen on the card),
+    while the bulk must agree. The MoE archs' routed expert ids, card =
+    CPU in every routing of the loss, its recompute and the steps."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, lm_loss
     from repro_torch.train.loop import TrainState, make_train_step
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.utils import tree_leaves as leaves
     out = {}
-    f32 = dict(param_dtype="float32", compute_dtype="float32",
-               cache_dtype="float32", remat="block")
-    for arch in ("qwen2.5-14b", "falcon-mamba-7b"):
-        cfg = dataclasses.replace(get_smoke_config(arch), **f32)
+    for cfg in _lm_smoke_configs():
+        cfg = dataclasses.replace(cfg, remat="block")
         params = init_params(cfg, 0, "cpu")
-        batch = _train_batch(cfg, 4, 64, 0, "cpu")
-        res = []
+        res, routes = [], []
         ops.reset_launches()
         for d in (dev, torch.device("cpu")):
             p = _tree_to(params, d)
             tensors = [t.requires_grad_() for _, t in leaves(p)]
-            loss, _ = lm_loss(p, _tree_to(batch, d), cfg)
-            grads = torch.autograd.grad(loss, tensors)
-            res.append((float(loss), [x.cpu() for x in grads]))
+            with _RecordRoutes() as ids:
+                loss, _ = lm_loss(p, _train_batch(cfg, 4, 64, 0, d), cfg)
+                grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                            materialize_grads=True)
+            res.append((float(loss.detach()), [x.cpu() for x in grads]))
+            routes.append(ids)
         launches = dict(ops.LAUNCHES)
         grad_err = max(float((a - w).abs().max()) / float(w.abs().max())
                        for a, w in zip(res[0][1], res[1][1])
@@ -2810,10 +2883,11 @@ def lm_train_parity_phase(dev) -> dict:
                 st = TrainState(p, init_opt_state(p), torch.zeros(
                     (), dtype=torch.int32, device=d))
                 mets = []
-                for i in range(3):
-                    st, m = step(st, _train_batch(cfg, 4, 64, 10 + i, d))
-                    mets.append({k: float(v) for k, v in m.items()})
-                finals.append((st, mets))
+                with _RecordRoutes() as ids:
+                    for i in range(3):
+                        st, m = step(st, _train_batch(cfg, 4, 64, 10 + i, d))
+                        mets.append({k: float(v) for k, v in m.items()})
+                finals.append((st, mets, ids))
             diffs = [(a.cpu() - w).flatten() for (_, a), (_, w)
                      in zip(leaves(finals[0][0].params),
                             leaves(finals[1][0].params))]
@@ -2822,54 +2896,67 @@ def lm_train_parity_phase(dev) -> dict:
             steps[mode] = {
                 "metrics_card": finals[0][1], "metrics_cpu": finals[1][1],
                 "param_max_abs_err": perr, "param_rms_err": rms}
+            if cfg.is_moe:
+                steps[mode]["expert_ids_equal_cpu"] = _same_routes(
+                    finals[0][2], finals[1][2])
             _need(perr <= 3e-4 and rms <= 1e-6,
-                  f"LM train parity {arch} {mode}: parameters differ by "
+                  f"LM train parity {cfg.name} {mode}: parameters differ by "
                   f"{perr} (max) / {rms} (RMS) after 3 steps")
             for mc, mh in zip(finals[0][1], finals[1][1]):
                 _need(abs(mc["loss"] - mh["loss"]) <= 1e-5 * abs(mh["loss"])
                       and abs(mc["grad_norm"] - mh["grad_norm"])
                       <= 1e-4 * mh["grad_norm"],
-                      f"LM train parity {arch} {mode}: metrics {mc} vs {mh}")
-        out[arch] = {"loss_card": res[0][0], "loss_cpu": res[1][0],
-                     "grad_max_rel_err": grad_err, "launches": launches,
-                     "steps": steps}
+                      f"LM train parity {cfg.name} {mode}: metrics {mc} vs "
+                      f"{mh}")
+            _need(steps[mode].get("expert_ids_equal_cpu", True),
+                  f"LM train parity {cfg.name} {mode}: the card routes "
+                  "tokens to other experts")
+        r = {"loss_card": res[0][0], "loss_cpu": res[1][0],
+             "grad_max_rel_err": grad_err, "launches": launches,
+             "steps": steps}
+        if cfg.name in LM_PARITY_CHANGES:
+            r["changed"] = LM_PARITY_CHANGES[cfg.name]
+        if cfg.is_moe:
+            r["routings"] = len(routes[1])
+            r["expert_ids_equal_cpu"] = _same_routes(*routes)
+        out[cfg.name] = r
         _need(abs(res[0][0] - res[1][0]) <= 1e-5 * abs(res[1][0]),
-              f"LM train parity {arch}: loss {res[0][0]} vs {res[1][0]}")
-        _need(grad_err <= 2e-5, f"LM train parity {arch}: gradients differ "
-              f"by {grad_err} of their max")
-        fwd, bwd = (("flash_attention", "flash_attention_bwd")
-                    if cfg.block_kind == "attn"
-                    else ("mamba_scan", "mamba_scan_bwd"))
-        _need(launches[fwd] == 2 * cfg.n_layers and
-              launches[bwd] == cfg.n_layers,
-              f"LM train parity {arch}: launches {launches}")
+              f"LM train parity {cfg.name}: loss {res[0][0]} vs {res[1][0]}")
+        _need(grad_err <= 2e-5, f"LM train parity {cfg.name}: gradients "
+              f"differ by {grad_err} of their max")
+        _need(r.get("expert_ids_equal_cpu", True),
+              f"LM train parity {cfg.name}: the card routes tokens to other "
+              "experts")
+        want = _train_launches(cfg)
+        _need(all(launches[k] == n for k, n in want.items()),
+              f"LM train parity {cfg.name}: launches {launches}, want {want}")
     print("lm_train_parity", json.dumps(out), flush=True)
     return out
 
 
 def lm_train_phase(dev) -> dict:
-    """qwen2.5-14b and falcon-mamba-7b at full width (n_layers cut to 4)
-    training through ``make_train_step`` on ``TokenPipeline`` batches
-    (dedup on the card): seq 2048, ``LM_TRAIN``'s global batch in 2
+    """``LM_TRAIN``'s models at full width (n_layers cut to 4 but for
+    zamba2-1.2b and internvl2-1b) training through ``make_train_step`` on
+    ``TokenPipeline`` batches (dedup on the card), internvl2-1b's with
+    seeded bf16 ``patch_embeds``: seq 2048, the global batch in
     microbatches, fp32 accumulation, remat "block", bf16 parameters; one
     warm-up step, then ``LM_TRAIN_STEPS`` timed steps with the launch
-    counters zeroed just before and read just after."""
+    counters zeroed just before and read just after
+    (``_train_launches`` × microbatches × steps)."""
     import dataclasses
     import torch
-    from repro_torch.configs import falcon_mamba_7b, qwen25_14b
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.train.loop import init_train_state, make_train_step
     from repro_torch.train.optimizer import OptimizerConfig, apply_updates
-    from repro_torch.utils import tree_map
+    from repro_torch.utils import tree_bytes, tree_map, tree_param_count
     out = {}
-    for full, fwd, bwd in ((qwen25_14b.config(), "flash_attention",
-                            "flash_attention_bwd"),
-                           (falcon_mamba_7b.config(), "mamba_scan",
-                            "mamba_scan_bwd")):
-        cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS,
-                                  remat="block")
-        batch, n_mb = LM_TRAIN[full.name]
+    for arch, (batch, n_mb, cut) in LM_TRAIN.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(
+            full, n_layers=LM_TRAIN_LAYERS if cut else full.n_layers,
+            remat="block")
         torch.cuda.empty_cache()
         state = init_train_state(cfg, 0, dev)
         opt_cfg = OptimizerConfig(warmup_steps=1,
@@ -2881,8 +2968,13 @@ def lm_train_phase(dev) -> dict:
             vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
             global_batch=batch, seed=0), device=dev)
         it = pipe.batches()
-        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
-                    next(it).items()} for _ in range(LM_TRAIN_STEPS + 1)]
+        batches = []
+        for i in range(LM_TRAIN_STEPS + 1):
+            tb = {k: torch.as_tensor(v, device=dev)
+                  for k, v in next(it).items()}
+            if cfg.frontend == "patch":
+                tb["patch_embeds"] = _patch_embeds(cfg, batch, i, dev)
+            batches.append(tb)
         data_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         state, m = step(state, batches[0])
@@ -2899,10 +2991,6 @@ def lm_train_phase(dev) -> dict:
             walls.append(time.perf_counter() - t0)
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        param_bytes = sum(t.numel() * t.element_size()
-                          for t in _leaves(state.params))
-        opt_bytes = sum(t.numel() * t.element_size()
-                        for t in _leaves(state.opt))
         zeros = tree_map(torch.zeros_like, state.opt["master"])
         adamw_ms = _time_ms(lambda: apply_updates(
             state.params, zeros, state.opt, opt_cfg), iters=3, warmup=1,
@@ -2910,52 +2998,211 @@ def lm_train_phase(dev) -> dict:
         del zeros
         tokens = batch * LM_TRAIN_SEQ
         wall = sorted(walls)[len(walls) // 2]
-        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
-             "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                        "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
-                        "d_ff": cfg.d_ff, "d_inner": cfg.d_inner,
-                        "ssm_state": cfg.ssm_state,
-                        "vocab_size": cfg.vocab_size},
+        widths = {k: getattr(cfg, k) for k in (
+            "d_model", "n_heads", "n_kv_heads", "hd", "d_ff", "d_inner",
+            "ssm_state", "vocab_size", "n_experts", "moe_top_k", "expert_ff",
+            "n_shared_experts", "shared_attn_every", "n_patches")}
+        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]}
+             if cut else {}, "widths": widths,
              "seq": LM_TRAIN_SEQ, "global_batch": batch,
              "microbatches": n_mb, "remat": cfg.remat,
              "data_s": data_s, "warmup_s": warm_s, "step_walls_s": walls,
              "step_wall_s": wall, "tokens_per_s": tokens / wall,
              "adamw_ms": adamw_ms, "adamw_share": adamw_ms / 1e3 / wall,
-             "peak_memory_bytes": peak, "param_bytes": param_bytes,
-             "opt_bytes": opt_bytes, "losses": losses,
+             "peak_memory_bytes": peak,
+             "params": tree_param_count(state.params),
+             "param_bytes": tree_bytes(state.params),
+             "opt_bytes": tree_bytes(state.opt), "losses": losses,
              "first_loss": losses[0], "last_loss": losses[-1],
              "dedup": pipe.dedup_stats, "launches": launches}
         print("lm_train", cfg.name, json.dumps(r), flush=True)
-        n = cfg.n_layers * n_mb * LM_TRAIN_STEPS
+        want = {k: n * n_mb * LM_TRAIN_STEPS
+                for k, n in _train_launches(cfg).items()}
         _need(all(math.isfinite(x) for x in losses),
               f"{cfg.name}: a loss is not finite: {losses}")
-        _need(launches[fwd] == 2 * n and launches[bwd] == n,
-              f"{cfg.name}: {fwd} launched {launches[fwd]} times (want "
-              f"{2 * n}: forward and remat recompute) and {bwd} "
-              f"{launches[bwd]} (want {n}, n_layers x microbatches x steps)")
+        _need(all(launches[k] == n for k, n in want.items()),
+              f"{cfg.name}: launches {launches}, want {want} (a "
+              "microbatch's launches x microbatches x steps)")
         out[full.name] = r
         del state, batches, step
     return out
 
 
+def moe_repeat_phase(dev) -> dict:
+    """MoE training repeats bit for bit on the card: deepseek-moe-16b's
+    bf16 smoke config, gradients twice from one state and a train step
+    from two copies of one state, every leaf of parameters and optimizer
+    state equal, and the warnings a third step raises under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the ops
+    PyTorch lists as not repeatable; reported); then at full width (4
+    layers, seq 2048, 2 microbatches) the gradients of one microbatch
+    twice, equal, and a train step twice
+    from the seeded initial state, compared by a digest of every leaf
+    (two copies of the ~44 GB state do not fit the card): the int64 sum of
+    its bit patterns and their sum weighted by position."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train.loop import (TrainState, init_train_state,
+                                        make_train_step)
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.utils import tree_leaves
+
+    def grads(cfg, params, batch):
+        ts = [t.requires_grad_() for _, t in tree_leaves(params)]
+        loss, _ = lm_loss(params, batch, cfg)
+        g = torch.autograd.grad(loss, ts, allow_unused=True,
+                                materialize_grads=True)
+        for t in ts:
+            t.requires_grad_(False)
+        return g
+
+    def leaves(st):
+        return [t for _, t in tree_leaves(st.params)] + \
+            [t for _, t in tree_leaves(st.opt)]
+
+    def digest(ts):
+        out = []
+        for t in ts:
+            t = t.reshape(-1)
+            bits = t.view(torch.int16 if t.element_size() == 2
+                          else torch.int32).to(torch.int64)
+            w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+            out.append((int(bits.sum()), int((bits * w).sum())))
+        return out
+
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=10,
+                              accum_dtype="float32")
+    out = {}
+    cfg = get_smoke_config("deepseek-moe-16b")
+    params = init_params(cfg, 0, dev)
+    batch = _train_batch(cfg, 4, 64, 0, dev)
+    g = [grads(cfg, params, batch) for _ in range(2)]
+    step = make_train_step(cfg, opt_cfg, n_microbatches=2)
+    runs = []
+    for _ in range(2):
+        p = _tree_to(params, dev)
+        runs.append(leaves(step(TrainState(p, init_opt_state(p), torch.zeros(
+            (), dtype=torch.int32, device=dev)), batch)[0]))
+    # the ops PyTorch itself lists as not repeatable on CUDA, if the step
+    # runs any: one more step in its deterministic mode, warnings only
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p = _tree_to(params, dev)
+            step(TrainState(p, init_opt_state(p), torch.zeros(
+                (), dtype=torch.int32, device=dev)), batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out[cfg.name] = {
+        "grads_equal": all(torch.equal(a, b) for a, b in zip(*g)),
+        "step_equal": all(torch.equal(a, b) for a, b in zip(*runs)),
+        "deterministic_mode_warnings": sorted(
+            {str(w.message)[:200] for w in caught
+             if "deterministic" in str(w.message)})}
+    del g, runs, params, p
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=LM_TRAIN_LAYERS, remat="block")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, dev)
+    g = [grads(cfg, params, _train_batch(cfg, 1, LM_TRAIN_SEQ, 1, dev))
+         for _ in range(2)]
+    grads_equal = all(torch.equal(a, b) for a, b in zip(*g))
+    del g, params
+    step = make_train_step(cfg, opt_cfg, n_microbatches=2)
+    batch = _train_batch(cfg, 2, LM_TRAIN_SEQ, 2, dev)
+    digests, losses = [], []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        st, m = step(init_train_state(cfg, 0, dev), batch)
+        losses.append(float(m["loss"]))
+        digests.append(digest(leaves(st)))
+        del st
+    out[cfg.name] = {"reduced": {"n_layers": [28, cfg.n_layers]},
+                     "grads_equal": grads_equal,
+                     "step_digest_equal": digests[0] == digests[1],
+                     "leaves": len(digests[0]), "losses": losses}
+    print("moe_repeat", json.dumps(out), flush=True)
+    for name, r in out.items():
+        _need(all(v for k, v in r.items() if k.endswith("equal")),
+              f"MoE training does not repeat on the card: {name} {r}")
+    return out
+
+
+def detect_step_phase(dev) -> dict:
+    """``core.detect.detect_step`` at the paper widths (``fast_seismic.
+    config()``, statistics at rate 1.0) on each station of phase 4's
+    20-minute trace as one chunk, given the CPU's frozen statistics
+    (``station_stats``): the card's outputs equal the CPU path's (all
+    integers and masks, so exactly, as phase 4 holds its pairs), launch
+    counters zeroed just before and read just after the card's calls
+    (``stft_mag``, ``haar2d`` and ``minmax_sig_buckets`` once a call, no
+    other kernel), the card's walls."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core.detect import detect_step, station_stats
+    from repro_torch.kernels import ops
+    ds = make_dataset(SynthConfig(**PARITY_SYNTH))
+    cfg = fast_seismic.config()
+    cfg = dataclasses.replace(cfg, fingerprint=dataclasses.replace(
+        cfg.fingerprint, mad_sample_rate=1.0))
+    wave = torch.as_tensor(ds.waveforms)
+    meds, mads = station_stats(wave, cfg.fingerprint)
+    n = wave.shape[0]
+    detect_step(wave[0].to(dev), meds[0], mads[0], cfg)     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    card, walls = [], []
+    for st in range(n):
+        t0 = time.perf_counter()
+        r = detect_step(wave[st].to(dev), meds[st], mads[st], cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        card.append({k: v.cpu() for k, v in r.items()})
+    launches = dict(ops.LAUNCHES)
+    cpu = [detect_step(wave[st], meds[st], mads[st], cfg, device="cpu")
+           for st in range(n)]
+    equal = all(torch.equal(a[k], b[k]) for a, b in zip(card, cpu)
+                for k in b)
+    out = {"synth": PARITY_SYNTH, "chunk_samples": wave.shape[1],
+           "pairs": [int(r["pair_valid"].sum()) for r in cpu],
+           "events": [int(r["ev_valid"].sum()) for r in cpu],
+           "equal_cpu": equal, "walls_s": walls, "launches": launches}
+    print("detect_step", json.dumps(out), flush=True)
+    want = {k: (n if k in ("stft_mag", "haar2d", "minmax_sig_buckets")
+                else 0) for k in launches}
+    _need(sum(out["pairs"]) > 0, "detect_step found no pairs on the trace")
+    _need(equal, "detect_step: the card's outputs differ from the CPU's")
+    _need(launches == want, f"detect_step launches {launches}, want {want}")
+    return out
+
+
 def train_resume_phase(tmp: str) -> dict:
-    """``python -m repro_torch.launch.train --arch smoke --device cuda``
-    for 8 steps uninterrupted and, beside it on the same card, again with
-    ``--inject-failure-at 5``, which must exit 42 before step 5's
-    checkpoint; then ``--resume`` of the second: the final checkpoint
-    (parameters, master, moments, steps) and the final loss must equal
-    the uninterrupted run's bit for bit."""
+    """For each of ``RESUME_ARCHS`` (the launcher's smoke model, an MoE
+    and a hybrid smoke config): ``python -m repro_torch.launch.train
+    --device cuda`` for 8 steps uninterrupted and, beside it on the same
+    card, again with ``--inject-failure-at 5``, which must exit 42 before
+    step 5's checkpoint; then ``--resume`` of the second: the final
+    checkpoint (parameters, master, moments, steps) and the final loss
+    must equal the uninterrupted run's bit for bit. The archs' runs go
+    side by side: the six first runs at once, then the three resumes."""
     import os
     import numpy as np
     from repro_torch.train import checkpoint as ckpt
-    common = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-              "smoke", "--steps", "8", "--seq", "64", "--batch", "4",
-              "--ckpt-every", "2", "--seed", "3", "--device", "cuda"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
-    def start(args):
-        return subprocess.Popen(common + args, env=env, text=True,
-                                stdout=subprocess.PIPE,
+    def start(arch, smoke, args):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--steps", "8", "--seq", "64", "--batch", "4",
+               "--ckpt-every", "2", "--seed", "3", "--device", "cuda"]
+        return subprocess.Popen(cmd + (["--smoke"] if smoke else []) + args,
+                                env=env, text=True, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE)
 
     def finish(p):
@@ -2967,38 +3214,45 @@ def train_resume_phase(tmp: str) -> dict:
         return p.returncode, err
 
     t0 = time.perf_counter()
-    procs = [start(["--ckpt-dir", f"{tmp}/ref", "--metrics-out",
-                    f"{tmp}/ref.json"]),
-             start(["--ckpt-dir", f"{tmp}/crash", "--inject-failure-at",
-                    "5"])]
-    (ref_rc, ref_err), (crash_rc, crash_err) = (finish(p) for p in procs)
+    procs = {arch: [start(arch, smoke, ["--ckpt-dir", f"{tmp}/{arch}/ref",
+                                        "--metrics-out",
+                                        f"{tmp}/{arch}/ref.json"]),
+                    start(arch, smoke, ["--ckpt-dir", f"{tmp}/{arch}/crash",
+                                        "--inject-failure-at", "5"])]
+             for arch, smoke in RESUME_ARCHS}
+    done = {arch: [finish(p) for p in ps] for arch, ps in procs.items()}
     walls = {"uninterrupted_and_crash": time.perf_counter() - t0}
-    _need(ref_rc == 0, f"train launcher failed: {ref_err[-800:]}")
-    _need(crash_rc == 42, f"--inject-failure-at 5 exited {crash_rc}, not "
-          f"42: {crash_err[-800:]}")
-    _need(ckpt.latest_step(f"{tmp}/crash") == 4,
-          "the crashed run's latest checkpoint is not step 4")
+    for arch, ((ref_rc, ref_err), (crash_rc, crash_err)) in done.items():
+        _need(ref_rc == 0, f"train launcher {arch} failed: {ref_err[-800:]}")
+        _need(crash_rc == 42, f"{arch} --inject-failure-at 5 exited "
+              f"{crash_rc}, not 42: {crash_err[-800:]}")
+        _need(ckpt.latest_step(f"{tmp}/{arch}/crash") == 4,
+              f"{arch}: the crashed run's latest checkpoint is not step 4")
     t0 = time.perf_counter()
-    res_rc, res_err = finish(start(["--ckpt-dir", f"{tmp}/crash",
-                                    "--resume", "--metrics-out",
-                                    f"{tmp}/res.json"]))
+    procs = {arch: start(arch, smoke, ["--ckpt-dir", f"{tmp}/{arch}/crash",
+                                       "--resume", "--metrics-out",
+                                       f"{tmp}/{arch}/res.json"])
+             for arch, smoke in RESUME_ARCHS}
+    resumed = {arch: finish(p) for arch, p in procs.items()}
     walls["resume"] = time.perf_counter() - t0
-    _need(res_rc == 0, f"--resume failed: {res_err[-800:]}")
-    a, _, _ = ckpt.restore_flat(f"{tmp}/ref")
-    b, _, _ = ckpt.restore_flat(f"{tmp}/crash")
-    equal = sorted(a) == sorted(b) and all(
-        np.array_equal(a[k], b[k]) for k in a)
-    want = json.loads(pathlib.Path(f"{tmp}/ref.json").read_text())
-    got = json.loads(pathlib.Path(f"{tmp}/res.json").read_text())
-    r = {"walls_s": walls, "leaves": len(a), "bitwise_equal": equal,
-         "final_loss": [want["final_loss"], got["final_loss"]],
-         "crash_rc": crash_rc, "dedup": got["dedup"]}
-    print("train_resume", json.dumps(r), flush=True)
-    _need(equal, "the resumed run's final state differs from the "
-          "uninterrupted run's")
-    _need(got["final_loss"] == want["final_loss"],
-          f"final losses differ: {r['final_loss']}")
-    return r
+    out = {"walls_s": walls}
+    for arch, (res_rc, res_err) in resumed.items():
+        _need(res_rc == 0, f"{arch} --resume failed: {res_err[-800:]}")
+        a, _, _ = ckpt.restore_flat(f"{tmp}/{arch}/ref")
+        b, _, _ = ckpt.restore_flat(f"{tmp}/{arch}/crash")
+        equal = sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
+        want = json.loads(pathlib.Path(f"{tmp}/{arch}/ref.json").read_text())
+        got = json.loads(pathlib.Path(f"{tmp}/{arch}/res.json").read_text())
+        out[arch] = {"leaves": len(a), "bitwise_equal": equal,
+                     "final_loss": [want["final_loss"], got["final_loss"]],
+                     "crash_rc": done[arch][1][0], "dedup": got["dedup"]}
+        _need(equal, f"{arch}: the resumed run's final state differs from "
+              "the uninterrupted run's")
+        _need(got["final_loss"] == want["final_loss"],
+              f"{arch}: final losses differ: {out[arch]['final_loss']}")
+    print("train_resume", json.dumps(out), flush=True)
+    return out
 
 
 def profile_phase(ds, dev) -> dict:
@@ -3129,6 +3383,8 @@ def main() -> int:
     report["lm_train"] = lm_train_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         report["train_resume"] = train_resume_phase(tmp)
+    report["moe_repeat"] = moe_repeat_phase(dev)
+    report["detect_step"] = detect_step_phase(dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:
@@ -3146,12 +3402,13 @@ def main() -> int:
             k["launches_by_path"] = {
                 path: report[path][LM_KERNEL_MODEL[k["name"]]]["launches"][
                     k["name"]] for path in ("lm_serve", "lm_train")}
-        if k["name"] in ("flash_attention", "mamba_scan"):
-            # every serve run's count, by model
+        if k["name"] in LM_KERNEL_MODEL:
+            # every serve and training run's count, by model
             k["launches_by_model"] = {
-                m: r["launches"][k["name"]]
-                for m, r in report["lm_serve"].items()
-                if r["launches"].get(k["name"])}
+                path: {m: r["launches"][k["name"]]
+                       for m, r in report[path].items()
+                       if r["launches"].get(k["name"])}
+                for path in ("lm_serve", "lm_train")}
     report["kernels"] = kernels
     # the Min-Max kernels also carry the plan of each shape they ran at,
     # the detection core's kernels their launches on each driver's path

@@ -21,6 +21,11 @@ migration-stacks them on the device into an origin and a moveout
 residual, and the groups are sized from whole-trace peak amplitudes
 (``_locate_tail``).
 
+``detect_step`` is the one-chunk core: a chunk's fingerprints through
+one guarded index step over a fresh index, the occurrence filter and
+station clustering, with fixed output shapes (the reference's jittable
+core for chunk-parallel runs).
+
 ``detect_events`` runs on ``cuda`` unless ``device="cpu"`` is passed; it
 raises when CUDA is missing and the CPU was not asked for.
 
@@ -268,6 +273,56 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     if keep_pairs:
         stats["_station_pairs"] = station_pairs
     return detections, station_events, times, stats
+
+
+def detect_step(waveform_chunk, med, mad, cfg: DetectConfig, icfg=None,
+                window: int = 0, saturation: int = 0, dup_tables: int = 0,
+                occ_limit: int = 0, device=None) -> dict:
+    """One chunk's detection step, over a fresh index.
+
+    ``waveform_chunk`` (chunk_samples,) includes its halo; ``med`` /
+    ``mad`` (n_coeff,) are the frozen §5.2 statistics. The chunk's
+    fingerprints go through one ``index.guarded_step`` against an empty
+    index (the streaming core's insert / query, guards and limiter, no
+    verify), then the §6.5 occurrence filter and station clustering. The
+    quality knobs (``saturation``, ``dup_tables``, ``occ_limit``) default
+    off; ``icfg`` sizes the index (``occ_limit`` > 0 needs
+    ``icfg.occ_slots``). Inputs that are tensors stay on their device
+    unless ``device`` names one; anything else goes to ``cuda`` unless
+    ``device="cpu"``. Returns the pairs' ``dt`` / ``idx1`` / ``sim`` /
+    ``pair_valid`` and the events' ``ev_dt`` / ``ev_onset`` /
+    ``ev_score`` / ``ev_valid``, as the reference does."""
+    from repro_torch.stream import index as index_mod
+    fcfg, lcfg, acfg = cfg.fingerprint, cfg.lsh, cfg.align
+    if icfg is None:
+        icfg = index_mod.StreamIndexConfig(n_buckets=4096,
+                                           bucket_cap=lcfg.bucket_cap)
+    assert occ_limit == 0 or icfg.occ_slots > 0, \
+        "occ_limit needs icfg.occ_slots (the partner-count ring)"
+    x = utils.placed(waveform_chunk, device).to(torch.float32)
+    dev = x.device
+    med_mad = (utils.placed(med, dev), utils.placed(mad, dev))
+    _, packed = fp_mod.fingerprints_from_waveform(x, fcfg, med_mad=med_mad)
+    n = packed.shape[0]
+    mappings = lsh_mod.hash_mappings(fcfg.fp_dim, lcfg, dev)
+    sigs, buckets = lsh_mod.signatures_and_buckets(packed, mappings, lcfg,
+                                                   icfg.n_buckets)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    _, pooled, _ = index_mod.guarded_step(
+        index_mod.init_index(lcfg, icfg, 1, dev), sigs[None], buckets[None],
+        ids, None, lcfg, window, saturation=saturation,
+        dup_tables=dup_tables, occ_limit=occ_limit)
+    pairs = Pairs(pooled.idx1[0], pooled.idx2[0], pooled.sim[0],
+                  pooled.valid[0])
+    if lcfg.occurrence_frac > 0:
+        pairs, _ = lsh_mod.occurrence_filter(pairs, n, lcfg.occurrence_frac)
+    events = align_mod.cluster_station(pairs, acfg)
+    return {
+        "dt": pairs.dt, "idx1": pairs.idx1, "sim": pairs.sim,
+        "pair_valid": pairs.valid,
+        "ev_dt": events.dt, "ev_onset": events.onset,
+        "ev_score": events.score, "ev_valid": events.valid,
+    }
 
 
 def recall_against_truth(detections: dict, station_events: list[Events],

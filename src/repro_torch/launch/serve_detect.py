@@ -75,6 +75,11 @@ from repro_torch.stream.index import IndexState
 from repro_torch.stream.ingest import StreamConfig
 from repro_torch.stream.telemetry import StreamTelemetry
 
+# completed requests' latency samples kept for exact percentiles; the
+# registry's histograms keep the whole lifetime (bucketed), so the engine's
+# own memory stays bounded on an unbounded request stream
+LATENCY_WINDOW = 65536
+
 
 @dataclass
 class ServeConfig:
@@ -201,6 +206,8 @@ class ServeDetectEngine:
         self.queue: collections.deque[QueryRequest] = collections.deque()
         self.ticks = 0
         self.dispatches = 0
+        self.lat = {k: collections.deque(maxlen=LATENCY_WINDOW)
+                    for k in ("queue_wait_s", "service_s", "latency_s")}
         if state is not None:
             self._install(state, med_mad)
 
@@ -271,6 +278,10 @@ class ServeDetectEngine:
         self.queue.append(req)
         self.telemetry.record_serve_admission(True)
         return True
+
+    def active(self) -> bool:
+        """Whether any slot holds a request."""
+        return any(r is not None for r in self.slot_req)
 
     def pending(self) -> int:
         """Requests not yet completed (queued + in slots)."""
@@ -355,6 +366,9 @@ class ServeDetectEngine:
         req.outcome = "served"
         req.t_done = self.clock()
         self.slot_req[slot] = None
+        self.lat["queue_wait_s"].append(req.queue_wait_s)
+        self.lat["service_s"].append(req.service_s)
+        self.lat["latency_s"].append(req.latency_s)
         self.telemetry.record_serve_done(req.queue_wait_s, req.service_s,
                                          req.latency_s)
 

@@ -70,6 +70,7 @@ class StreamTelemetry:
         self.watchdog = watchdog
         self.clock = clock
         self.t_start: float | None = None   # first chunk arrival
+        self.raw_walls: dict[str, list] | None = None
         # uptime carried over restores (wall time is not checkpointable)
         self._uptime_base = 0.0
 
@@ -100,11 +101,25 @@ class StreamTelemetry:
         for name, v in zip(QC_FIELDS, np.asarray(qc).reshape(-1)):
             self.registry.counter(f"step_{name}_total", station=s).inc(int(v))
 
+    def capture_raw_walls(self) -> dict[str, list]:
+        """Opt in to exact wall samples: the histograms are log-bucketed,
+        so their percentiles are bucket upper edges; a benchmark that
+        publishes percentiles computes them from these lists instead.
+        Returns the ``{"fused_step": [...], "host_tail": [...]}`` lists
+        that the two hooks below fill from now on."""
+        if self.raw_walls is None:
+            self.raw_walls = {"fused_step": [], "host_tail": []}
+        return self.raw_walls
+
     def record_fused_wall(self, label: str, wall_s: float) -> None:
+        if self.raw_walls is not None:
+            self.raw_walls["fused_step"].append(wall_s)
         self.registry.histogram("fused_step_wall_seconds",
                                 station=label).record(wall_s)
 
     def record_host_tail(self, station, wall_s: float) -> None:
+        if self.raw_walls is not None:
+            self.raw_walls["host_tail"].append(wall_s)
         self.registry.histogram("host_tail_wall_seconds",
                                 station=str(station)).record(wall_s)
 

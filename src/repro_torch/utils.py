@@ -196,6 +196,16 @@ def tree_leaves(tree: dict, prefix: tuple = ()):
             yield prefix + (k,), tree[k]
 
 
+def tree_bytes(tree: dict) -> int:
+    """Total bytes of a nested dict of tensors (meta tensors included)."""
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def tree_param_count(tree: dict) -> int:
+    """Total elements of a nested dict of tensors."""
+    return sum(t.numel() for _, t in tree_leaves(tree))
+
+
 def tree_map(fn, tree: dict) -> dict:
     """``fn`` applied to every leaf of a nested dict, same keys."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)

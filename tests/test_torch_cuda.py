@@ -1049,7 +1049,10 @@ def test_flash_attention_bwd_kernel(cuda, b, hq, hkv, sq, sk, d, dt, causal):
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", _edge_cases() + [
-    (1, 40, 8, 2048, 2048, 128, True)])          # qwen2.5-14b's training
+    (1, 40, 8, 2048, 2048, 128, True),           # qwen2.5-14b's training
+    (1, 14, 2, 2048, 2048, 64, True),            # internvl2-1b's: group 7
+    (1, 32, 32, 2048, 2048, 64, True),           # zamba2-1.2b's shared block
+    (1, 16, 16, 2048, 2048, 128, True)])         # deepseek-moe-16b's
 def test_flash_attention_bwd_bf16_tiles(cuda, b, hq, hkv, sq, sk, d, causal):
     _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, torch.bfloat16, causal,
                   sq * 1000 + sk)
@@ -1166,3 +1169,68 @@ def test_mamba_scan_autograd_takes_the_kernels(cuda):
     ref.mamba_scan(*y)[0].backward(dy)
     for a_, w in zip(x, y):
         _lm_close(a_.grad.cpu(), w.grad)
+
+
+def test_moe_train_steps_repeat_bit_for_bit(cuda):
+    """deepseek-moe-16b's bf16 smoke config: a 2-microbatch train step
+    from two copies of one state on one batch gives equal parameters and
+    optimizer state, leaf for leaf (the dispatch's and the combine's
+    indexing backward included)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import TrainState, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    cfg = get_smoke_config("deepseek-moe-16b")
+    params = init_params(cfg, 0, cuda)
+    g = np.random.default_rng(0)
+    toks = torch.as_tensor(g.integers(1, cfg.vocab_size, (4, 64)),
+                           dtype=torch.int32, device=cuda)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1,
+                                                total_steps=10),
+                           n_microbatches=2)
+    runs = []
+    for _ in range(2):
+        p = tu.tree_map(torch.clone, params)
+        st, m = step(TrainState(p, init_opt_state(p), torch.zeros(
+            (), dtype=torch.int32, device=cuda)), batch)
+        runs.append([t for _, t in tu.tree_leaves(st.params)]
+                    + [t for _, t in tu.tree_leaves(st.opt)] + [m["loss"]])
+    assert bool(torch.isfinite(runs[0][-1]))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_detect_step_on_the_card_equals_the_cpu(cuda):
+    """``core.detect.detect_step`` on a 12,000-sample chunk at narrow
+    widths: every output equal to the CPU's, one launch each of
+    ``stft_mag``, ``haar2d`` and ``minmax_sig_buckets``."""
+    from repro_torch.core import align, detect, fingerprint, synth
+    from repro_torch.core.lsh import LSHConfig
+    fcfg = fingerprint.FingerprintConfig(img_time=32, img_hop=8, top_k=64,
+                                         mad_sample_rate=1.0, img_freq=16)
+    cfg = detect.DetectConfig(
+        fingerprint=fcfg,
+        lsh=LSHConfig(n_tables=100, n_funcs=4, n_matches=2, bucket_cap=8,
+                      min_dt=fcfg.overlap_fingerprints,
+                      occurrence_frac=0.05),
+        align=align.AlignConfig(channel_threshold=3, min_cluster_sim=4,
+                                min_cluster_size=1, min_stations=2))
+    ds = synth.make_dataset(synth.SynthConfig(
+        duration_s=420.0, n_stations=3, n_sources=2, events_per_source=4,
+        repeating_noise_stations=(0,), event_snr=3.0, seed=3))
+    x = torch.as_tensor(ds.waveforms[1][:12000])
+    med, mad = fingerprint.mad_stats(
+        fingerprint.coeffs_from_waveform(x, fcfg), 1.0)
+    want = detect.detect_step(x, med, mad, cfg, device="cpu")
+    ops.reset_launches()
+    got = detect.detect_step(x.to(cuda), med, mad, cfg)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] for k in
+            ("stft_mag", "haar2d", "minmax_sig_buckets", "minmax_hash",
+             "jaccard_popcount")} == {"stft_mag": 1, "haar2d": 1,
+                                      "minmax_sig_buckets": 1,
+                                      "minmax_hash": 0, "jaccard_popcount": 0}
+    assert bool(want["pair_valid"].any())
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k

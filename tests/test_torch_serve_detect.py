@@ -147,6 +147,45 @@ def test_match_lists_equal_the_reference(corpus, n_slots):
                for r in port_reqs)
 
 
+def test_active_and_latency_windows_follow_the_reference(corpus):
+    """After every tick, ``active()`` and the lengths of the per-request
+    latency deques equal the reference engine's on the same requests (two
+    slots, a queue of three: three shed, three served over the ticks)."""
+    r_state, r_med, r_mad = corpus["ref"].pool_serving_state()
+    cfg, scfg = jfast.latency_config(), jfast.stream_latency_smoke_config()
+    engines = {
+        "ref": jserve.ServeDetectEngine(cfg, scfg, r_state, (r_med, r_mad),
+                                        n_slots=2, max_queue=3),
+        "port": tserve.ServeDetectEngine(
+            corpus["cfg"], corpus["scfg"],
+            convert.index_state(_leaves(r_state), "cpu"),
+            convert.med_mad(r_med, r_mad, "cpu"), n_slots=2, max_queue=3,
+            device="cpu")}
+
+    def view(eng):
+        return eng.active(), {k: (len(v), v.maxlen)
+                              for k, v in sorted(eng.lat.items())}
+
+    assert tserve.LATENCY_WINDOW == jserve.LATENCY_WINDOW
+    assert view(engines["port"]) == view(engines["ref"])
+    for name, module in (("ref", jserve), ("port", tserve)):
+        for r in _requests(corpus, 6, module):
+            engines[name].submit(r)
+    views = []
+    while engines["ref"].pending() or engines["port"].pending():
+        views.append(view(engines["port"]))
+        assert views[-1] == view(engines["ref"])
+        for eng in engines.values():
+            eng.tick()
+    views.append(view(engines["port"]))
+    assert views[-1] == view(engines["ref"])
+    assert any(v[0] for v in views) and not views[-1][0]
+    assert views[-1][1]["latency_s"][0] == 3
+    port = engines["port"]
+    assert all(a >= b for a, b in zip(port.lat["latency_s"],
+                                      port.lat["service_s"]))
+
+
 @pytest.mark.parametrize("max_pairs,saturation,masked",
                          [(0, 0, False), (40, 0, False), (40, 3, True)],
                          ids=["0", "40", "40-saturated-masked"])

@@ -299,3 +299,31 @@ def test_heartbeat_carries_the_serve_view(pooled):
     assert sorted(beat) == sorted(ref.telemetry.heartbeat(ref))
     assert beat["serve"] == det.telemetry.serve_view()
     assert det.telemetry.heartbeat_line(det).startswith("HEARTBEAT {")
+
+
+def test_raw_walls_fill_as_the_references(dirty):
+    """``capture_raw_walls``: None until captured; once captured, the
+    fused-step and host-tail hooks append a wall each as the reference's
+    do (the same counts on the same stream, one a histogram sample)."""
+    scen, med_mad = dirty
+    counts = {}
+    for pkg in PKGS:
+        engine, fast, _ = PKGS[pkg]
+        kw = {} if pkg == "ref" else {"device": "cpu"}
+        det = engine.StreamingDetector(fast.smoke_config(), _scfg(pkg),
+                                       med_mad=med_mad, **kw)
+        assert det.telemetry.raw_walls is None
+        walls = det.telemetry.capture_raw_walls()
+        assert det.telemetry.capture_raw_walls() is walls
+        for chunk in np.array_split(scen.waveforms[0], 10):
+            det.push(chunk)
+        det.flush()
+        assert all(w >= 0.0 for v in walls.values() for w in v)
+        counts[pkg] = {k: len(v) for k, v in walls.items()}
+    assert counts["port"] == counts["ref"]
+    assert counts["port"]["fused_step"] > 0
+    assert counts["port"]["host_tail"] > 0
+    tele = ttele.StreamTelemetry()
+    tele.record_fused_wall("0", 0.5)
+    tele.record_host_tail(0, 0.25)
+    assert tele.raw_walls is None

@@ -1,13 +1,18 @@
 """repro_torch.utils against repro.utils: bit-exact on random inputs and on
-the uint32 edges 0 and 2**32 - 1."""
+the uint32 edges 0 and 2**32 - 1; the tree sizes on every arch's smoke
+parameters."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro import utils as ju
+from repro.models import decoder as jdecoder
+from repro_torch import configs as tconfigs
 from repro_torch import utils as tu
+from repro_torch.models import decoder as tdecoder
 
 EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1], np.uint32)
 
@@ -121,3 +126,27 @@ def test_lex_key_sorts_like_lax_sort(rng):
 def test_cdiv_round_up(a, b):
     assert tu.cdiv(a, b) == ju.cdiv(a, b)
     assert tu.round_up(a, b) == ju.round_up(a, b)
+
+
+def test_tree_bytes_reference_case():
+    """The reference's ``tests/test_utils_props.py`` case, in tensors."""
+    tree = {"a": torch.zeros((4, 4), dtype=torch.float32),
+            "b": torch.zeros(3, dtype=torch.int8)}
+    assert tu.tree_bytes(tree) == ju.tree_bytes(
+        {"a": np.zeros((4, 4), np.float32), "b": np.zeros(3, np.int8)})
+    assert tu.tree_bytes(tree) == 64 + 3
+    assert tu.tree_param_count(tree) == 19
+
+
+@pytest.mark.parametrize("arch", tconfigs.LM_ARCHS)
+def test_tree_bytes_and_param_count_of_every_smoke_model(arch):
+    """Equal to the reference's on each arch's smoke ``init_params``: the
+    port's tensors, their meta copies and the reference's shapes."""
+    shapes = jax.eval_shape(
+        lambda k: jdecoder.init_params(k, jconfigs.get_smoke_config(arch)),
+        jax.random.PRNGKey(0))
+    params = tdecoder.init_params(tconfigs.get_smoke_config(arch), 0, "cpu")
+    meta = tu.tree_map(lambda t: t.to("meta"), params)
+    for tree in (params, meta):
+        assert tu.tree_bytes(tree) == ju.tree_bytes(shapes)
+        assert tu.tree_param_count(tree) == ju.tree_param_count(shapes)
