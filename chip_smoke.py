@@ -2,8 +2,9 @@
 """Run the PyTorch port's batch FAST detection, streaming detection,
 offline Min-Max LSH search, LM serving (every LM family), detection
 serving, detector snapshots, elastic pool membership, the location /
-magnitude tier, LM training (every family) and the one-chunk
-``detect_step`` on one NVIDIA GPU, end to end.
+magnitude tier, LM training (every family), the one-chunk
+``detect_step``, and the station-sharded pool and ``detect_step_sharded``
+over logical meshes of the one card, on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -257,6 +258,29 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     1.0): every output equal to the CPU path's, launch counters zeroed
     just before and read just after (``stft_mag``, ``haar2d``,
     ``minmax_sig_buckets`` once a call), the card's walls.
+30. The station-sharded pool (``StreamingDetector(devices=...)``) over
+    logical meshes of the one card, ``[cuda:0] × width``: the shards run
+    one after another on the card, so this holds the split to the
+    one-device answers and counts its launches; it does not measure
+    multi-card scaling. (a) Phase 7's stream under a 2-wide mesh (no pad
+    row) and a 3-wide one (``SHARDED_WIDTHS``; two pad rows): each record
+    equal to phase 7's, each of the four kernels launched at least once a
+    shard a block, ``memory_allocated`` equal before the steady pushes
+    ``SHARDED_MEMORY_PUSHES`` (ten apart), walls, spans (``fused_step``
+    beside phase 7's), memory before and at peak, launches; the 3-wide
+    pool is snapshotted after push 720. (c) That snapshot restored with no
+    mesh and under the 2-wide mesh, each finished equal to phase 7's
+    record. (b) Phase 18's join and leave over it under the 3-wide mesh
+    (``sharded_elastic``: the pool padded 5 → 6, then 4 → 6), stations
+    0–3 equal to phase 7's. (d) ``core.detect.detect_step_sharded`` at
+    ``SHAPES["station_month"]`` (512 chunks × 512,000 samples of a seeded
+    one-station synthetic month) at the paper widths under a 2-wide mesh,
+    ``DETECT_SHARDED_GROUP`` chunks a pooled call, launch counters
+    zeroed just before and read just after (``stft_mag``, ``haar2d``,
+    ``minmax_sig_buckets`` once a call): wall, chunks and fingerprints a
+    second, ``model_flops`` over the wall beside the fp32 peak, memory;
+    eight seeded chunks equal the CPU path's ``detect_step`` on each
+    alone, exactly (the kernels' plain versions at this path's shapes).
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -279,7 +303,10 @@ The serving phase's counts stand beside them under ``launches_by_path``
 also carry their error, time, bound and library time at the serving
 shapes (``serving_shape``), and so do the located paths' (phases 18, 19,
 21 and 22: ``elastic``, ``located_batch``, ``located_stream``,
-``serve_locate``) and ``detect_step``'s (29) for the kernels each runs.
+``serve_locate``) and ``detect_step``'s (29) for the kernels each runs;
+the sharded stream's (30a, its 3-wide mesh: ``sharded_stream``) and
+``detect_step_sharded``'s (30d) stand under all four kernels of the
+detection core.
 Before them it prints the script's seconds (``chip_smoke_seconds``).
 Without CUDA it exits 2 and prints no result. Writes
 ``chiprun_out/chip_smoke.json`` with everything printed.
@@ -351,15 +378,18 @@ KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
 # launches_by_path: the batch replay (phase 5), the streaming service
 # (phase 7), the offline search (phase 11), detection serving (phase 16),
 # the elastic stream (18), the located batch replay (19), the located
-# stream (21), serving with --locate (22) and detect_step (29)
+# stream (21), serving with --locate (22), detect_step (29), the sharded
+# stream (30a, its 3-wide mesh) and detect_step_sharded (30d)
 MORE_PATHS = ("located_batch", "located_stream", "serve_locate", "elastic",
-              "detect_step")
+              "detect_step", "sharded_stream", "detect_step_sharded")
 KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve")
                 + MORE_PATHS,
                 "haar2d": ("paper", "stream_paper", "serve") + MORE_PATHS,
                 "minmax_sig_buckets": ("paper", "stream_paper")
                 + MORE_PATHS,
-                "jaccard_popcount": ("paper", "stream_paper", "elastic"),
+                "jaccard_popcount": ("paper", "stream_paper", "elastic",
+                                     "sharded_stream",
+                                     "detect_step_sharded"),
                 "minmax_hash": ("offline_paper", "serve", "serve_locate")}
 SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # kernel tolerance, a share of max|plain|: fp32 summation order and the
@@ -411,6 +441,18 @@ RESUME_ARCHS = (("smoke", False), ("deepseek-moe-16b", True),
 SERVE_WINDOW_S = 60.0
 SERVE_REQUESTS = 64
 SERVE_OVERLOAD = 1100
+# phase 30: the logical station meshes on one card, [cuda:0] × width (the
+# 3-wide one pads phase 7's 4 stations with 2 rows); the pushes before
+# which memory_allocated is read (ten steady pushes, well past the
+# statistics freeze); detect_step_sharded's shape, mesh, chunks a pooled
+# call (512 chunks of 2,544 fingerprints do not fit one call: ~26 MB of
+# outputs and ~0.2 GB of work a chunk) and sampled chunks
+SHARDED_WIDTHS = (2, 3)
+SHARDED_MEMORY_PUSHES = (300, 310)
+DETECT_SHARDED_SHAPE = "station_month"
+DETECT_SHARDED_WIDTH = 2
+DETECT_SHARDED_GROUP = 32
+DETECT_SHARDED_SAMPLE = 8
 # wall-clock entries of a stream's ingest summaries
 WALL_KEYS = ("wall_s", "chunk_ms_p50", "chunk_ms_p95", "chunks_per_s",
              "samples_per_s")
@@ -1819,7 +1861,8 @@ def serve_locate_phase(dev) -> dict:
     return out
 
 
-def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
+def elastic_phase(ds, dev, tmp: str, want: dict, devices=None,
+                  label: str = "elastic") -> dict:
     """Elastic pool membership at full width: phase 17's paper-pool
     snapshot (push 720) restored on the card, ``add_station()`` (a fifth
     station joining at the frontier, fed seeded noise at station 0's
@@ -1829,7 +1872,11 @@ def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
     stats and events, and the detections, must equal phase 7's
     uninterrupted record (bounded mode keeps no triplets past their
     window, so pairs are held by the counts the stats carry: emitted,
-    kept, windows). The two re-packs are timed (synchronised)."""
+    kept, windows). The two re-packs are timed (synchronised).
+    ``devices`` restores the pool over that station mesh (phase 30b):
+    each re-pack re-pads and re-splits it, and every kernel then launches
+    at least once a shard a block; the pool's pad rows and mesh width are
+    reported after the restore, the join and the leave."""
     import numpy as np
     import torch
     from repro_torch.configs import fast_seismic
@@ -1838,15 +1885,23 @@ def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
     cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
     wave = ds.waveforms
     starts = list(range(0, wave.shape[1], STREAM_CHUNK))
-    det, step = StreamingDetector.restore(tmp, cfg, scfg, device=dev)
+    det, step = StreamingDetector.restore(tmp, cfg, scfg, device=dev,
+                                          devices=devices)
     n = wave.shape[0]
     rng = np.random.default_rng(5)
+
+    def layout():
+        return {"pool_pad": det.pool_pad,
+                "mesh": det.mesh.size if det.mesh else 1}
+
+    pools = [layout()]
     scale = float(np.std(wave[0, :STREAM_CHUNK * 60]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     joined = det.add_station()
     torch.cuda.synchronize()
     add_s = time.perf_counter() - t0
+    pools.append(layout())
     ops.reset_launches()
     blocks0 = det.stations[0].stats.blocks
     for a in starts[step:step + 60]:
@@ -1859,6 +1914,7 @@ def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
     det.remove_station(joined)
     torch.cuda.synchronize()
     remove_s = time.perf_counter() - t0
+    pools.append(layout())
     for a in starts[step + 60:]:
         det.push(wave[:, a:a + STREAM_CHUNK])
     dets, events, stats = det.finalize()
@@ -1882,7 +1938,7 @@ def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
                           "elastic": a[j] if j < len(a) else None,
                           "uninterrupted": b[j] if j < len(b) else None}
             break
-    out = {"restored_step": step, "joined": joined,
+    out = {"restored_step": step, "joined": joined, "pools": pools,
            "add_station_s": add_s, "remove_station_s": remove_s,
            "five_station_pushes": 60, "five_station_blocks": five_blocks,
            "blocks": blocks, "launches": launches,
@@ -1891,13 +1947,15 @@ def elastic_phase(ds, dev, tmp: str, want: dict) -> dict:
            "detections_equal": got["detections"] == want["detections"],
            "alerts_equal": got["alerts"] == want["alerts"],
            "first_diff": first_diff}
-    print("elastic", json.dumps(out), flush=True)
+    print(label, json.dumps(out), flush=True)
     _need(all(all(d.values()) for d in per_station) and all(ingest)
           and all(events_equal) and out["detections_equal"],
-          f"elastic: stations 0-3 differ from the uninterrupted run: {out}")
+          f"{label}: stations 0-3 differ from the uninterrupted run: {out}")
+    shards = pools[-1]["mesh"]
     for name in BATCH_KERNELS:
-        _need(launches[name] >= blocks, f"elastic: {name} launched "
-              f"{launches[name]} times for {blocks} pooled blocks")
+        _need(launches[name] >= shards * blocks, f"{label}: {name} launched "
+              f"{launches[name]} times for {blocks} pooled blocks on "
+              f"{shards} shards")
     return out
 
 
@@ -3183,6 +3241,213 @@ def detect_step_phase(dev) -> dict:
     return out
 
 
+def _sharded_stream(ds, dev, width: int, want: dict, tmp=None) -> dict:
+    """Phase 7's stream under the ``width``-wide mesh ``[dev] * width``
+    (phase 30a): launch counters zeroed just before and read just after,
+    ``memory_allocated`` read before and after the steady pushes
+    ``SHARDED_MEMORY_PUSHES``, and with ``tmp`` a snapshot after the
+    halfway push (its write outside the walls). The record must equal
+    phase 7's. Earlier detectors (their stations point back at them) are
+    collected first, so the memory read is this run's and phase 7's
+    record's only."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.kernels import ops
+    from repro_torch.stream import StreamingDetector
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    wave = ds.waveforms
+    starts = list(range(0, wave.shape[1], STREAM_CHUNK))
+    half = len(starts) // 2
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    det = StreamingDetector(cfg, scfg, n_stations=wave.shape[0], device=dev,
+                            devices=[dev] * width)
+    walls, memory, write_s = [], {}, None
+    for i, a in enumerate(starts):
+        if i in SHARDED_MEMORY_PUSHES:
+            torch.cuda.synchronize()
+            memory[i] = torch.cuda.memory_allocated(dev)
+        if tmp is not None and i == half:
+            t = time.perf_counter()
+            det.snapshot(tmp, step=half)
+            write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        det.push(wave[:, a:a + STREAM_CHUNK])
+        walls.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    dets, events, stats = det.finalize()
+    finalize_s = time.perf_counter() - t
+    wall = sum(walls) + finalize_s
+    launches = dict(ops.LAUNCHES)
+    blocks = det.stations[0].stats.blocks
+    spans = det.telemetry.tracer.summary()
+    got = _stream_record(det, dets, events, stats)
+    same = {k: got[k] == want[k] for k in got}
+    out = {"devices": [str(dev)] * width, "mesh": det.mesh.size,
+           "pool_pad": det.pool_pad, "shard_rows": det.pstate[0].halo.shape[0],
+           "pushes": len(walls), "blocks": blocks, "wall_s": wall,
+           "real_time_factor": wave.shape[1] / cfg.fingerprint.fs / wall,
+           "push_ms_p50": float(np.percentile(walls, 50)) * 1e3,
+           "push_ms_p99": float(np.percentile(walls, 99)) * 1e3,
+           "span_s": {k: spans.get(k, {"total_s": 0.0})["total_s"]
+                      for k in ("ingest", "dup_hash", "fused_step",
+                                "host_tail")},
+           "memory_before_bytes": base,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "memory_allocated": {str(k): v for k, v in memory.items()},
+           "snapshot_write_s": write_s, "launches": launches,
+           "pairs_per_station": [st.stats.pairs for st in det.stations],
+           "equal_stream_paper": same}
+    _need(all(same.values()), f"sharded stream ({width}-wide): the record "
+          f"differs from phase 7's pooled run: {same}")
+    _need(len(set(memory.values())) == 1, f"sharded stream ({width}-wide): "
+          f"memory_allocated moved over steady pushes: {memory}")
+    for name in BATCH_KERNELS:
+        _need(launches[name] >= width * blocks,
+              f"sharded stream ({width}-wide): {name} launched "
+              f"{launches[name]} times, fewer than {width} shards × {blocks} "
+              f"blocks")
+    return out
+
+
+def _sharded_restore(ds, dev, tmp: str, want: dict, devices) -> dict:
+    """Phase 30c: the 3-wide pool's snapshot restored under ``devices``
+    (``None``: no mesh) and pushed to the end; its record against phase
+    7's."""
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.stream import StreamingDetector
+    cfg, scfg = fast_seismic.config(), fast_seismic.stream_config()
+    wave = ds.waveforms
+    t0 = time.perf_counter()
+    det, step = StreamingDetector.restore(tmp, cfg, scfg, device=dev,
+                                          devices=devices)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a in list(range(0, wave.shape[1], STREAM_CHUNK))[step:]:
+        det.push(wave[:, a:a + STREAM_CHUNK])
+    dets, events, stats = det.finalize()
+    rest_s = time.perf_counter() - t0
+    got = _stream_record(det, dets, events, stats)
+    same = {k: got[k] == want[k] for k in got}
+    width = det.mesh.size if det.mesh else 1
+    _need(all(same.values()), f"snapshot of the 3-wide pool restored on a "
+          f"{width}-wide mesh differs from the uninterrupted run: {same}")
+    return {"step": step, "mesh": width, "pool_pad": det.pool_pad,
+            "restore_s": restore_s, "rest_s": rest_s, "equal": same}
+
+
+def sharded_phase(ds, dev, want: dict, stream7: dict, tmp: str) -> dict:
+    """Phase 30a–c: the station-sharded pool on one card. Every shard runs
+    on ``dev`` (``[dev] * width``), so the shards serialise: this holds the
+    split to phase 7's answers, it does not time multi-card scaling.
+    (a) phase 7's stream under 2- and 3-wide meshes (the 3-wide pool has
+    two pad rows and is snapshotted at push 720); (c) that snapshot
+    restored with no mesh and under the 2-wide mesh; (b) phase 18's join
+    and leave over it under the 3-wide mesh. Each must equal phase 7's
+    record."""
+    out = {"stream": {}, "restore": {}}
+    for width in SHARDED_WIDTHS:
+        out["stream"][str(width)] = _sharded_stream(
+            ds, dev, width, want, tmp if width == 3 else None)
+    for label, devices in (("none", None), ("2", [dev] * 2)):
+        out["restore"][label] = _sharded_restore(ds, dev, tmp, want, devices)
+    out["fused_step_vs_stream_paper"] = {
+        w: r["span_s"]["fused_step"] / stream7["span_s"]["fused_step"]
+        for w, r in out["stream"].items()}
+    out["launches"] = out["stream"]["3"]["launches"]
+    print("sharded_stream", json.dumps(out), flush=True)
+    return out
+
+
+def detect_sharded_phase(dev) -> dict:
+    """Phase 30d: ``core.detect.detect_step_sharded`` at
+    ``SHAPES["station_month"]`` (512 chunks × 512,000 samples, a seeded
+    one-station synthetic month) at the paper widths under
+    ``[dev] * DETECT_SHARDED_WIDTH``, ``DETECT_SHARDED_GROUP`` chunks a
+    pooled call, launch counters zeroed just before and read just after:
+    wall, chunks and fingerprints a second, ``model_flops`` over the wall
+    beside the card's fp32 rate, memory before (the month's samples
+    included) and at peak, the outputs' bytes; a seeded sample of
+    ``DETECT_SHARDED_SAMPLE`` chunks equals the CPU path's ``detect_step``
+    on each chunk alone, exactly (integer outputs), as phase 29 holds the
+    card to the CPU: the kernels' plain versions at this path's shapes."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.core.detect import (detect_step, detect_step_sharded,
+                                         station_stats)
+    from repro_torch.kernels import ops
+    cfg = fast_seismic.config()
+    n_chunks, chunk = fast_seismic.SHAPES[DETECT_SHARDED_SHAPE]
+    t0 = time.perf_counter()
+    ds = make_dataset(SynthConfig(duration_s=n_chunks * chunk / 100.0,
+                                  n_stations=1, n_sources=8,
+                                  events_per_source=400, event_snr=6.0,
+                                  seed=7))
+    synth_s = time.perf_counter() - t0
+    wave = torch.as_tensor(ds.waveforms[0]).to(dev)
+    del ds
+    meds, mads = station_stats(wave[None, :4 * chunk], cfg.fingerprint)
+    chunks = wave.reshape(n_chunks, chunk)
+    mesh = dist.station_mesh(devices=[dev] * DETECT_SHARDED_WIDTH)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = detect_step_sharded(chunks, meds[0], mads[0], cfg, mesh,
+                              group=DETECT_SHARDED_GROUP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = sorted(np.random.default_rng(3).choice(
+        n_chunks, DETECT_SHARDED_SAMPLE, replace=False).tolist())
+    equal, t0 = [], time.perf_counter()
+    for r in rows:
+        one = detect_step(chunks[r].cpu(), meds[0].cpu(), mads[0].cpu(), cfg,
+                          device="cpu")
+        equal.append(all(torch.equal(one[k], out[k][r].cpu()) for k in one))
+    cpu_s = time.perf_counter() - t0
+    n_fp = cfg.fingerprint.n_fingerprints(chunk)
+    flops = fast_seismic.model_flops(DETECT_SHARDED_SHAPE)
+    calls = n_chunks // DETECT_SHARDED_GROUP
+    res = {"shape": [n_chunks, chunk], "mesh": mesh.size,
+           "group": DETECT_SHARDED_GROUP, "pooled_calls": calls,
+           "synth_s": synth_s, "wall_s": wall,
+           "chunks_per_s": n_chunks / wall,
+           "fingerprints_per_chunk": n_fp,
+           "fingerprints_per_s": n_chunks * n_fp / wall,
+           "model_flops": flops, "model_flops_per_s": flops / wall,
+           "fp32_peak_flops_per_s": FP32_OPS_PER_S,
+           "memory_before_bytes": base, "peak_memory_bytes": peak,
+           "output_bytes": sum(v.numel() * v.element_size()
+                               for v in out.values()),
+           "pairs": int(out["pair_valid"].sum()),
+           "events": int(out["ev_valid"].sum()),
+           "sample": rows, "sample_equal_cpu": equal,
+           "sample_cpu_s": cpu_s, "launches": launches}
+    print("detect_step_sharded", json.dumps(res), flush=True)
+    _need(all(equal), f"detect_step_sharded: sampled chunks differ from "
+          f"the CPU's detect_step: {dict(zip(rows, equal))}")
+    want = {k: (calls if k in ("stft_mag", "haar2d", "minmax_sig_buckets")
+                else 0) for k in launches}
+    _need(launches == want, f"detect_step_sharded launches {launches}, "
+          f"want {want}")
+    return res
+
+
 def train_resume_phase(tmp: str) -> dict:
     """For each of ``RESUME_ARCHS`` (the launcher's smoke model, an MoE
     and a hybrid smoke config): ``python -m repro_torch.launch.train
@@ -3385,6 +3650,13 @@ def main() -> int:
         report["train_resume"] = train_resume_phase(tmp)
     report["moe_repeat"] = moe_repeat_phase(dev)
     report["detect_step"] = detect_step_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["sharded_stream"] = sharded_phase(
+            ds, dev, record7, report["stream_paper"], tmp)
+        report["sharded_elastic"] = elastic_phase(
+            ds, dev, tmp, record7, devices=[dev] * 3,
+            label="sharded_elastic")
+    report["detect_step_sharded"] = detect_sharded_phase(dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.core.align import AlignConfig
 from repro_torch.core.detect import DetectConfig
 from repro_torch.core.fingerprint import FingerprintConfig
@@ -285,6 +287,21 @@ def stream_latency_smoke_config() -> StreamConfig:
                         stats_warmup_blocks=4, reservoir_rows=512)
 
 
+def stream_sharded_smoke_config() -> StreamConfig:
+    """Sharded-pool smoke: the bounded streaming config with a larger
+    block so each device-side step carries enough per-station work for
+    the ``stations`` mesh split to beat single-device ``vmap`` on forced
+    host devices (tiny blocks are dispatch-bound and sharding only adds
+    transfer overhead). ``sharded`` is on by default in every config —
+    this one exists so benches/tests name the sharded regime explicitly
+    and get steady blocks past warmup quickly."""
+    return StreamConfig(block_fingerprints=128,
+                        index=StreamIndexConfig(n_buckets=2048,
+                                                bucket_cap=8),
+                        stats_warmup_blocks=1, reservoir_rows=1024,
+                        sharded=True)
+
+
 def serve_config():
     """Paper-scale serving tier: slots sized so one batched serving step
     amortizes across a rack of concurrent clients, with the admission
@@ -305,3 +322,47 @@ def serve_smoke_config():
     from repro_torch.launch.serve_detect import ServeConfig
     return ServeConfig(n_slots=4, max_queue=8, top_k=32,
                        refresh_every_chunks=4)
+
+
+# Chunk-parallel shapes (``core.detect.detect_step_sharded``):
+# (n_chunks, samples_per_chunk). ``station_year`` ≈ one station-year of
+# 100 Hz data (3.15e9 samples) in 512 shardable chunks.
+SHAPES = {
+    "station_year": (512, 6_150_000),
+    "station_month": (512, 512_000),
+}
+
+
+def model_flops(shape_name: str) -> float:
+    """Algorithmic FLOPs of the fingerprint+hash stages (MFU numerator).
+
+    STFT matmuls + Haar matmuls + Min-Max hash compares; the sort-based
+    search is comparison-bound and excluded (consistent with the paper's
+    treatment of search as lookup-bound, §6.3).
+    """
+    n_chunks, chunk = SHAPES[shape_name]
+    cfg = config()
+    fp = cfg.fingerprint
+    nf_frames = (chunk - fp.stft_len) // fp.stft_hop + 1
+    n_fp = (nf_frames - fp.img_time) // fp.img_hop + 1
+    lo, hi = fp.band_bins
+    k_band = hi - lo
+    stft = nf_frames * 2 * (2 * fp.stft_len * k_band)
+    haar = n_fp * 2 * (fp.img_freq ** 2 * fp.img_time
+                       + fp.img_time ** 2 * fp.img_freq)
+    lcfg = cfg.lsh
+    minmax = n_fp * fp.fp_dim * lcfg.n_hash_fns * 2
+    return float(n_chunks) * (stft + haar + minmax)
+
+
+def input_specs(shape_name: str) -> dict:
+    """The inputs of ``detect_step_sharded`` at ``SHAPES[shape_name]``, as
+    ``meta`` tensors (shape and dtype, no storage)."""
+    n_chunks, chunk = SHAPES[shape_name]
+    n_coeff = config().fingerprint.n_coeff
+    return {
+        "waveforms": torch.empty((n_chunks, chunk), dtype=torch.float32,
+                                 device="meta"),
+        "med": torch.empty((n_coeff,), dtype=torch.float32, device="meta"),
+        "mad": torch.empty((n_coeff,), dtype=torch.float32, device="meta"),
+    }

@@ -24,7 +24,10 @@ residual, and the groups are sized from whole-trace peak amplitudes
 ``detect_step`` is the one-chunk core: a chunk's fingerprints through
 one guarded index step over a fresh index, the occurrence filter and
 station clustering, with fixed output shapes (the reference's jittable
-core for chunk-parallel runs).
+core for chunk-parallel runs). ``detect_step_sharded`` runs a (C,
+samples) array of chunks over a ``stations`` mesh (``dist.station_mesh``):
+each device takes its contiguous block of chunks as the rows of pooled
+calls of the same core, with no collective.
 
 ``detect_events`` runs on ``cuda`` unless ``device="cpu"`` is passed; it
 raises when CUDA is missing and the CPU was not asked for.
@@ -40,7 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import utils
+from repro_torch import dist, utils
 from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import lsh as lsh_mod
@@ -275,6 +278,54 @@ def detect_events(waveforms: np.ndarray, cfg: DetectConfig,
     return detections, station_events, times, stats
 
 
+def _index_config(cfg: DetectConfig, icfg, occ_limit: int):
+    from repro_torch.stream import index as index_mod
+    if icfg is None:
+        icfg = index_mod.StreamIndexConfig(n_buckets=4096,
+                                           bucket_cap=cfg.lsh.bucket_cap)
+    assert occ_limit == 0 or icfg.occ_slots > 0, \
+        "occ_limit needs icfg.occ_slots (the partner-count ring)"
+    return icfg
+
+
+def _detect_rows(x: torch.Tensor, med: torch.Tensor, mad: torch.Tensor,
+                 cfg: DetectConfig, icfg, window: int, saturation: int,
+                 dup_tables: int, occ_limit: int) -> dict:
+    """``detect_step`` on the R chunks of ``x`` (R, chunk_samples) at
+    once: fingerprints, signatures and the guarded step (an R-row index,
+    one fresh index a chunk) in one pooled call each, then each chunk's
+    occurrence filter and clustering. Outputs stacked on a leading R
+    axis; a row equals ``detect_step`` on that chunk alone."""
+    from repro_torch.stream import index as index_mod
+    fcfg, lcfg, acfg = cfg.fingerprint, cfg.lsh, cfg.align
+    dev = x.device
+    _, packed = fp_mod.fingerprints_from_waveform(x, fcfg,
+                                                  med_mad=(med, mad))
+    rows, n = packed.shape[0], packed.shape[1]
+    mappings = lsh_mod.hash_mappings(fcfg.fp_dim, lcfg, dev)
+    sigs, buckets = lsh_mod.signatures_and_buckets(packed, mappings, lcfg,
+                                                   icfg.n_buckets)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    _, pooled, _ = index_mod.guarded_step(
+        index_mod.init_index(lcfg, icfg, rows, dev), sigs, buckets, ids,
+        None, lcfg, window, saturation=saturation, dup_tables=dup_tables,
+        occ_limit=occ_limit)
+    out = []
+    for r in range(rows):
+        pairs = Pairs(pooled.idx1[r], pooled.idx2[r], pooled.sim[r],
+                      pooled.valid[r])
+        if lcfg.occurrence_frac > 0:
+            pairs, _ = lsh_mod.occurrence_filter(pairs, n,
+                                                 lcfg.occurrence_frac)
+        events = align_mod.cluster_station(pairs, acfg)
+        out.append({
+            "dt": pairs.dt, "idx1": pairs.idx1, "sim": pairs.sim,
+            "pair_valid": pairs.valid,
+            "ev_dt": events.dt, "ev_onset": events.onset,
+            "ev_score": events.score, "ev_valid": events.valid})
+    return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+
 def detect_step(waveform_chunk, med, mad, cfg: DetectConfig, icfg=None,
                 window: int = 0, saturation: int = 0, dup_tables: int = 0,
                 occ_limit: int = 0, device=None) -> dict:
@@ -292,37 +343,58 @@ def detect_step(waveform_chunk, med, mad, cfg: DetectConfig, icfg=None,
     ``device="cpu"``. Returns the pairs' ``dt`` / ``idx1`` / ``sim`` /
     ``pair_valid`` and the events' ``ev_dt`` / ``ev_onset`` /
     ``ev_score`` / ``ev_valid``, as the reference does."""
-    from repro_torch.stream import index as index_mod
-    fcfg, lcfg, acfg = cfg.fingerprint, cfg.lsh, cfg.align
-    if icfg is None:
-        icfg = index_mod.StreamIndexConfig(n_buckets=4096,
-                                           bucket_cap=lcfg.bucket_cap)
-    assert occ_limit == 0 or icfg.occ_slots > 0, \
-        "occ_limit needs icfg.occ_slots (the partner-count ring)"
+    icfg = _index_config(cfg, icfg, occ_limit)
     x = utils.placed(waveform_chunk, device).to(torch.float32)
     dev = x.device
-    med_mad = (utils.placed(med, dev), utils.placed(mad, dev))
-    _, packed = fp_mod.fingerprints_from_waveform(x, fcfg, med_mad=med_mad)
-    n = packed.shape[0]
-    mappings = lsh_mod.hash_mappings(fcfg.fp_dim, lcfg, dev)
-    sigs, buckets = lsh_mod.signatures_and_buckets(packed, mappings, lcfg,
-                                                   icfg.n_buckets)
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
-    _, pooled, _ = index_mod.guarded_step(
-        index_mod.init_index(lcfg, icfg, 1, dev), sigs[None], buckets[None],
-        ids, None, lcfg, window, saturation=saturation,
-        dup_tables=dup_tables, occ_limit=occ_limit)
-    pairs = Pairs(pooled.idx1[0], pooled.idx2[0], pooled.sim[0],
-                  pooled.valid[0])
-    if lcfg.occurrence_frac > 0:
-        pairs, _ = lsh_mod.occurrence_filter(pairs, n, lcfg.occurrence_frac)
-    events = align_mod.cluster_station(pairs, acfg)
-    return {
-        "dt": pairs.dt, "idx1": pairs.idx1, "sim": pairs.sim,
-        "pair_valid": pairs.valid,
-        "ev_dt": events.dt, "ev_onset": events.onset,
-        "ev_score": events.score, "ev_valid": events.valid,
-    }
+    out = _detect_rows(x[None], utils.placed(med, dev),
+                       utils.placed(mad, dev), cfg, icfg, window,
+                       saturation, dup_tables, occ_limit)
+    return {k: v[0] for k, v in out.items()}
+
+
+def detect_step_sharded(waveforms, med, mad, cfg: DetectConfig, mesh, *,
+                        icfg=None, window: int = 0, saturation: int = 0,
+                        dup_tables: int = 0, occ_limit: int = 0,
+                        group: int | None = None) -> dict:
+    """``detect_step`` on every chunk of ``waveforms`` (C, chunk_samples)
+    over ``mesh`` (a ``dist.StationMesh``; C a multiple of its width).
+
+    The chunks are independent (the paper's §6.4 partition structure), so
+    there is no collective: device k takes chunks k·C/d … (k+1)·C/d − 1
+    and runs them as the rows of pooled calls of ``detect_step``'s core,
+    ``group`` chunks a call (default: all of its chunks in one call); the
+    devices' calls alternate, so every device has work queued before the
+    host waits on any. ``med`` / ``mad`` are copied once to each distinct
+    device; ``icfg`` and the quality knobs are ``detect_step``'s. Returns
+    ``detect_step``'s outputs stacked on a leading C axis in chunk order
+    (a row equals ``detect_step`` on that chunk), on the mesh's first
+    device."""
+    icfg = _index_config(cfg, icfg, occ_limit)
+    c, d = waveforms.shape[0], mesh.size
+    if c % d:
+        raise ValueError(f"{c} chunks do not divide a {d}-wide mesh")
+    per = c // d
+    group = per if group is None else int(group)
+    if group < 1:
+        raise ValueError(f"group must be at least 1, got {group}")
+    home = mesh.devices[0]
+    stats = [dist.replicate(utils.placed(m, home).to(torch.float32), mesh)
+             for m in (med, mad)]
+    out: dict[str, torch.Tensor] = {}
+    for g in range(0, per, group):
+        for k, dev in enumerate(mesh.devices):
+            lo, hi = k * per + g, k * per + min(g + group, per)
+            with dist.on_device(dev):
+                x = utils.placed(waveforms[lo:hi], dev).to(torch.float32)
+                res = _detect_rows(x, stats[0][k], stats[1][k], cfg, icfg,
+                                   window, saturation, dup_tables,
+                                   occ_limit)
+            for key, v in res.items():
+                if key not in out:
+                    out[key] = torch.empty((c, *v.shape[1:]),
+                                           dtype=v.dtype, device=home)
+                out[key][lo:hi].copy_(v)
+    return out
 
 
 def recall_against_truth(detections: dict, station_events: list[Events],

@@ -39,7 +39,8 @@ a ``physical_geometry`` network through ``located_smoke_config()`` in the
 bounded regime, prints one ``ALERT {...}`` JSON row an alert (origin in
 km, relative magnitude ``dmag``) and adds a ``located`` block to the
 RESULT. ``--restore`` into a wider ``--stations`` grows the restored pool
-with ``StreamingDetector.add_station``.
+with ``StreamingDetector.add_station``, re-split over the station mesh of
+the visible cards (one card: no mesh).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_detect --requests 12
@@ -617,12 +618,13 @@ def main(argv=None):
                                               device=device)
         if args.stations > len(det.stations) and det.pooled \
                 and all(st.stats_frozen for st in det.stations):
-            # growing the restored pool: stations join at the frontier
+            # growing the restored pool: stations join at the frontier,
+            # and the pool is re-padded and re-split over the current mesh
             grown = args.stations - len(det.stations)
             for _ in range(grown):
                 det.add_station()
             print(f"# restored pool grown {len(det.stations) - grown}"
-                  f" -> {len(det.stations)} stations")
+                  f" -> {len(det.stations)} stations (elastic re-shard)")
         elif len(det.stations) != args.stations:
             raise SystemExit(
                 f"--restore: the snapshot holds a {len(det.stations)}-"

@@ -1,6 +1,8 @@
 """Streaming detection in PyTorch: the resident LSH index, the per-block
 detection core shared with the batch driver, chunk ingestion and the
-``StreamingDetector`` (see ``stream.engine``)."""
+``StreamingDetector`` (see ``stream.engine``), whose station pool splits
+over a ``stations`` device mesh (``repro_torch.dist``) with the
+``pool_step_*_sharded`` entries."""
 from repro_torch.stream.engine import (ALERT_COLS,  # noqa: F401
                                        RollingPairFilter, StationStream,
                                        StreamingDetector, StreamStats,
@@ -12,8 +14,11 @@ from repro_torch.stream.engine import (ALERT_COLS,  # noqa: F401
                                        pool_block_coeffs, stream_step)
 from repro_torch.stream.fused import (FusedState,  # noqa: F401
                                       init_pool_state, init_state,
-                                      pool_step_advance, pool_step_block,
-                                      step_advance, step_block)
+                                      pool_step_advance,
+                                      pool_step_advance_sharded,
+                                      pool_step_block,
+                                      pool_step_block_sharded, step_advance,
+                                      step_block)
 from repro_torch.stream.index import (QC_FIELDS, IndexState,  # noqa: F401
                                       StreamIndexConfig, compact_pairs,
                                       expire, index_stats, init_index,

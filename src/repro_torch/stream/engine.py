@@ -63,11 +63,19 @@ failing the moveout gate are dropped), and ``finalize`` attaches the
 located columns to the detections. The timelines ride in snapshots as
 the reference's ``detector/amp<i>`` (n, 2) float64 arrays.
 
+With ``StreamConfig.sharded`` (the default) the pool is split over a
+``stations`` mesh (``dist.station_mesh``: every visible card, or the
+``devices`` the caller names) into contiguous row blocks, one sub-pool a
+device, padded with throwaway station rows to a multiple of the mesh
+width; each block steps through ``fused.pool_step_*_sharded``, every
+shard launched before any synchronisation. One card, or fewer than two
+stations, gives no mesh and the one-device pool.
+
 ``add_station`` / ``remove_station`` change a live pool's width: the
-stations' index slices are pulled out of the pool and the pool is
-rebuilt at the new width (cold halo). There is one card, so the
-reference's mesh-sharded pool has no counterpart: ``StreamConfig.sharded``
-changes nothing, and a re-pack never pads.
+stations' index slices are pulled out of the pool, the mesh is probed
+again for the new width, and the pool is re-padded, re-split and rebuilt
+(cold halo). Snapshots hold per-station slices, so a pool saved under one
+mesh restores under another, or under none.
 """
 from __future__ import annotations
 
@@ -80,7 +88,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from repro_torch import convert, utils
+from repro_torch import convert, dist, utils
 from repro_torch.core import align as align_mod
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import locate as locate_mod
@@ -157,16 +165,13 @@ def _step_knobs(scfg: StreamConfig) -> dict:
 
 def _to_host(pairs: Pairs, qc: torch.Tensor
              ) -> tuple[tuple[np.ndarray, ...], np.ndarray]:
-    """A step's (idx1, idx2, sim, valid) and qc in one device→host copy
-    (one synchronisation), as numpy."""
-    shape = pairs.valid.shape
-    flat = torch.cat([
-        torch.stack([pairs.idx1, pairs.idx2, pairs.sim,
-                     pairs.valid.to(torch.int32)]).reshape(-1),
-        qc.reshape(-1).to(torch.int32)]).cpu().numpy()
-    k = 4 * pairs.valid.numel()
-    i1, i2, sim, v = flat[:k].reshape(4, *shape)
-    return (i1, i2, sim, v > 0), flat[k:].reshape(tuple(qc.shape))
+    """A step's (idx1, idx2, sim, valid) and qc as numpy, in one
+    device→host copy (``fused.outputs_to_host``); a sharded step's
+    outputs are on the host already and are taken as they are."""
+    pairs, qc = fused_mod.outputs_to_host(
+        [(Pairs(pairs.idx1, pairs.idx2, pairs.sim, pairs.valid), qc)])
+    return (pairs.idx1.numpy(), pairs.idx2.numpy(), pairs.sim.numpy(),
+            pairs.valid.numpy()), qc.numpy()
 
 
 def pairs_from_triplets(tri: np.ndarray, pad_to: int = 1024,
@@ -557,8 +562,7 @@ class StationStream:
         if self.fstate is not None:
             return self.fstate.index
         if self._owner is not None and self._owner.pstate is not None:
-            return index_mod.slice_state(self._owner.pstate.index,
-                                         self._pool_idx)
+            return self._owner._pool_slice(self._pool_idx)
         if self._state is None:
             raise RuntimeError("station has no device state")
         return self._state
@@ -1086,10 +1090,17 @@ class StreamingDetector:
     With ``StreamConfig.pooled`` (the default) and ≥ 2 stations, the
     stations' device states are stacked into one pool and every ready
     block steps all stations through one pooled step; the per-station
-    ``StationStream`` objects keep only host-side state. ``sharded`` is
-    accepted and changes nothing: the port runs on one card, so there is
-    no station mesh and no pad rows. ``device`` (default ``cuda``) holds
-    the index, the statistics and every step.
+    ``StationStream`` objects keep only host-side state. ``device``
+    (default ``cuda``) holds the stations' state before the pool exists,
+    the warm-up statistics, the serving copies and the host tail's
+    tensors, and, without a mesh, the pool and every step.
+
+    With ``sharded`` (the default) the pool is split over the ``stations``
+    mesh that ``dist.station_mesh(n_stations, devices=devices)`` returns
+    (``self.mesh``): ``devices`` defaults to every visible card when
+    ``device`` is a card, and to no mesh on the CPU. The pool carries
+    ``self.pool_pad`` pad rows, so that its width divides the mesh; a mesh
+    may name one device several times (``[torch.device("cpu")] * 3``).
 
     ``med_mad`` freezes the §5.2 statistics up front: one (n_coeff,) pair
     for every station, as in the reference, or (n_stations, n_coeff)
@@ -1100,10 +1111,15 @@ class StreamingDetector:
 
     def __init__(self, cfg: DetectConfig, scfg: StreamConfig | None = None,
                  n_stations: int = 1, med_mad: tuple | None = None,
-                 station_xy: np.ndarray | None = None, device=None):
+                 station_xy: np.ndarray | None = None, device=None,
+                 devices=None):
         self.cfg = cfg
         self.scfg = scfg or StreamConfig()
         self.device = utils.resolve_device(device)
+        # the devices a station mesh may span: every visible card for a
+        # detector on the card, none on the CPU unless named
+        self._devices = (devices if devices is not None
+                         or self.device.type == "cuda" else ())
         self.station_xy = (np.asarray(station_xy, np.float32)
                            if station_xy is not None else None)
         if self.station_xy is not None \
@@ -1117,6 +1133,12 @@ class StreamingDetector:
                          and n_stations >= 2)
         self.pooled = (self.scfg.fused and self.scfg.pooled
                        and n_stations >= 2)
+        # the sharded station pool: a mesh where more than one device can
+        # take a shard, else None (the one-device pool); the pool is padded
+        # with throwaway station rows to a multiple of the mesh width
+        self.mesh = self._probe_mesh(n_stations)
+        self.pool_pad = dist.padded_pool_width(n_stations,
+                                               self.mesh) - n_stations
         self.telemetry = StreamTelemetry(n_stations)
         self.stations = [StationStream(cfg, self.scfg, med_mad=mm,
                                        external=self.pooled,
@@ -1179,16 +1201,66 @@ class StreamingDetector:
 
     # -- pooled stepping ----------------------------------------------------
 
+    def _probe_mesh(self, n_stations: int) -> dist.StationMesh | None:
+        if not (self.pooled and self.scfg.sharded):
+            return None
+        return dist.station_mesh(n_stations, devices=self._devices)
+
     def _build_pool(self) -> None:
-        """Stack the stations' device state into one pool state."""
-        self.pstate = fused_mod.init_pool_state(
-            [st._state for st in self.stations],
-            self.cfg.fingerprint.halo_samples,
-            [st._med_mad[0] for st in self.stations],
-            [st._med_mad[1] for st in self.stations])
+        """Stack the stations' device state into one pool state. With a
+        mesh, the pool is padded to a multiple of the mesh width (pad rows:
+        a fresh index and station 0's statistics) and built as one
+        sub-pool a mesh device, each on its device from its own rows; the
+        hash mappings are copied to each distinct device once, here."""
+        states = [st._state for st in self.stations]
+        meds = [st._med_mad[0] for st in self.stations]
+        mads = [st._med_mad[1] for st in self.stations]
+        halo = self.cfg.fingerprint.halo_samples
+        if self.mesh is None:
+            self.pstate = fused_mod.init_pool_state(states, halo, meds, mads)
+            self._pool_mappings = self.mappings
+        else:
+            states += [None] * self.pool_pad
+            meds += [meds[0]] * self.pool_pad
+            mads += [mads[0]] * self.pool_pad
+            r = len(states) // self.mesh.size
+            self.pstate = []
+            for k, dev in enumerate(self.mesh.devices):
+                rows = slice(k * r, (k + 1) * r)
+                shard = [index_mod.init_index(self.cfg.lsh,
+                                              self.stations[0].icfg, 1, dev)
+                         if s is None
+                         else dist.map_tensors(lambda x, d=dev: x.to(d), s)
+                         for s in states[rows]]
+                self.pstate.append(fused_mod.init_pool_state(
+                    shard, halo, meds[rows], mads[rows]))
+            self._pool_mappings = dist.replicate(self.mappings, self.mesh)
         for st in self.stations:
             st._state = None        # the pool owns the buffers now
         self._halo_ok = False
+
+    def _pool_slice(self, station: int) -> IndexState:
+        """One station's one-station view of the live pool."""
+        if self.mesh is None:
+            return index_mod.slice_state(self.pstate.index, station)
+        k, j = divmod(station, self.pstate[0].halo.shape[0])
+        return index_mod.slice_state(self.pstate[k].index, j)
+
+    def _pad_rows(self, x: np.ndarray, fill=0) -> np.ndarray:
+        """A host (S, ...) input with the pool's pad rows appended (zero
+        samples, all-False masks): their output is never read, they only
+        keep the rows a multiple of the mesh width."""
+        if not self.pool_pad:
+            return x
+        pad = np.full((self.pool_pad,) + x.shape[1:], fill, x.dtype)
+        return np.concatenate([x, pad])
+
+    def _put(self, x: np.ndarray):
+        """A host (S, ...) pool input on the pool's device, or with a mesh
+        as the shards' row blocks, each straight onto its device."""
+        if self.mesh is None:
+            return self._on_device(x)
+        return dist.put_rows(x, self.mesh)
 
     def _lockstep(self, per_st: list[list]) -> None:
         """The rings of a pool emit the same block ids (every station is
@@ -1273,7 +1345,8 @@ class StreamingDetector:
         tail passes the shared tail mask per station with
         ``primed=False`` and the consumed id advance ``n_adv``. Only the
         advance route's (S, advance) new samples cross to the device on a
-        clean primed block; the outputs come back in one copy.
+        clean primed block; the outputs come back in one copy (one a
+        shard under a mesh, which also gets the pad rows' inputs).
         """
         fcfg, lcfg = self.cfg.fingerprint, self.cfg.lsh
         knobs = _step_knobs(self.scfg)
@@ -1286,20 +1359,25 @@ class StreamingDetector:
         wd.step_start()
         with self.telemetry.tracer.span("fused_step", station="pool"):
             if clean and self._halo_ok and n_adv == n:
-                adv = blocks[:, -self.stations[0].ring.advance:]
-                self.pstate, pairs, qc = fused_mod.pool_step_advance(
-                    self.pstate, self._on_device(adv), self.mappings,
-                    base_id, fcfg, lcfg, **knobs)
+                adv = self._pad_rows(
+                    blocks[:, -self.stations[0].ring.advance:])
+                self.pstate, pairs, qc = fused_mod.pool_step_advance_sharded(
+                    self.pstate, self._put(adv), self._pool_mappings,
+                    base_id, fcfg, lcfg, **knobs, mesh=self.mesh)
                 vm = np.ones((s, n), bool)
             else:
                 vm = np.stack([
                     np.ones(n, bool) if (masks is None or masks[i] is None)
                     else np.asarray(masks[i], bool) for i in range(s)])
-                self.pstate, pairs, qc = fused_mod.pool_step_block(
-                    self.pstate, self._on_device(blocks), self.mappings,
-                    base_id, self._on_device(vm), fcfg, lcfg, **knobs)
+                self.pstate, pairs, qc = fused_mod.pool_step_block_sharded(
+                    self.pstate, self._put(self._pad_rows(blocks)),
+                    self._pool_mappings, base_id,
+                    self._put(self._pad_rows(vm, fill=False)), fcfg, lcfg,
+                    **knobs, mesh=self.mesh)
                 self._halo_ok = clean or primed
-            # one transfer + one sync for the whole pooled step output
+            # one transfer + one sync for the whole pooled step output (a
+            # sharded step has brought its outputs home already: one copy a
+            # shard, one sync a device)
             (i1, i2, sim, pv), qc = _to_host(pairs, qc)
         # one watchdog step per pooled step (all stations share it)
         self.telemetry.record_fused_wall("pool", wd.step_end())
@@ -1367,25 +1445,32 @@ class StreamingDetector:
     # -- elastic pool membership --------------------------------------------
 
     def _materialize_stations(self) -> None:
-        """Give each station its index slice of the pool back as its own
-        state — the first half of a re-pack. The slices are views; the
-        rebuilt pool copies them."""
+        """Give each real station its index slice of the pool back as its
+        own state — the first half of a re-pack; pad rows are dropped
+        (the next ``_build_pool`` makes fresh ones). Without a mesh the
+        slices are views; from a sharded pool they are copies on
+        ``device``. The rebuilt pool copies either."""
         if self.pstate is None:
             return
         for st in self.stations:
-            st._state = index_mod.slice_state(self.pstate.index,
-                                              st._pool_idx)
+            view = self._pool_slice(st._pool_idx)
+            st._state = (view if self.mesh is None else dist.map_tensors(
+                lambda x: x.to(self.device, copy=True), view))
         self.pstate = None
 
     def _repack_pool(self) -> None:
-        """Rebuild the pool at the current width. One card has no station
-        mesh, so there are no pad rows to re-pad; the next block re-seeds
-        the halo through ``pool_step_block``."""
+        """Probe the mesh again for the current width, re-pad, re-split and
+        rebuild the pool; the next block re-seeds the halo through
+        ``pool_step_block_sharded``."""
+        self.mesh = self._probe_mesh(len(self.stations))
+        self.pool_pad = dist.padded_pool_width(
+            len(self.stations), self.mesh) - len(self.stations)
         self.telemetry.n_stations = len(self.stations)
         self._build_pool()
 
     def add_station(self, med_mad=None) -> int:
-        """Grow the live pool by one station; returns its index.
+        """Grow the live pool by one station; returns its index. The pool
+        is re-padded and re-split for the new width (``_repack_pool``).
 
         The joining station enters at the network frontier: its ring
         mirrors a peer's framing position with the whole pre-join span
@@ -1435,7 +1520,7 @@ class StreamingDetector:
         """Drop one station from the live pool (its index state and host
         buffers are discarded; later stations shift down, which renumbers
         pair / event station indices from here on) and rebuild the pool
-        at the new width."""
+        at the new width, re-padded and re-split."""
         if not self.pooled or self.pstate is None:
             raise ValueError("remove_station requires a live pooled "
                              "detector (statistics frozen)")
@@ -1675,12 +1760,24 @@ class StreamingDetector:
     def pool_serving_state(self) -> tuple[IndexState, torch.Tensor,
                                           torch.Tensor]:
         """(stacked index, med (S, C), mad (S, C)) for the serving tier,
-        pooled or not. Returns **copies**: the pooled step updates the
-        pool's tensors in place on the next push, so a serving engine
-        keeps a stable read-only view of the index at call time."""
+        pooled or not, sharded or not. Returns **copies** on ``device``:
+        the pooled step updates the pool's tensors in place on the next
+        push, so a serving engine keeps a stable read-only view of the
+        index at call time. A sharded pool's rows are gathered onto
+        ``device`` and its pad rows dropped, so serving sees exactly the
+        S stations."""
         if not all(st.stats_frozen for st in self.stations):
             raise RuntimeError("pool_serving_state needs every station's "
                                "statistics frozen")
+        if self.pstate is not None and self.mesh is not None:
+            s = len(self.stations)
+            index = index_mod.stack_states([
+                dist.map_tensors(lambda x: x.to(self.device), p.index)
+                for p in self.pstate])
+            return (dist.map_tensors(lambda x: x[:s], index),
+                    *(torch.cat([getattr(p, k).to(self.device)
+                                 for p in self.pstate])[:s]
+                      for k in ("med", "mad")))
         if self.pstate is not None:
             index = self.pstate.index
             return (IndexState(**{f.name: getattr(index, f.name).clone()
@@ -1702,8 +1799,9 @@ class StreamingDetector:
         (bin, peak) rows in bin order, float64), the association floor,
         the telemetry and the ``StreamConfig`` fields that shape the
         station state — the reference's layout, so either
-        package restores it. Pooled detectors write per-station slices.
-        ``step`` defaults to the chunks pushed.
+        package restores it. Pooled detectors write per-station slices
+        (a sharded pool's real rows, without its pad rows), so no device
+        topology reaches the disk. ``step`` defaults to the chunks pushed.
         """
         arrays: dict[str, np.ndarray] = {}
         st_extra = []
@@ -1747,21 +1845,23 @@ class StreamingDetector:
                 scfg: StreamConfig | None = None, *,
                 step: int | None = None,
                 station_xy: np.ndarray | None = None, device=None,
-                ) -> tuple["StreamingDetector", int]:
+                devices=None) -> tuple["StreamingDetector", int]:
         """Rebuild a detector on ``device`` from its latest (or given)
         snapshot, this package's or the reference's; returns (detector,
         step). A ``scfg`` whose block size, windows or guard knobs differ
         from the snapshot's is refused with the reference's message (the
         station layouts are not interchangeable). A pooled detector's
         pool is rebuilt from the restored stations once all are frozen,
-        with a cold halo, as the reference rebuilds it. ``station_xy`` is
+        with a cold halo, as the reference rebuilds it, over the mesh that
+        this process's ``devices`` give (whatever mesh, if any, the
+        snapshotting detector ran under). ``station_xy`` is
         not snapshotted (it is deployment geometry, not stream state):
         pass it again to keep the location tier running; the amplitude
         timelines are restored either way.
         """
         arrays, extra, step = ckpt_mod.restore_flat(ckpt_dir, step=step)
         det = cls(cfg, scfg, n_stations=int(extra["n_stations"]),
-                  station_xy=station_xy, device=device)
+                  station_xy=station_xy, device=device, devices=devices)
         saved = extra.get("scfg", {})
         for key, have in (
                 ("block_fingerprints", det.scfg.block_fingerprints),

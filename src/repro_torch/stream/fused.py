@@ -22,8 +22,19 @@ Two entries, each in a pool form and a one-station form:
   reprimes the halo from the block tail.
 
 The one-station forms are the pool forms on an S = 1 state (``init_state``)
-with the station axis taken off the outputs. There is one card, so the
-reference's mesh-sharded pool entries have no counterpart.
+with the station axis taken off the outputs.
+
+``pool_step_advance_sharded`` / ``pool_step_block_sharded`` are the pool
+entries over a ``stations`` mesh (``dist.station_mesh``): the state is one
+``FusedState`` a mesh device, holding that shard's contiguous rows
+(``dist.split_rows``), and every shard steps its rows on its own device
+with the same core. Stations are independent, so there is no collective:
+every shard's step is launched before any synchronisation, and the pairs
+and QC come back in station order on the host, one copy a shard and one
+synchronisation a device (``outputs_to_host``, the reference's one
+``device_get`` of the station-sharded outputs). They delegate to the
+one-device pool entries where the reference does: no mesh, a mesh
+narrower than 2, or a pool width that the mesh does not divide.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import dist
 from repro_torch.core import fingerprint as fp_mod
 from repro_torch.core import lsh as lsh_mod
 from repro_torch.core.fingerprint import FingerprintConfig
@@ -171,3 +183,149 @@ def step_block(state: FusedState, block: torch.Tensor, mappings: torch.Tensor,
     state, pairs, qc = pool_step_block(state, block[None], mappings, base_id,
                                        valid[None], fcfg, lcfg, **knobs)
     return (state, *drop_station_axis(pairs, qc))
+
+
+# ---------------------------------------------------------------------------
+# the sharded station pool: the same pool entries over a station mesh
+# ---------------------------------------------------------------------------
+
+
+def _delegates(state, mesh) -> bool:
+    """True where the reference runs its one-device pool: no mesh, a mesh
+    narrower than 2, or a pool width that the mesh does not divide (a
+    whole ``FusedState`` then steps as it is). The sharded form is the
+    list of shards, one a mesh device."""
+    width = mesh.size if mesh is not None else 1
+    if isinstance(state, FusedState):
+        if width < 2 or state.halo.shape[0] % width:
+            return True
+        raise TypeError(f"a whole pool of {state.halo.shape[0]} rows on a "
+                        f"{width}-wide mesh: step its shards "
+                        f"(dist.split_rows)")
+    if width < 2:
+        raise ValueError("a sharded pool state needs its mesh")
+    return False
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 \
+        else x.to(torch.int32)
+
+
+def outputs_to_host(parts: list[tuple[Pairs, torch.Tensor]]
+                    ) -> tuple[Pairs, torch.Tensor]:
+    """Pool step outputs on the host: ``parts`` holds one (pairs, qc) a
+    shard (one part for the one-device pool), each with a leading station
+    axis on its own device. A part on a card is packed there into one
+    int32 buffer (bool as 0 / 1, float32 by its bits, as ``jac`` of
+    ``VerifiedPairs``) and copied into a pinned host buffer without
+    waiting; each distinct card is then synchronised once. A part on the
+    CPU is taken as it is. Returns the pairs (of the parts' class) and qc
+    with the parts' rows in order."""
+    names = [f.name for f in dataclasses.fields(parts[0][0])]
+    staged, cards = [], []
+    for pairs, qc in parts:
+        cols = [getattr(pairs, n) for n in names] + [qc]
+        if qc.device.type != "cuda":
+            staged.append((None, cols))
+            continue
+        flat = torch.cat([_as_int32(c).reshape(-1) for c in cols])
+        buf = torch.empty(flat.shape, dtype=torch.int32, pin_memory=True)
+        buf.copy_(flat, non_blocking=True)
+        staged.append((buf, cols))
+        if qc.device not in cards:
+            cards.append(qc.device)
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    host = []
+    for buf, cols in staged:
+        if buf is None:
+            host.append(cols)
+            continue
+        out, a = [], 0
+        for c in cols:
+            x = buf[a:a + c.numel()].view(c.shape)
+            a += c.numel()
+            out.append(x.view(torch.float32) if c.dtype == torch.float32
+                       else x.to(c.dtype))
+        host.append(out)
+    cols = host[0] if len(host) == 1 else [torch.cat(c) for c in zip(*host)]
+    return type(parts[0][0])(**dict(zip(names, cols))), cols[-1]
+
+
+def _sharded(entry, state: list[FusedState], inputs: tuple[list, ...],
+             mappings, base_id: int, fcfg: FingerprintConfig,
+             lcfg: LSHConfig, knobs: dict, mesh
+             ) -> tuple[list[FusedState], Pairs, torch.Tensor]:
+    """``entry`` on every shard of ``state`` over ``mesh``, each launched
+    on its device before any synchronisation; the pairs and qc of all
+    shards on the host in station order (``outputs_to_host``)."""
+    shards = list(state)
+    for what, x in (("pool shards", shards), ("mappings", mappings),
+                    *(("input blocks", x) for x in inputs)):
+        if len(x) != mesh.size:
+            raise ValueError(f"{len(x)} {what} for a {mesh.size}-wide mesh")
+    outs = []
+    for k, dev in enumerate(mesh.devices):
+        with dist.on_device(dev):
+            shards[k], pairs, qc = entry(shards[k], *[x[k] for x in inputs],
+                                         mappings[k], base_id, fcfg, lcfg,
+                                         **knobs)
+        outs.append((pairs, qc))
+    return (shards, *outputs_to_host(outs))
+
+
+def pool_step_advance_sharded(state, new_samples, mappings, base_id: int,
+                              fcfg: FingerprintConfig, lcfg: LSHConfig,
+                              window: int = 0, saturation: int = 0,
+                              dup_tables: int = 0, occ_limit: int = 0,
+                              counters: int = 0, max_pairs: int = 0,
+                              verify: int = 0, min_jac: float = 0.0, *,
+                              mesh=None):
+    """``pool_step_advance`` with the station axis split over ``mesh``.
+
+    ``state``: one ``FusedState`` a mesh device (``dist.split_rows``);
+    ``new_samples`` and ``mappings``: one tensor a shard, on its device
+    (``dist.put_rows``, ``dist.replicate``). Each shard's index and halo
+    are updated in place on its device. Returns (the shards, pairs (S,
+    ...) and qc (S, 8) on the host in station order).
+
+    Delegates to the one-device ``pool_step_advance`` on a whole
+    ``FusedState`` (with whole inputs) when ``mesh`` is absent or
+    narrower than 2, or when the pool's width does not divide it (a pool
+    built without this mesh in hand); the delegate is the same
+    per-station core, so both give the same bits."""
+    knobs = dict(window=window, saturation=saturation,
+                 dup_tables=dup_tables, occ_limit=occ_limit,
+                 counters=counters, max_pairs=max_pairs, verify=verify,
+                 min_jac=min_jac)
+    if _delegates(state, mesh):
+        return pool_step_advance(state, new_samples, mappings, base_id,
+                                 fcfg, lcfg, **knobs)
+    return _sharded(pool_step_advance, state, (new_samples,), mappings,
+                    base_id, fcfg, lcfg, knobs, mesh)
+
+
+def pool_step_block_sharded(state, blocks, mappings, base_id: int, valid,
+                            fcfg: FingerprintConfig, lcfg: LSHConfig,
+                            window: int = 0, saturation: int = 0,
+                            dup_tables: int = 0, occ_limit: int = 0,
+                            counters: int = 0, max_pairs: int = 0,
+                            verify: int = 0, min_jac: float = 0.0, *,
+                            mesh=None):
+    """``pool_step_block`` over a ``stations`` mesh: ``blocks`` and
+    ``valid`` one tensor a shard, as ``new_samples`` is in
+    ``pool_step_advance_sharded``, which sets out the delegation."""
+    knobs = dict(window=window, saturation=saturation,
+                 dup_tables=dup_tables, occ_limit=occ_limit,
+                 counters=counters, max_pairs=max_pairs, verify=verify,
+                 min_jac=min_jac)
+    if _delegates(state, mesh):
+        return pool_step_block(state, blocks, mappings, base_id, valid,
+                               fcfg, lcfg, **knobs)
+
+    def entry(shard, blk, vld, maps, base, fc, lc, **kw):
+        return pool_step_block(shard, blk, maps, base, vld, fc, lc, **kw)
+
+    return _sharded(entry, state, (blocks, valid), mappings, base_id, fcfg,
+                    lcfg, knobs, mesh)

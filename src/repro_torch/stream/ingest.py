@@ -37,7 +37,9 @@ class StreamConfig:
     ``verify_jaccard`` + ``verify_min_jaccard`` (exact-Jaccard verify from
     the packed ring) and ``telemetry`` (the QC counters). The streaming
     driver (``stream.engine.StreamingDetector``) reads every field;
-    ``sharded`` is accepted and changes nothing (the port runs one card).
+    ``sharded`` splits a pooled detector's station axis over a
+    ``stations`` mesh when more than one device can take a shard
+    (``dist.station_mesh``).
     """
 
     block_fingerprints: int = 64   # fingerprints per pooled step

@@ -1234,3 +1234,67 @@ def test_detect_step_on_the_card_equals_the_cpu(cuda):
     for k, v in want.items():
         assert got[k].device.type == "cuda"
         assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("width", [2, 3])
+def test_sharded_stream_on_the_card_equals_the_pooled_run(cuda, width):
+    """The bounded 3-station smoke stream on the card under the mesh
+    ``[cuda] * width`` (width 2 pads one row): one pool shard a mesh
+    entry, each kernel launched on every shard, and alerts, detections
+    and every station's pairs equal to the card's one-device pool."""
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
+    from repro_torch.stream import StreamingDetector
+    ds = make_dataset(SynthConfig(duration_s=600.0, n_stations=3,
+                                  n_sources=2, events_per_source=5,
+                                  event_snr=3.0, seed=11))
+    runs = []
+    for devices in (None, [cuda] * width):
+        det = StreamingDetector(fast_seismic.smoke_config(),
+                                fast_seismic.stream_bounded_smoke_config(),
+                                n_stations=3, device=cuda, devices=devices)
+        ops.reset_launches()
+        for a in range(0, ds.waveforms.shape[1], 6000):
+            det.push(ds.waveforms[:, a:a + 6000])
+        dets, _, _ = det.finalize()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        blocks = det.stations[0].stats.blocks
+        runs.append(([x.tolist() for x in det.alerts],
+                     {k: v.cpu().tolist() for k, v in dets.items()},
+                     [st.stats.pairs for st in det.stations]))
+        shards = 1 if devices is None else width
+        assert (det.mesh.size if det.mesh else 1) == shards
+        assert launches["minmax_sig_buckets"] == shards * blocks
+    assert runs[0] == runs[1]
+    assert sum(runs[0][2]) > 0
+
+
+def test_detect_step_sharded_on_the_card_equals_detect_step(cuda):
+    """``detect_step_sharded`` on 4 chunks over ``[cuda] * 2`` in two
+    pooled calls of 2 chunks: every output row equals ``detect_step`` on
+    that chunk alone on the card, with one launch of each kernel a call."""
+    from repro_torch import dist
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, detect, fingerprint
+    from repro_torch.core import make_dataset
+    cfg = fast_seismic.smoke_config()
+    ds = make_dataset(SynthConfig(duration_s=600.0, n_stations=1,
+                                  n_sources=2, events_per_source=10,
+                                  event_snr=3.0, seed=11,
+                                  repeating_noise_stations=(0,)))
+    chunks = torch.as_tensor(ds.waveforms[0, :60000]).reshape(4, 15000)
+    med, mad = fingerprint.mad_stats(
+        fingerprint.coeffs_from_waveform(chunks.reshape(-1),
+                                         cfg.fingerprint), 1.0)
+    mesh = dist.station_mesh(devices=[cuda] * 2)
+    ops.reset_launches()
+    got = detect.detect_step_sharded(chunks.to(cuda), med, mad, cfg, mesh)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] for k in
+            ("stft_mag", "haar2d", "minmax_sig_buckets")} == \
+        {"stft_mag": 2, "haar2d": 2, "minmax_sig_buckets": 2}
+    for r in range(4):
+        one = detect.detect_step(chunks[r].to(cuda), med, mad, cfg)
+        for k, v in one.items():
+            assert got[k].is_cuda and torch.equal(got[k][r], v), k
