@@ -281,6 +281,34 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     second, ``model_flops`` over the wall beside the fp32 peak, memory;
     eight seeded chunks equal the CPU path's ``detect_step`` on each
     alone, exactly (the kernels' plain versions at this path's shapes).
+31. Multi-device LM training through ``torch.distributed`` with one NCCL
+    rank on the card (``dist.init_ranks``, a free local port). (a)
+    qwen2.5-14b at phase 26's cell (4 layers, bf16, seq 2048, its
+    initial state and ``TokenPipeline`` batches, 2 microbatches, remat
+    "block"): two steps with no mesh, then from the same state two
+    ``shard_grads_like_opt`` steps under a (1, 1) data×model mesh
+    (``shard_train_state``: every collective runs, on one rank); loss,
+    grad norm and every bf16 parameter bitwise equal, else within 1e-6
+    relative (``MESH_TOL``; printed which), the master / m / v digests;
+    the mesh steps' walls, one more mesh step profiled for its
+    collectives (``torch.profiler``: the host's collective calls, the
+    NCCL kernels and the device copies a one-rank communicator runs),
+    peak memory, and its ``flash_attention`` launches
+    (counters zeroed just before the mesh steps, read just after: phase
+    26's rule × microbatches × steps). (b) deepseek-moe-16b (4 layers)
+    the same way, one step: expert parallelism runs at model = 1; its
+    loss and every routing's expert ids equal the no-mesh step's. (c) A
+    (1, 1, 1) pod×data×model mesh: ``pod_compressed_value_and_grad`` on
+    (a)'s cell and first microbatch; the int8 gradients equal the port's
+    plain ``_quantize`` / dequantize of the exact gradients bitwise, each
+    leaf's quantization error at most half its scale (plus fp32
+    rounding), and the int8 bytes
+    the pod ``all_gather`` carried beside the fp32 bytes it replaces. (d)
+    command-r-35b's 4-layer cut is not trained: its per-rank bytes under
+    ZeRO of the gradients and optimizer state at data widths 1, 2, 4 and
+    8 from the rules, plus one microbatch's forward and backward beyond
+    its bf16 parameters measured on the card, and the least width whose
+    sum fits 80 GB.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -454,6 +482,15 @@ DETECT_SHARDED_WIDTH = 2
 DETECT_SHARDED_GROUP = 32
 DETECT_SHARDED_SAMPLE = 8
 # wall-clock entries of a stream's ingest summaries
+# phase 31: the models of its cells, the no-mesh / mesh steps compared,
+# the tolerance where the design does not give bit equality, the data
+# widths of command-r-35b's reckoning
+MESH_TRAIN = {"qwen2.5-14b": 2, "deepseek-moe-16b": 1}
+MESH_TOL = 1e-6
+MESH_WIDTHS = (1, 2, 4, 8)
+# 31d's budget a card: 80 GB (the card reports 85.0e9 bytes; the rest is
+# left to the CUDA context, the allocator and the step's transients)
+CARD_BUDGET = 80e9
 WALL_KEYS = ("wall_s", "chunk_ms_p50", "chunk_ms_p95", "chunks_per_s",
              "samples_per_s")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -3120,16 +3157,6 @@ def moe_repeat_phase(dev) -> dict:
         return [t for _, t in tree_leaves(st.params)] + \
             [t for _, t in tree_leaves(st.opt)]
 
-    def digest(ts):
-        out = []
-        for t in ts:
-            t = t.reshape(-1)
-            bits = t.view(torch.int16 if t.element_size() == 2
-                          else torch.int32).to(torch.int64)
-            w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
-            out.append((int(bits.sum()), int((bits * w).sum())))
-        return out
-
     opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=10,
                               accum_dtype="float32")
     out = {}
@@ -3178,7 +3205,7 @@ def moe_repeat_phase(dev) -> dict:
         torch.cuda.empty_cache()
         st, m = step(init_train_state(cfg, 0, dev), batch)
         losses.append(float(m["loss"]))
-        digests.append(digest(leaves(st)))
+        digests.append(_leaf_digest(leaves(st)))
         del st
     out[cfg.name] = {"reduced": {"n_layers": [28, cfg.n_layers]},
                      "grads_equal": grads_equal,
@@ -3520,6 +3547,327 @@ def train_resume_phase(tmp: str) -> dict:
     return out
 
 
+def _leaf_digest(ts) -> list:
+    """Each tensor's digest: the int64 sum of its bit patterns and their
+    sum weighted by position (two copies of a full-width state do not fit
+    the card together)."""
+    import torch
+    out = []
+    for t in ts:
+        t = t.reshape(-1)
+        bits = t.view(torch.int16 if t.element_size() == 2
+                      else torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+    return out
+
+
+def _pipeline_batches(cfg, batch: int, n: int, dev) -> list:
+    """Phase 26's first ``n`` ``TokenPipeline`` batches (seed 0, seq
+    ``LM_TRAIN_SEQ``, dedup on the card)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    it = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=batch, seed=0), device=dev).batches()
+    return [{k: torch.as_tensor(v, device=dev) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def _collectives(prof) -> dict:
+    """A profiled step's collectives: the host's collective calls
+    (``c10d::`` / ``nccl:`` ranges), the NCCL kernels' device time and
+    count, and the device-to-device copies' (NCCL runs a one-rank
+    communicator's collectives as copies)."""
+    import torch
+    out = {"calls": 0, "nccl_kernels": 0, "nccl_kernel_ms": 0.0,
+           "dtod_copies": 0, "dtod_copy_ms": 0.0}
+    for e in prof.events():
+        name = e.name.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            if "nccl" in name:
+                out["nccl_kernels"] += 1
+                out["nccl_kernel_ms"] += ms
+            elif "dtod" in name.replace(" ", "").replace("-", ""):
+                out["dtod_copies"] += 1
+                out["dtod_copy_ms"] += ms
+        elif name.startswith(("c10d::", "nccl:", "gloo:")):
+            out["calls"] += 1
+    return out
+
+
+def _same_or_close(a: list, b: list, what: str) -> str:
+    """"bitwise" when every pair of tensors is equal, "within 1e-6" when
+    each differs by at most ``MESH_TOL`` of its max|·|; else the run
+    fails."""
+    import torch
+    if all(torch.equal(x, y) for x, y in zip(a, b)):
+        return "bitwise"
+    for x, y in zip(a, b):
+        x, y = x.float(), y.float()
+        err = float((x - y).abs().max())
+        _need(err <= MESH_TOL * max(float(y.abs().max()), 1e-30),
+              f"{what}: the mesh differs from no mesh by {err}")
+    return f"within {MESH_TOL}"
+
+
+def _mesh_cell(arch: str, steps: int, dev) -> dict:
+    """Phase 31a / b: ``steps`` no-mesh steps of phase 26's cell, then the
+    same from the same state under a (1, 1) mesh with ZeRO."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        shard_train_state)
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.utils import tree_leaves
+    batch, n_mb, _ = LM_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_LAYERS,
+                              remat="block")
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=LM_TRAIN_STEPS + 1,
+                              accum_dtype="float32")
+    batches = _pipeline_batches(cfg, batch, steps, dev)
+    mesh = make_host_mesh((1, 1))
+    runs = []
+    for use_mesh in (False, True):
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, 0, dev)
+        ctx = mesh if use_mesh else _Null()
+        with ctx, _RecordRoutes() as ids:
+            state = shard_train_state(state, cfg)
+            step = make_train_step(cfg, opt_cfg, n_microbatches=n_mb,
+                                   shard_grads_like_opt=use_mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            metrics, walls = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                metrics.append({k: m[k].detach().clone() for k in m})
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = dict(ops.LAUNCHES)
+        r = {"metrics": [{k: float(v) for k, v in m.items()}
+                         for m in metrics],
+             "step_walls_s": walls, "launches": launches,
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "params_host": [t.to("cpu", copy=True)
+                             for _, t in tree_leaves(state.params)],
+             "opt_digest": _leaf_digest(
+                 [t for _, t in tree_leaves(state.opt)]),
+             "routes": [t.cpu() for t in ids]}
+        if use_mesh:    # one more step, profiled, for its collectives
+            with mesh, torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step(state, batches[-1])
+                torch.cuda.synchronize()
+            r["collectives"] = _collectives(prof)
+        runs.append((r, metrics))
+        del state, step
+    (a, ma), (b, mb) = runs
+    out = {"reduced": {"n_layers": [get_config(arch).n_layers,
+                                    cfg.n_layers]},
+           "mesh": {"data": 1, "model": 1}, "steps": steps,
+           "metrics_no_mesh": a["metrics"], "metrics_mesh": b["metrics"],
+           "step_walls_no_mesh_s": a["step_walls_s"],
+           "step_walls_mesh_s": b["step_walls_s"],
+           "collectives_profiled_step": b["collectives"],
+           "peak_memory_no_mesh_bytes": a["peak_memory_bytes"],
+           "peak_memory_mesh_bytes": b["peak_memory_bytes"],
+           "launches_no_mesh": a["launches"], "launches": b["launches"],
+           "expert_parallel": cfg.is_moe}
+    out["loss_and_grad_norm"] = _same_or_close(
+        [x[k] for x in ma for k in ("loss", "grad_norm")],
+        [x[k] for x in mb for k in ("loss", "grad_norm")],
+        f"{arch} loss / grad norm")
+    out["params"] = _same_or_close(b["params_host"], a["params_host"],
+                                   f"{arch} parameters")
+    out["opt_digest_equal"] = a["opt_digest"] == b["opt_digest"]
+    if cfg.is_moe:
+        out["routings"] = len(b["routes"])
+        out["expert_ids_equal"] = _same_routes(b["routes"], a["routes"])
+        _need(out["expert_ids_equal"], f"{arch}: the mesh routes tokens to "
+              "other experts")
+    want = {k: n * n_mb * steps for k, n in _train_launches(cfg).items()}
+    _need(all(b["launches"][k] == n for k, n in want.items()),
+          f"{arch} mesh: launches {b['launches']}, want {want}")
+    _need(b["collectives"]["calls"] > 0,
+          f"{arch} mesh: no collective ran: {b['collectives']}")
+    return out
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _compression_cell(dev) -> dict:
+    """Phase 31c: ``pod_compressed_value_and_grad`` under a (1, 1, 1)
+    pod×data×model mesh on 31a's cell and first microbatch, against the
+    port's plain quantize / dequantize of the exact gradients."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import lm_loss, place_params
+    from repro_torch.train import compression as C
+    from repro_torch.train.loop import reduce_gradients
+    from repro_torch.models import init_params
+    from repro_torch.utils import tree_leaves, tree_unflatten
+    arch = "qwen2.5-14b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_LAYERS,
+                              remat="block")
+    torch.cuda.empty_cache()
+    mesh = dist.LMMesh((1, 1, 1), ("pod", "data", "model"))
+    batch = {k: v[:1] for k, v in _pipeline_batches(cfg, 2, 1, dev)[0]
+             .items()}
+    with mesh, dist.manual_axes({"pod"}):
+        params = place_params(init_params(cfg, 0, dev), cfg)
+    wire = []
+    inner = dist._all_gather
+
+    def record(out, inp, group=None, **kw):
+        # on one rank every axis's group is the world group: the pod
+        # exchange is told by its int8 payload (the gloo test checks the
+        # pod group's dtypes)
+        if inp.dtype == torch.int8:
+            wire.append(inp.numel())
+        return inner(out, inp, group=group, **kw)
+
+    f = C.pod_compressed_value_and_grad(
+        lambda p, b: lm_loss(p, b, cfg)[0], mesh, cfg=cfg)
+    dist._all_gather = record
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss_c, grads_c = f(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist._all_gather = inner
+    wall = time.perf_counter() - t0
+    paths, tensors = zip(*tree_leaves(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    with mesh, dist.manual_axes({"pod"}):
+        loss = lm_loss(params, batch, cfg)[0]
+        flat = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                   materialize_grads=True)
+        for t in tensors:
+            t.requires_grad_(False)
+        exact = reduce_gradients(tree_unflatten(paths, flat), cfg)
+    del flat
+    equal, worst, fp32_bytes = True, 0.0, 0
+    for (path, g), (_, gc) in zip(tree_leaves(exact),
+                                  tree_leaves(grads_c)):
+        q, scale = C._quantize(g)
+        deq = (q.float() * scale.reshape((-1,) + (1,) * g.ndim)).mean(0)
+        equal &= torch.equal(deq.to(g.dtype), gc)
+        err = float((deq - g.float()).abs().max())
+        worst = max(worst, err / float(scale))
+        fp32_bytes += 4 * g.numel()
+    int8_bytes = sum(wire)
+    out = {"loss_compressed": float(loss_c),
+           "loss_exact": float(loss.detach()),
+           "grads_equal_plain_quantized": equal,
+           "max_error_over_scale": worst, "wall_s": wall,
+           "int8_gathers": len(wire), "int8_bytes": int8_bytes,
+           "fp32_bytes_replaced": fp32_bytes,
+           "bytes_ratio": fp32_bytes / max(int8_bytes, 1)}
+    _need(equal, "31c: compressed gradients differ from the plain "
+          "quantize / dequantize of the exact ones")
+    # half the scale, plus the fp32 rounding of g / scale and of q · scale
+    # (|q| ≤ 127: 2⁻²⁴ of each, relative)
+    _need(worst <= 0.5 + 127 * 2.0 ** -22, f"31c: a leaf's quantization "
+          f"error is {worst} of its scale")
+    _need(len(wire) == len(paths), f"31c: {len(wire)} int8 gathers for "
+          f"{len(paths)} leaves")
+    _need(float(loss_c) == float(loss), "31c: the pod loss differs")
+    return out
+
+
+def _command_r_reckoning(dev) -> dict:
+    """Phase 31d: command-r-35b's 4-layer cut per rank at data widths
+    ``MESH_WIDTHS`` (model width 1): bf16 parameters whole; under ZeRO
+    the fp32 gradient accumulators and the fp32 master, m and v in the
+    optimizer's blocks (``zero_sharding_entry``: an entry that does not
+    divide the width leaves its leaf whole) — the state; plus, for the
+    step's peak, one microbatch's forward and backward beyond the
+    parameters, measured on the card: its bf16 gradients, whole until
+    they are reduce_scattered, and its activations."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.decoder import (param_shapes,
+                                            param_sharding_rules)
+    from repro_torch.train.optimizer import zero_sharding_entry
+    from repro_torch.utils import tree_leaves
+    full = get_config("command-r-35b")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS, remat="block")
+    shapes = dict(tree_leaves(param_shapes(cfg)))
+    rules = dict(tree_leaves(param_sharding_rules(cfg)))
+    n_params = sum(math.prod(s) for s in shapes.values())
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ts = [t.requires_grad_() for _, t in tree_leaves(params)]
+    loss, _ = lm_loss(params, _train_batch(cfg, 1, LM_TRAIN_SEQ, 0, dev),
+                      cfg)
+    grads = torch.autograd.grad(loss, ts, allow_unused=True,
+                                materialize_grads=True)
+    torch.cuda.synchronize()
+    micro = torch.cuda.max_memory_allocated() - base
+    gbytes = sum(g.numel() * g.element_size() for g in grads)
+    del grads, ts, params, loss
+    widths = {}
+    for d in MESH_WIDTHS:
+        opt_numel = 0
+        for path, shp in shapes.items():
+            entry = zero_sharding_entry(rules[path], shp)
+            dims = [n for e, n in zip(entry, shp) if e == "data"]
+            opt_numel += math.prod(shp) // (
+                d if dims and dims[0] % d == 0 else 1)
+        state = 2 * n_params + 4 * opt_numel + 12 * opt_numel
+        widths[d] = {"param_bytes": 2 * n_params,
+                     "grad_bytes": 4 * opt_numel,
+                     "opt_bytes": 12 * opt_numel, "state_bytes": state,
+                     "step_peak_bytes": state + micro,
+                     "fits": state + micro <= CARD_BUDGET}
+    fit = next((d for d in MESH_WIDTHS if widths[d]["fits"]), None)
+    return {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "params": n_params, "microbatch_peak_bytes": micro,
+            "microbatch_grad_bytes": gbytes, "budget_bytes": CARD_BUDGET,
+            "by_data_width": widths, "least_width_that_fits": fit}
+
+
+def mesh_train_phase(dev) -> dict:
+    """Phase 31: one NCCL rank on the card (gloo on a CPU rehearsal)."""
+    import torch
+    from repro_torch import dist
+    dist.init_ranks("nccl" if dev.type == "cuda" else "gloo")
+    cells = {**{arch: (lambda a=arch, n=steps: _mesh_cell(a, n, dev))
+                for arch, steps in MESH_TRAIN.items()},
+             "pod_compression": lambda: _compression_cell(dev),
+             "command_r_zero": lambda: _command_r_reckoning(dev)}
+    out = {}
+    try:
+        for name, cell in cells.items():
+            out[name] = cell()
+            print("mesh_train", name, json.dumps(out[name], default=float),
+                  flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
 def profile_phase(ds, dev) -> dict:
     """Device time by kernel over 2 h of the paper replay (profiled)."""
     import torch
@@ -3657,6 +4005,7 @@ def main() -> int:
             ds, dev, tmp, record7, devices=[dev] * 3,
             label="sharded_elastic")
     report["detect_step_sharded"] = detect_sharded_phase(dev)
+    report["mesh_train"] = mesh_train_phase(dev)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:

@@ -16,13 +16,14 @@ vocabulary is padded to a multiple of 2048, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
 import torch
 import torch.utils.checkpoint as ckpt
 
-from repro_torch import utils
+from repro_torch import dist, utils
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig, dtype
@@ -135,6 +136,133 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def param_sharding_rules(cfg: ModelConfig) -> dict:
+    """Spec entries per parameter, the same tree as ``param_shapes`` (the
+    reference's, entry for entry). Mamba2 keeps its fused in_proj / conv
+    replicated (the fused output dim mixes z | x | B | C | dt, whose
+    boundaries do not align with the shards); Mamba1's clean 2·d_inner
+    split stays tensor-parallel. Under the fsdp layout every
+    non-embedding parameter splits its largest dim over pod×data×model;
+    the embeddings stay vocab-sharded (the "vocab" alias survives)."""
+    m2 = cfg.block_kind == "mamba2"
+    fsdp = dist.current_layout() == "fsdp"
+
+    def spec_for(path_names: tuple[str, ...], shp: tuple[int, ...]):
+        name = path_names[-1]
+        stacked = path_names[0] == "layers"
+        lead = (None,) if stacked else ()
+        if fsdp and name not in ("embed", "lm_head"):
+            dims = shp[1:] if stacked else shp
+            if not dims:
+                return lead
+            big = max(range(len(dims)), key=lambda i: dims[i])
+            return lead + tuple(("pod", "data", "model") if i == big
+                                else None for i in range(len(dims)))
+        nd = len(shp) - len(lead)
+        if name == "embed":
+            body = ("vocab", ("pod", "data")) if fsdp else ("vocab", None)
+        elif name == "lm_head":
+            body = (("pod", "data"), "vocab") if fsdp else (None, "vocab")
+        elif name in ("wq", "wk", "wv"):
+            body = (None, "model", None)
+        elif name == "wo":
+            body = ("model", None, None)
+        elif name in ("bq", "bk", "bv"):
+            body = ("model", None)
+        elif name in ("wg", "wu"):
+            body = ("model", None, None) if nd == 3 else (None, "model")
+        elif name == "wd":
+            body = ("model", None, None) if nd == 3 else ("model", None)
+        elif name in ("swg", "swu"):
+            body = (None, "model")
+        elif name == "swd":
+            body = ("model", None)
+        elif name in ("in_proj", "conv_w"):
+            body = (None, None) if m2 else (None, "model")
+        elif name == "out_proj":
+            body = ("model", None)
+        elif name in ("conv_b", "d_skip", "dt_bias"):
+            body = (None,) if m2 else ("model",)
+        elif name == "x_proj":
+            body = ("model", None)
+        elif name == "dt_w":
+            body = (None, "model")
+        elif name == "a_log":
+            body = ("model", None) if nd == 2 else (None,)
+        else:
+            body = (None,) * nd
+        full = lead + body
+        full = full + (None,) * (len(shp) - len(full))
+        return full[: len(shp)]
+
+    def walk(path, node):
+        if isinstance(node, tuple):
+            return spec_for(path, node)
+        return {k: walk(path + (k,), v) for k, v in node.items()}
+
+    return walk((), param_shapes(cfg))
+
+
+def param_plans(cfg: ModelConfig) -> dict | None:
+    """Under a mesh, each parameter's ``dist.Plan`` (its global shape and
+    sanitized rule; None for a leaf nothing splits, and for the routed
+    experts under expert parallelism with the tp layout, which stay
+    local); None without a mesh."""
+    if dist.current_mesh() is None:
+        return None
+    keep = L.expert_parallel(cfg) and "model" not in dist.live_batch_axes()
+
+    def walk(path, shapes, rules):
+        if isinstance(shapes, tuple):
+            if keep and path[-2:-1] == ("moe",) and path[-1] in (
+                    "wg", "wu", "wd"):
+                return None
+            return dist.plan(shapes, rules)
+        return {k: walk(path + (k,), shapes[k], rules[k]) for k in shapes}
+
+    return walk((), param_shapes(cfg), param_sharding_rules(cfg))
+
+
+def _layer_plans(plans: dict) -> dict:
+    """The stacked layers' plans for one layer: the leading L entry
+    (never split) dropped."""
+    return {k: _layer_plans(v) if isinstance(v, dict) else None if v is None
+            else dataclasses.replace(v, shape=v.shape[1:], spec=v.spec[1:])
+            for k, v in plans.items()}
+
+
+def place_params(params: dict, cfg: ModelConfig) -> dict:
+    """This rank's blocks of a whole parameter tree under the current
+    mesh, by ``param_sharding_rules`` (sanitized): the layout ``forward``
+    reads. The tree itself without a mesh."""
+    if dist.current_mesh() is None:
+        return params
+    rules = param_sharding_rules(cfg)
+    return utils.tree_map_with_path(
+        lambda path, x: dist.shard(x, *utils.tree_get(rules, path)), params)
+
+
+def gather_params(params: dict, cfg: ModelConfig) -> dict:
+    """``place_params``'s inverse: whole tensors on every rank."""
+    if dist.current_mesh() is None:
+        return params
+    rules, shapes = param_sharding_rules(cfg), param_shapes(cfg)
+
+    def one(path, x):
+        shape = utils.tree_get(shapes, path)
+        spec = dist.sanitize_spec(shape, utils.tree_get(rules, path))
+        return dist.gather(x, spec, shape)
+
+    return utils.tree_map_with_path(one, params)
+
+
+def _no_mesh(what: str) -> None:
+    if dist.current_mesh() is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh (the sequence-sharded decode cache of "
+            "cache_sharding_rules) is ROADMAP queue 1 item 3, slice B3")
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s parameters: every stacked leaf indexed at i (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -183,14 +311,17 @@ def _parallel(cfg: ModelConfig) -> bool:
     return cfg.parallel_block and not cfg.is_moe
 
 
-def _block_body(cfg: ModelConfig):
+def _block_body(cfg: ModelConfig, plans: dict | None = None):
     """One layer as a function of (x, layer params) → (x, MoE aux or
     None), wrapped as ``cfg.remat`` asks: "block" recomputes the whole
     layer in backward (``torch.utils.checkpoint``, non-reentrant),
     "block_dots" recomputes it but keeps the matmul outputs (selective
     checkpointing), "none" keeps every activation. The three give the
-    same loss and gradients."""
+    same loss and gradients. With ``plans`` (under a mesh) the body
+    gathers the layer's blocks first; the checkpointed body runs in the
+    caller's context (``dist.bind_context``) also when it recomputes."""
     def body(x, lp):
+        lp = dist.gather_tree(lp, plans)
         pos = torch.arange(x.shape[1], device=x.device)
         if cfg.block_kind == "mamba1":
             return S.mamba1_block(lp["ssm"], x, cfg), None
@@ -201,14 +332,13 @@ def _block_body(cfg: ModelConfig):
                                              pos), None
         return _ffn(lp, L.attention_block(lp["attn"], x, cfg, pos), cfg)
 
-    if cfg.remat == "block":
-        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
-    if cfg.remat == "block_dots":
-        return functools.partial(
-            ckpt.checkpoint, body, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy))
-    return body
+    if cfg.remat == "none":
+        return body
+    kw = {} if cfg.remat == "block" else {
+        "context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    return lambda x, lp: ckpt.checkpoint(dist.bind_context(body), x, lp,
+                                         use_reentrant=False, **kw)
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -257,9 +387,21 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     is accepted and changes nothing: the ``flash_attention`` kernel
     computes the same function for both. Runs where the parameters lie;
     differentiable (the kernels' backward kernels on the card, autograd
-    through the plain versions on the CPU)."""
+    through the plain versions on the CPU).
+
+    Under a mesh the parameters are this rank's blocks, stored by
+    ``param_sharding_rules`` (``place_params``), and ``batch`` is this
+    rank's rows: each layer gathers its blocks inside its checkpointed
+    body (so remat gathers again in the backward), the other leaves at
+    use; the MoE experts stay local under expert parallelism."""
+    plans = param_plans(cfg)
+    if plans is not None:
+        top = {k: v for k, v in params.items()
+               if k not in ("layers", "lm_head")}
+        params = dict(params, **dist.gather_tree(top, plans))
     x = _embed_inputs(params, batch, cfg)
-    body = _block_body(cfg)
+    body = _block_body(cfg, None if plans is None else
+                       _layer_plans(plans["layers"]))
     layers = _unstack(params["layers"], cfg.n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo, hi, shared in _groups(cfg):
@@ -294,7 +436,14 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     (B, S, V) logits never exist. As in the reference, the tokens past the
     last whole chunk (S mod chunk) do not count. The loss adds
     ``router_aux_coef`` × the MoE aux loss (0 for the other families). →
-    (loss, {"ce", "aux", "tokens"})."""
+    (loss, {"ce", "aux", "tokens"}).
+
+    Under a mesh (this rank's rows, parameters stored by the rules) the
+    loss is the reference's global one: the masked sum over every rank's
+    tokens over their global count (one scalar all_reduce of the count
+    over the live batch axes), the same value on every rank. Its backward
+    gives this rank's own part of the gradient (``dist.sum_forward``),
+    which the train step sums over the batch axes."""
     hidden, aux = forward(params, batch, cfg, impl=impl)
     s = hidden.shape[1]
     labels = batch["labels"]
@@ -302,7 +451,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    w_out = params["lm_head"].to(cfg.cdtype)
+    plans = param_plans(cfg)
+    w_out = dist.gather_param(params["lm_head"], plans and plans["lm_head"])
+    w_out = w_out.to(cfg.cdtype)
     sc = min(cfg.loss_seq_chunk, s)
     totals = torch.zeros((), dtype=torch.float32, device=hidden.device)
     counts = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -311,7 +462,12 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
         t, c = ckpt.checkpoint(_chunk_loss, hidden[:, cut], labels[:, cut],
                                mask[:, cut], w_out, use_reentrant=False)
         totals, counts = totals + t, counts + c
-    loss = totals / torch.clamp(counts, min=1.0)
+    if plans is not None:
+        axes = dist.live_batch_axes()
+        counts = dist.all_reduce(counts.detach().clone(), axes)
+        loss = dist.sum_forward(totals / torch.clamp(counts, min=1.0), axes)
+    else:
+        loss = totals / torch.clamp(counts, min=1.0)
     total = loss + cfg.router_aux_coef * aux
     return total, {"ce": loss, "aux": aux, "tokens": counts}
 
@@ -362,6 +518,26 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return cache
 
 
+def cache_sharding_rules(cfg: ModelConfig) -> dict:
+    """Spec entries of the decode cache (the reference's): batch over
+    pod×data, the KV caches' sequence dim over model (flash-decode), the
+    SSM states' channel dim over model."""
+    rules: dict = {"pos": (None,)}
+    if cfg.block_kind == "attn":
+        rules["k"] = (None, ("pod", "data"), "model", None, None)
+        rules["v"] = (None, ("pod", "data"), "model", None, None)
+    elif cfg.block_kind == "mamba1":
+        rules["conv"] = (None, ("pod", "data"), None, "model")
+        rules["ssm"] = (None, ("pod", "data"), "model", None)
+    else:
+        rules["conv"] = (None, ("pod", "data"), None, "model")
+        rules["ssm"] = (None, ("pod", "data"), "model", None, None)
+    if cfg.shared_attn_every:
+        rules["sa_k"] = (None, ("pod", "data"), "model", None, None)
+        rules["sa_v"] = (None, ("pod", "data"), "model", None, None)
+    return rules
+
+
 def _logits(x: torch.Tensor, lm_head: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits. In bf16 the product is rounded to bf16 before the
@@ -396,7 +572,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig
     """Prefill: forward pass over ``batch["tokens"]`` (B, S) (and the
     patch frontend's ``patch_embeds`` where given) that also builds the
     decode cache → (last-position logits (B, V) fp32, cache with pos =
-    S). Runs where the parameters lie."""
+    S). Runs where the parameters lie; not under a mesh (the sharded
+    decode cache is ROADMAP queue 1 item 3, slice B3)."""
+    _no_mesh("prefill")
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed_inputs(params, batch, cfg)
@@ -440,7 +618,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) → (logits (B, V) fp32, cache with
     pos + 1). The cache's tensors are updated in place (the reference
-    returns new arrays): the returned dict shares them."""
+    returns new arrays): the returned dict shares them. Not under a mesh
+    (ROADMAP queue 1 item 3, slice B3)."""
+    _no_mesh("decode_step")
     pos = cache["pos"]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     g = 0

@@ -9,8 +9,8 @@ and training attention (``blocked_attention``) go through the
 ``flash_attention`` kernel, and its backward through the backward kernel
 (``ops.FlashAttentionFn``); decode attention is plain PyTorch. The MoE's
 routing, dispatch and grouped expert products are plain PyTorch, as the
-reference runs them in XLA; its expert-parallel ``shard_map`` branch is
-multi-device (ROADMAP queue 1 item 3): here every expert is local.
+reference runs them in XLA; under a mesh with a ``model`` axis the
+routed experts are split over it (expert parallelism, ``_moe_ep``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
@@ -230,7 +231,7 @@ def parallel_attn_mlp_block(attn_params: dict, mlp_params: dict,
 
 
 # ---------------------------------------------------------------------------
-# MoE (shared + routed experts, every expert local)
+# MoE (shared + routed experts, expert parallelism over a mesh)
 # ---------------------------------------------------------------------------
 
 
@@ -313,17 +314,71 @@ def _moe_local(h2: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor,
     return (gathered * w).reshape(t, k, d).sum(dim=1)
 
 
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """The reference's condition for expert parallelism: a mesh with a
+    ``model`` axis whose size divides ``n_experts``."""
+    mesh = dist.current_mesh()
+    return (mesh is not None and "model" in mesh.shape
+            and cfg.n_experts % mesh.shape["model"] == 0)
+
+
+def _moe_ep(params: dict, h2: torch.Tensor, cfg: ModelConfig):
+    """The routed experts under expert parallelism → (y (T, D), this
+    data shard's aux). Model rank m holds experts m·E/M … (m+1)·E/M − 1
+    (``wg`` etc. of E/M experts; a whole E is cut to them). Every model
+    rank routes the same tokens — the data shard's: under fsdp, where the
+    model ranks hold other rows, they are gathered first — so the input
+    and the router are replicated over ``model`` and their gradients are
+    summed over it (the reference's ``shard_map`` transpose); one
+    all_reduce over ``model`` combines the experts' outputs, with an
+    identity backward (under fsdp a reduce_scatter to the rank's rows,
+    with an all_gather backward)."""
+    mesh = dist.current_mesh()
+    m = mesh.shape["model"]
+    e_loc = cfg.n_experts // m
+    e_base = mesh.coords["model"] * e_loc
+    rows = "model" in dist.live_batch_axes()
+    router = params["router"]
+    if rows:        # fsdp: the gather's backward sums over model
+        t = h2.shape[0]
+        h2 = dist.gather_param(h2, dist.Plan(
+            mesh, (t * m, h2.shape[1]), ("model", None),
+            frozenset({"model"})))
+    else:           # tp: the step sums over the batch axes only
+        h2 = dist.sum_backward(h2, ("model",))
+        router = dist.sum_backward(router, ("model",))
+    top_e, top_w, aux = _route(h2, router, cfg)
+    wg, wu, wd = (params[k] if params[k].shape[0] == e_loc
+                  else params[k][e_base:e_base + e_loc]
+                  for k in ("wg", "wu", "wd"))
+    y = _moe_local(h2, top_e, top_w, wg, wu, wd, e_base, cfg)
+    if rows:        # this rank's rows of the experts' sum
+        return dist.reduce_scatter_rows(y, ("model",)), aux
+    return dist.sum_forward(y, ("model",)), aux
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """Shared-expert + routed-expert MoE residual block → (y, aux loss).
     The routed experts see the call's B·S tokens at once (capacity by
     ``_capacity``); the shared experts are a dense SwiGLU over all of
-    them."""
+    them. Under a mesh the tokens are this rank's rows and the routing is
+    per data shard, as the reference's expert-parallel ``shard_map``
+    routes: with ``expert_parallel(cfg)`` the experts are split over
+    ``model`` (``_moe_ep``), else every expert is local; the aux loss is
+    the mean of the ranks' (``pmean``) — over every mesh axis under
+    expert parallelism, over the batch axes without."""
     b, s, d = x.shape
     h = rms_norm(x, params["ln"], cfg.rms_eps)
     h2 = h.reshape(b * s, d)
-    top_e, top_w, aux = _route(h2, params["router"], cfg)
-    y = _moe_local(h2, top_e, top_w, params["wg"], params["wu"],
-                   params["wd"], 0, cfg).reshape(b, s, d)
+    if expert_parallel(cfg):
+        y, aux = _moe_ep(params, h2, cfg)
+        aux = dist.mean_forward(aux, dist.current_mesh().axis_names)
+    else:
+        top_e, top_w, aux = _route(h2, params["router"], cfg)
+        y = _moe_local(h2, top_e, top_w, params["wg"], params["wu"],
+                       params["wd"], 0, cfg)
+        aux = dist.mean_forward(aux, dist.live_batch_axes())
+    y = y.reshape(b, s, d)
     if cfg.n_shared_experts > 0:
         y = y + _swiglu(h, params["swg"], params["swu"], params["swd"], cfg)
     return x + y, aux

@@ -19,6 +19,12 @@ bit pattern in an int32 tensor (the port's signatures and packed words)
 pass the uint32 numpy view, so the file carries the reference's dtype.
 ``restore_checkpoint`` rebuilds a target tree on the target's device, so
 either package restores the other's training checkpoints.
+
+Under a mesh (``repro_torch.dist``) a state is each rank's blocks:
+``save_checkpoint(..., specs=)`` gathers every leaf and rank 0 writes it,
+in the same format (the file carries no topology); ``restore_checkpoint(
+..., mesh=, specs=)`` cuts each rank's block for any mesh and spec, the
+counterpart of the reference's ``restore_checkpoint(..., shardings=)``.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import utils
+from repro_torch import dist, utils
 
 _SEP = "\x1f"  # unit separator: safe key-path join
 
@@ -78,12 +84,35 @@ def _dtype_name(a: np.ndarray) -> str:
     return "bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
 
 
+def _specs_for(specs, flat: dict) -> dict:
+    """Each leaf's spec: ``specs`` is one spec tuple for every leaf or a
+    tree shaped like the state."""
+    if isinstance(specs, tuple):
+        return {k: specs for k in flat}
+    return _flatten(specs)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state, *, extra: dict | None
-                    = None, background: bool = False, keep: int = 3):
+                    = None, background: bool = False, keep: int = 3,
+                    specs=None):
     """Write ``state`` as step ``step`` atomically, then keep only the
     newest ``keep`` steps. With ``background=True`` the host copy happens
-    inline and the write on a thread, which is returned (``join()`` it)."""
-    host = {k: _to_host(v) for k, v in _flatten(state).items()}
+    inline and the write on a thread, which is returned (``join()`` it).
+
+    Under a mesh with ``specs`` (one spec for every leaf, or a tree like
+    ``state``), ``state`` holds this rank's blocks: every rank gathers
+    each leaf and rank 0 writes (the others return None; without
+    ``background`` they wait for the write)."""
+    flat = _flatten(state)
+    mesh = dist.current_mesh()
+    if mesh is not None and specs is not None:
+        sp = _specs_for(specs, flat)
+        flat = {k: dist.gather(v, sp[k]) for k, v in flat.items()}
+        if mesh.rank != 0:
+            if not background:
+                torch.distributed.barrier()
+            return None
+    host = {k: _to_host(v) for k, v in flat.items()}
     meta = {
         "step": int(step),
         "keys": {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
@@ -115,6 +144,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *, extra: dict | None
         t.start()
         return t
     write()
+    if mesh is not None and specs is not None:
+        torch.distributed.barrier()
     return None
 
 
@@ -189,7 +220,8 @@ def _rebuild(target, flat: dict, prefix: tuple = ()):
 
 
 def restore_checkpoint(ckpt_dir: str, target, *, step: int | None = None,
-                       device=None) -> tuple[Any, dict]:
+                       device=None, mesh=None, specs=None
+                       ) -> tuple[Any, dict]:
     """Rebuild ``target``-structured state from step ``step`` (the latest
     by default) → (state, extra).
 
@@ -198,7 +230,9 @@ def restore_checkpoint(ckpt_dir: str, target, *, step: int | None = None,
     tensor's device, or ``device`` (cuda unless named) for a leaf on the
     ``meta`` device or any other object with ``shape`` and ``dtype``.
     A key missing from the checkpoint raises ``KeyError``, a shape that
-    differs ``ValueError``."""
+    differs ``ValueError``. With a ``mesh`` (an ``LMMesh``) and ``specs``
+    (one spec for every leaf, or a tree like ``target``; ``target`` has
+    the whole shapes), each rank keeps its block of every leaf."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -213,4 +247,8 @@ def restore_checkpoint(ckpt_dir: str, target, *, step: int | None = None,
             dev = ref.device if isinstance(ref, torch.Tensor) and \
                 ref.device.type != "meta" else utils.resolve_device(device)
             rebuilt[key] = _leaf_tensor(key, arrays[key], ref, dev)
+    if mesh is not None:
+        sp = _specs_for(specs, rebuilt)
+        rebuilt = {k: dist.local_block(v, sp[k], mesh)
+                   for k, v in rebuilt.items()}
     return _rebuild(target, rebuilt), meta.get("extra", {})

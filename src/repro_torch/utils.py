@@ -212,6 +212,31 @@ def tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_map_with_path(fn, tree: dict, prefix: tuple = ()) -> dict:
+    """``fn(path, leaf)`` on every leaf of a nested dict, same keys."""
+    return {k: tree_map_with_path(fn, v, prefix + (k,))
+            if isinstance(v, dict) else fn(prefix + (k,), v)
+            for k, v in tree.items()}
+
+
+def tree_get(tree: dict, path: tuple):
+    """The node of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_unflatten(paths, values) -> dict:
+    """A nested dict from (path, value) pairs (``tree_leaves``'s inverse)."""
+    out: dict = {}
+    for path, v in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names a device; never a silent CPU.
 

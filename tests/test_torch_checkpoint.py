@@ -25,6 +25,7 @@ package's, on the CPU.
   finishes with the uninterrupted reference run's alerts, located
   detections, events, stats and locate counters at tolerance 0.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 

@@ -11,7 +11,8 @@ on the card and the CPU to the CPU's uninterrupted run; the location tier
 on the card (``locate_groups`` within the finest cell of the CPU's with
 ``n_used`` and ``consistent`` equal, and the located stream's alerts and
 detections equal to the CPU's); the LM serving engine's tokens on the
-card equal to its CPU path's.
+card equal to its CPU path's; one NCCL rank's ZeRO step and expert
+parallelism equal to the steps without a mesh.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -19,6 +20,8 @@ Imports nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
+import contextlib
 import json
 import pathlib
 
@@ -1198,6 +1201,70 @@ def test_moe_train_steps_repeat_bit_for_bit(cuda):
                     + [t for _, t in tu.tree_leaves(st.opt)] + [m["loss"]])
     assert bool(torch.isfinite(runs[0][-1]))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """One NCCL rank on the card for the test's duration (a ``FileStore``
+    rendezvous under the test's temporary directory)."""
+    from repro_torch import dist
+    dist.init_ranks("nccl", 0, 1, f"file://{tmp_path}/rendezvous")
+    try:
+        yield cuda
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_one_rank_nccl_zero_step_equals_the_step_without_a_mesh(nccl_rank):
+    """qwen2.5-14b's bf16 smoke config: two ``shard_grads_like_opt`` steps
+    under a (1, 1) NCCL mesh (every collective runs, on one rank) equal
+    two steps without a mesh from the same state, leaf for leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        shard_train_state)
+    from repro_torch.train.optimizer import OptimizerConfig
+    cfg = get_smoke_config("qwen2.5-14b")
+    g = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        toks = torch.as_tensor(g.integers(1, cfg.vocab_size, (4, 64)),
+                               dtype=torch.int32, device=nccl_rank)
+        batches.append({"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+    mesh = make_host_mesh((1, 1))
+    runs = []
+    for use_mesh in (False, True):
+        st = init_train_state(cfg, 0, nccl_rank)
+        with mesh if use_mesh else contextlib.nullcontext():
+            st = shard_train_state(st, cfg)
+            step = make_train_step(cfg, OptimizerConfig(
+                warmup_steps=1, total_steps=10), n_microbatches=2,
+                shard_grads_like_opt=use_mesh)
+            ms = [step(st, b)[1] for b in batches]
+        runs.append([t for _, t in tu.tree_leaves(st.params)]
+                    + [t for _, t in tu.tree_leaves(st.opt)]
+                    + [m[k] for m in ms for k in ("loss", "grad_norm")])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_one_rank_nccl_expert_parallel_moe_equals_dense(nccl_rank):
+    """deepseek-moe-16b's smoke config: ``moe_block`` under expert
+    parallelism at model = 1 (one all_reduce combines the experts) equals
+    the dense block, output and aux."""
+    from repro_torch import dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decoder, layers as L
+    cfg = get_smoke_config("deepseek-moe-16b")
+    lp = decoder._layer(decoder.init_params(cfg, 0, nccl_rank)["layers"],
+                        0)["moe"]
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(0)).to(nccl_rank, cfg.cdtype)
+    want = L.moe_block(lp, x, cfg)
+    with make_host_mesh((1, 1)):
+        assert L.expert_parallel(cfg) and dist.current_mesh() is not None
+        got = L.moe_block(lp, x, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_detect_step_on_the_card_equals_the_cpu(cuda):

@@ -5,6 +5,7 @@ off (the same kept sequences, the same dedup counts), an
 prefetching iterator yielding the same batches. Tolerance: none, the
 arrays are equal.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import itertools
 
 import numpy as np

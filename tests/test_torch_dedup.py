@@ -3,6 +3,7 @@ shingle fingerprints bit-exact, and ``find_duplicates`` (shingles → the
 port's offline search → exact Jaccard verify) with the same keep mask and
 the same stats on the inputs of tests/test_data.py.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 
 import jax.numpy as jnp

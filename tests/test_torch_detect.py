@@ -7,6 +7,7 @@ against the reference on the golden's own pairs; the port must refuse to
 run without CUDA unless the CPU is asked for, and must import nothing of
 JAX or of the JAX package.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 import pathlib

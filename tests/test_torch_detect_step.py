@@ -7,6 +7,7 @@ scores, masks) is an integer or a mask, and all must be equal; one case
 turns the occurrence limiter on (``occ_limit`` with ``icfg.occ_slots``),
 where it halves the chunk's pairs.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 

@@ -10,6 +10,7 @@ taps bit for bit and its ``jnp.convolve(x, taps, "same")`` output (every
 length, taps longer than the trace included) within the same tolerance;
 its fingerprints agree with the reference's on at least 99.9% of the bits.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ One tool is the reference's side by design: ``tools/located_golden.py``
 writes ``tests/golden/located_scenario.json`` from the JAX package (inside
 its ``main``); its module level, which ``chip_smoke.py`` and the tests
 import for the scenario's summary, is checked to import neither."""
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import ast
 import importlib
 import pathlib

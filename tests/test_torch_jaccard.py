@@ -10,6 +10,7 @@ folded in, on the CPU (its plain version), bit-exact:
 - its plan (16-byte or 4-byte loads, lanes a pair, loads a lane) against
   what ``csrc/jaccard_popcount.cu`` instantiates, and its input checks.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import re
 import types
 

@@ -7,6 +7,7 @@ the launch counter alone; bad inputs raise; a missing nvcc raises.
 Float kernels: rtol 1e-5 and atol 1e-5 * max|x| (only the fp32 summation
 order differs). Integer kernels: bit-exact.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ two products each), the router's weights and aux loss to 1e-6 (one fp32
 product and a softmax). SSD is also held to the plain recurrence at
 lengths the reference cannot run (not a multiple of its chunk).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 
 import jax

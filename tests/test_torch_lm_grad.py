@@ -13,6 +13,7 @@ versions); bf16 2⁻⁷ relative (the reference rounds attention
 probabilities and its chunked scan's pairs at other places than the
 port); the backward formulas 2e-5 relative in fp32.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 

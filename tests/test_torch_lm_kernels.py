@@ -7,6 +7,7 @@ multiples of a block) held against ``repro.kernels.ref`` only: the JAX
 ``ops.flash_attention`` falls back to the reference there. fp32, atol
 5e-5 (only the fp32 summation order differs).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

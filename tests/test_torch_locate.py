@@ -33,6 +33,7 @@ finest cell (0.26 km) from the reference's. Hence the golden's origins
 are held to one finest cell (``cell_km`` + 1e-4 km, the float32 spacing of
 two neighbouring candidates), as on the card.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 import pathlib

@@ -6,6 +6,7 @@ reference state carried across with ``repro_torch.convert``. The port
 steps two stations at once (its station axis) where the reference steps
 each station on its own.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 

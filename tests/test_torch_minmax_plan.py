@@ -5,6 +5,7 @@ two kernels. Nothing here needs a card: the plan is plain Python, and the
 tiled kernel itself is held against the plain version by
 ``tests/test_torch_cuda.py`` on the card.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import importlib.util
 import pathlib
 import re

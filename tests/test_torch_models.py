@@ -10,6 +10,7 @@ fp32 arithmetic); bf16 decoder 2e-2 · max|logit|, wider because the
 reference rounds attention probabilities to bf16 before P·V and the port
 keeps them in fp32, as the Pallas kernel does.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 

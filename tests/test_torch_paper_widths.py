@@ -16,6 +16,7 @@ tests/test_kernels.py runs it, because the jnp oracle materialises an
 the same per-station pair triplets, the same stats and QC counters, the
 same station events, the same detections and the same recall.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 
 import numpy as np

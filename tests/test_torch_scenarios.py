@@ -17,6 +17,7 @@ half) and the fault-injection properties of the reference's
 
 The ``bench_*`` schema tests stay the reference's.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import pathlib
 import sys

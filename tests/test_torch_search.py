@@ -8,6 +8,7 @@ golden of ``tests/golden/stream_pairs.json`` and the paper widths on a
 20-minute trace. Integer results are bit-exact and float statistics equal
 (tolerance 0: the same float32 divisions).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 import pathlib

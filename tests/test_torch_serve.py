@@ -10,6 +10,7 @@ reference's prefill needs a length that is at most, or a multiple of, its
 attention block (32 in the smoke configs) and scan chunk (16 in the
 falcon-mamba and zamba2 smoke configs).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 
 import jax

@@ -24,6 +24,7 @@ On the reference serving tests' corpus (``latency_config``, 2 stations,
   ``located`` block, and ``--restore`` into a wider ``--stations`` grows
   the restored pool as the reference's does.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 

@@ -24,6 +24,7 @@ reference documents as bit-identical to it: its one-device ``vmap`` pool
 * the configuration values (``SHAPES``, ``model_flops``,
   ``stream_sharded_smoke_config``, ``input_specs``).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 

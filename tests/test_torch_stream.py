@@ -29,6 +29,7 @@ frozen statistics where the test gives them:
   reference's result, with the other stations as an uninterrupted run's;
 * the detector needs CUDA unless the CPU is asked for.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 import pathlib

@@ -7,6 +7,7 @@ horizon, a gap bound) both packages must emit the same blocks and masks,
 count the same ``quality`` dicts, keep the same reservoir rows and give
 the same statistics, at tolerance 0. Snapshots round-trip.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ and reorder reconciliation is permutation-invariant within the horizon
 (re-delivery a no-op). Each property runs through hypothesis and through
 a deterministic seed sweep.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ blocks; the pool helpers (``init_pool``, ``slice_state``,
 ``index_stats``) and the telemetry primitives (metrics registry, step
 watchdog, span tracer, drop views) against the reference's.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 

@@ -18,6 +18,7 @@ streaming section, on the port, with the reference's own run beside it.
   ``locate_view`` reads the reference's all-zero view; ``record_locate``
   feeds it as the reference's does (registry and Prometheus text equal).
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import pathlib
 import re

@@ -18,6 +18,7 @@ step's gradients agree to 2e-5 of max, ``tests/test_torch_lm_grad.py``,
 and the later steps' are taken at parameters ~1e-7 apart); the loss 1e-5
 relative, the grad norm 1e-4.
 """
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import json
 import os
@@ -224,11 +225,6 @@ def test_accum_modes_give_the_same_step(rng):
                               leaves(runs[1][0].opt["m"])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-5 * float(b.abs().max()) + 1e-12)
-
-
-def test_shard_grads_like_opt_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        make_train_step(CFG, OptimizerConfig(), shard_grads_like_opt=True)
 
 
 def test_grad_reducer_sees_the_gradients(rng):

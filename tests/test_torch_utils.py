@@ -1,6 +1,7 @@
 """repro_torch.utils against repro.utils: bit-exact on random inputs and on
 the uint32 edges 0 and 2**32 - 1; the tree sizes on every arch's smoke
 parameters."""
+import _torch_threads  # noqa: F401  (one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np
