@@ -3,8 +3,10 @@
 offline Min-Max LSH search, LM serving (every LM family), detection
 serving, detector snapshots, elastic pool membership, the location /
 magnitude tier, LM training (every family), the one-chunk
-``detect_step``, and the station-sharded pool and ``detect_step_sharded``
-over logical meshes of the one card, on one NVIDIA GPU, end to end.
+``detect_step``, the station-sharded pool and ``detect_step_sharded``
+over logical meshes of the one card, LM training and serving under a
+mesh with one NCCL rank, and the model axis's split, on one NVIDIA GPU,
+end to end.
 
     python3 chip_smoke.py
 
@@ -305,10 +307,35 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     rounding), and the int8 bytes
     the pod ``all_gather`` carried beside the fp32 bytes it replaces. (d)
     command-r-35b's 4-layer cut is not trained: its per-rank bytes under
-    ZeRO of the gradients and optimizer state at data widths 1, 2, 4 and
-    8 from the rules, plus one microbatch's forward and backward beyond
-    its bf16 parameters measured on the card, and the least width whose
-    sum fits 80 GB.
+    the tp layout and ZeRO on the (data, model) layouts of 1, 2, 4 and 8
+    cards (``MESH_LAYOUTS``) from the rules (the model axis divides the
+    parameters, the gradients and the optimizer state), plus one
+    microbatch's bf16 gradients in the model blocks and its other
+    transients measured on the card, and the least layout of each card
+    count whose sum fits 80 GB.
+32. The ``model`` axis as compute (``dist.TensorParallel``), one NCCL
+    rank. (a) Phase 15's cell of qwen2.5-14b and falcon-mamba-7b
+    (``TP_SERVE``: 4 layers, bf16, 4 slots, 8 prompts of 512–2048
+    tokens, 32 new each) served without a mesh and under a (1, 1)
+    data×model mesh, each after a warm-up: every prefill's and decode
+    step's logits bitwise equal, else within ``MESH_TOL`` (printed
+    which), the tokens equal, tokens/s of both runs, the collectives of a
+    decode step (``dist.COLLECTIVES``), the kernel's launches equal. (b)
+    Phase 31a's qwen2.5-14b step, which runs the tensor-parallel path:
+    its equality, step walls and collective calls beside the same cell's
+    when each layer gathered its blocks whole (``GATHERED_LAYERS``). (c)
+    One full-width layer of qwen2.5-14b (attention + MLP), falcon-mamba-7b
+    (Mamba1) and command-r-35b (the parallel block) at ``TP_SEQ`` tokens,
+    its parts at
+    ``TP_RANKS`` model ranks played in turn (``layers.attention_partial``
+    + ``mlp_partial``, ``ssm.mamba1_mix`` + ``mamba1_scan_out`` with
+    x_proj's parts summed between, ``layers.parallel_partial``) summed
+    here, against the same function at one rank, fp32 within 1e-5 and
+    bf16 within 2⁻⁷ of max|out| (``TP_TOL``). (d) ``flash_attention`` at
+    qwen2.5-14b's 2048-token prefill cut to its heads at model widths 2,
+    4 and 8 (20 / 4, 10 / 2, 5 / 1) and ``mamba_scan`` at
+    falcon-mamba-7b's cut to 4096 / 2048 / 1024 channels, each against
+    its plain version, timed, bounded, attention beside SDPA.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -487,7 +514,25 @@ DETECT_SHARDED_SAMPLE = 8
 # widths of command-r-35b's reckoning
 MESH_TRAIN = {"qwen2.5-14b": 2, "deepseek-moe-16b": 1}
 MESH_TOL = 1e-6
-MESH_WIDTHS = (1, 2, 4, 8)
+# 31d: command-r-35b's (data, model) layouts on 1, 2, 4 and 8 cards
+MESH_LAYOUTS = ((1, 1), (2, 1), (1, 2), (4, 1), (2, 2), (1, 4), (8, 1),
+                (4, 2), (2, 4), (1, 8))
+# phase 32: the served models under a (1, 1) mesh (phase 15's cell), the
+# full-width layers split over TP_RANKS model ranks played in turn, the
+# split's tolerance (a share of max|out|) by dtype, the kernels' per-rank
+# shapes at model widths TP_WIDTHS
+TP_SERVE = ("qwen2.5-14b", "falcon-mamba-7b")
+TP_LAYERS = {"qwen2.5-14b": "attention + mlp", "falcon-mamba-7b": "mamba1",
+             "command-r-35b": "parallel"}
+TP_RANKS = 4
+TP_SEQ = 2048
+TP_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+TP_WIDTHS = (2, 4, 8)
+# 31a's cell when each layer gathered its blocks whole at use (this
+# script's phase 31 on an NVIDIA H100 80GB HBM3 at 700 W): the mesh and
+# no-mesh step walls and the profiled step's collective events
+GATHERED_LAYERS = {"step_mesh_s": 0.532, "step_no_mesh_s": 0.380,
+                   "collective_calls": 430}
 # 31d's budget a card: 80 GB (the card reports 85.0e9 bytes; the rest is
 # left to the CUDA context, the allocator and the step's transients)
 CARD_BUDGET = 80e9
@@ -3661,12 +3706,14 @@ def _mesh_cell(arch: str, steps: int, dev) -> dict:
                  [t for _, t in tree_leaves(state.opt)]),
              "routes": [t.cpu() for t in ids]}
         if use_mesh:    # one more step, profiled, for its collectives
+            dist.reset_collectives()
             with mesh, torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 step(state, batches[-1])
                 torch.cuda.synchronize()
             r["collectives"] = _collectives(prof)
+            r["collectives"]["by_op"] = dict(dist.COLLECTIVES)
         runs.append((r, metrics))
         del state, step
     (a, ma), (b, mb) = runs
@@ -3792,15 +3839,33 @@ def _compression_cell(dev) -> dict:
     return out
 
 
+def _rank_numel(rule: tuple, shape: tuple, data: int, model: int) -> int:
+    """A leaf's elements on one rank of a (data, model) mesh under the tp
+    layout: each dim whose entry names an axis of the mesh that divides
+    it ("vocab" is ``model``) cut by that axis, as ``sanitize_spec``
+    cuts it."""
+    size = {"data": data, "model": model, "vocab": model, "pod": 1}
+    n = 1
+    for e, d in zip(tuple(rule) + (None,) * len(shape), shape):
+        k = 1
+        for a in (() if e is None else (e,) if isinstance(e, str) else e):
+            k *= size[a]
+        n *= d // k if d % k == 0 else d
+    return n
+
+
 def _command_r_reckoning(dev) -> dict:
-    """Phase 31d: command-r-35b's 4-layer cut per rank at data widths
-    ``MESH_WIDTHS`` (model width 1): bf16 parameters whole; under ZeRO
-    the fp32 gradient accumulators and the fp32 master, m and v in the
-    optimizer's blocks (``zero_sharding_entry``: an entry that does not
-    divide the width leaves its leaf whole) — the state; plus, for the
-    step's peak, one microbatch's forward and backward beyond the
-    parameters, measured on the card: its bf16 gradients, whole until
-    they are reduce_scattered, and its activations."""
+    """Phase 31d: command-r-35b's 4-layer cut per rank on the (data,
+    model) layouts ``MESH_LAYOUTS`` under the tp layout: bf16 parameters
+    in their ``model`` blocks; under ZeRO the fp32 gradient accumulators
+    and the fp32 master, m and v in the optimizer's blocks
+    (``zero_sharding_entry``: data on the largest dim the rule leaves
+    free; an entry that does not divide leaves its dim whole) — the
+    state; plus, for the step's peak, one microbatch's bf16 gradients in
+    the ``model`` blocks (whole until scattered over data) and its other
+    transients, measured on the card at model width 1 (the model split
+    divides the layers' intermediates too: kept whole here, an upper
+    bound)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, lm_loss
@@ -3827,25 +3892,32 @@ def _command_r_reckoning(dev) -> dict:
     micro = torch.cuda.max_memory_allocated() - base
     gbytes = sum(g.numel() * g.element_size() for g in grads)
     del grads, ts, params, loss
-    widths = {}
-    for d in MESH_WIDTHS:
-        opt_numel = 0
-        for path, shp in shapes.items():
-            entry = zero_sharding_entry(rules[path], shp)
-            dims = [n for e, n in zip(entry, shp) if e == "data"]
-            opt_numel += math.prod(shp) // (
-                d if dims and dims[0] % d == 0 else 1)
-        state = 2 * n_params + 4 * opt_numel + 12 * opt_numel
-        widths[d] = {"param_bytes": 2 * n_params,
-                     "grad_bytes": 4 * opt_numel,
-                     "opt_bytes": 12 * opt_numel, "state_bytes": state,
-                     "step_peak_bytes": state + micro,
-                     "fits": state + micro <= CARD_BUDGET}
-    fit = next((d for d in MESH_WIDTHS if widths[d]["fits"]), None)
+    layouts = {}
+    for d, m in MESH_LAYOUTS:
+        p_numel = sum(_rank_numel(rules[k], shp, d, m)
+                      for k, shp in shapes.items())
+        o_numel = sum(_rank_numel(zero_sharding_entry(rules[k], shp), shp,
+                                  d, m) for k, shp in shapes.items())
+        state = 2 * p_numel + 4 * o_numel + 12 * o_numel
+        peak = state + 2 * p_numel + (micro - gbytes)
+        layouts[f"{d}x{m}"] = {
+            "cards": d * m, "data": d, "model": m,
+            "param_bytes": 2 * p_numel, "grad_bytes": 4 * o_numel,
+            "opt_bytes": 12 * o_numel, "state_bytes": state,
+            "microbatch_grad_bytes": 2 * p_numel,
+            "step_peak_bytes": peak, "fits": peak <= CARD_BUDGET}
+    least = {}
+    for cards in sorted({v["cards"] for v in layouts.values()}):
+        fit = [k for k, v in layouts.items()
+               if v["cards"] == cards and v["fits"]]
+        least[cards] = min(fit, key=lambda k: layouts[k]["step_peak_bytes"]
+                           ) if fit else None
     return {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
             "params": n_params, "microbatch_peak_bytes": micro,
             "microbatch_grad_bytes": gbytes, "budget_bytes": CARD_BUDGET,
-            "by_data_width": widths, "least_width_that_fits": fit}
+            "by_layout": layouts, "least_peak_layout_that_fits": least,
+            "least_cards_that_fit": next(
+                (c for c, k in least.items() if k is not None), None)}
 
 
 def mesh_train_phase(dev) -> dict:
@@ -3865,6 +3937,306 @@ def mesh_train_phase(dev) -> dict:
                   flush=True)
     finally:
         torch.distributed.destroy_process_group()
+    return out
+
+
+class _RecordServe:
+    """Within the ``with``: the logits of every ``prefill`` and
+    ``decode_step`` the serve engine calls, and the collectives of its
+    last decode step (the engine's module names wrapped; the model code
+    is untouched)."""
+
+    def __enter__(self):
+        from repro_torch import dist
+        from repro_torch.launch import serve
+        self.logits, self.step_collectives = [], {}
+        self._saved = (serve.prefill, serve.decode_step)
+        prefill, decode_step = self._saved
+
+        def record_prefill(*a, **k):
+            out = prefill(*a, **k)
+            self.logits.append(out[0].detach().clone())
+            return out
+
+        def record_step(*a, **k):
+            dist.reset_collectives()
+            out = decode_step(*a, **k)
+            self.step_collectives = dict(dist.COLLECTIVES)
+            self.logits.append(out[0].detach().clone())
+            return out
+
+        serve.prefill, serve.decode_step = record_prefill, record_step
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve
+        serve.prefill, serve.decode_step = self._saved
+
+
+def _tp_serve_cell(arch: str, dev) -> dict:
+    """Phase 32a: phase 15's cell of ``arch`` served without a mesh and
+    under a (1, 1) data×model mesh (one NCCL rank: the tensor-parallel
+    path with every collective), each after a warm-up: every logit of
+    the two runs compared, tokens/s, the collectives of a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import init_params
+    n_req, max_new, n_slots = 8, 32, 4
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=LM_SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, dev)
+    lens = np.random.default_rng(0).choice([512, 1024, 1536, 2048], n_req)
+    prng = np.random.default_rng(1)
+    prompts = [prng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    mesh = make_host_mesh((1, 1))
+    runs = {}
+    for label in ("no_mesh", "mesh"):
+        ctx = mesh if label == "mesh" else _Null()
+        with ctx:
+            ServeEngine(cfg, n_slots=n_slots, max_len=2560,
+                        params=params).run(
+                [Request(i, q, 2) for i, q in enumerate(prompts)])
+            eng = ServeEngine(cfg, n_slots=n_slots, max_len=2560,
+                              params=params)
+            reqs = [Request(i, q, max_new) for i, q in enumerate(prompts)]
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            with _RecordServe() as rec:
+                stats = eng.run(reqs)
+            torch.cuda.synchronize()
+        _need(all(q.done and len(q.out) == max_new + 1 for q in reqs),
+              f"32a {arch} {label}: a request was not served in full")
+        runs[label] = {"stats": stats, "logits": rec.logits,
+                       "collectives": rec.step_collectives,
+                       "launches": dict(ops.LAUNCHES),
+                       "tokens": [q.out for q in reqs]}
+    a, b = runs["no_mesh"], runs["mesh"]
+    _need(len(a["logits"]) == len(b["logits"]),
+          f"32a {arch}: {len(a['logits'])} calls without a mesh, "
+          f"{len(b['logits'])} with")
+    kernel = "mamba_scan" if cfg.block_kind == "mamba1" else \
+        "flash_attention"
+    out = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+           "mesh": {"data": 1, "model": 1}, "prompt_lens": [int(n) for n
+                                                            in lens],
+           "calls": len(b["logits"]),
+           "logits": _same_or_close(b["logits"], a["logits"],
+                                    f"32a {arch} logits"),
+           "tokens_equal": a["tokens"] == b["tokens"],
+           "tokens_per_s_no_mesh": a["stats"]["tokens_per_s"],
+           "tokens_per_s_mesh": b["stats"]["tokens_per_s"],
+           "wall_s_no_mesh": a["stats"]["wall_s"],
+           "wall_s_mesh": b["stats"]["wall_s"],
+           "collectives_a_decode_step": b["collectives"],
+           "launches_mesh": {kernel: b["launches"][kernel]},
+           "launches_no_mesh": {kernel: a["launches"][kernel]}}
+    _need(out["tokens_equal"], f"32a {arch}: the mesh generated other "
+          "tokens")
+    _need(b["launches"][kernel] == a["launches"][kernel] > 0,
+          f"32a {arch}: {kernel} launched {b['launches'][kernel]} times "
+          f"under the mesh, {a['launches'][kernel]} without")
+    _need(sum(b["collectives"].values()) > 0,
+          f"32a {arch}: a decode step ran no collective")
+    del params
+    return out
+
+
+def _layer_params(cfg, dev, dt, seed: int) -> dict:
+    """One layer's parameters (``decoder._layer_param_shapes``) drawn as
+    ``init_params`` draws them, in ``dt``, without the model's tables."""
+    import torch
+    from repro_torch.models.decoder import _layer_param_shapes
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for blk, leaves in _layer_param_shapes(cfg).items():
+        out[blk] = {}
+        for name, shp in leaves.items():
+            if name == "a_log":
+                t = torch.log(torch.arange(1, shp[-1] + 1, device=dev,
+                                           dtype=torch.float32)).expand(shp)
+            elif name == "dt_bias":
+                t = torch.full(shp, -4.6, device=dev)
+            elif name in ("ln", "out_ln"):
+                t = torch.ones(shp, device=dev)
+            else:
+                scale = min(1.0 / math.sqrt(shp[-2]) if len(shp) >= 2
+                            else 0.02, 0.02)
+                t = torch.randn(shp, generator=g, device=dev) * scale
+            out[blk][name] = t.to(dt).contiguous()
+    return out
+
+
+def _tp_layer_cell(arch: str, dev) -> dict:
+    """Phase 32c: one full-width layer of ``arch``, its tensor-parallel
+    parts at ``TP_RANKS`` model ranks played in turn in this process
+    (``dist.TensorParallel(TP_RANKS, rank, None)``: no collective) and
+    summed here, against the same function at one rank (the unsplit
+    layer), in fp32 and bf16."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    cfg0 = get_config(arch)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        cfg = dataclasses.replace(cfg0, n_layers=1, param_dtype=name,
+                                  compute_dtype=name)
+        torch.cuda.empty_cache()
+        lp = _layer_params(cfg, dev, dt, 0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        h = torch.randn((1, TP_SEQ, cfg.d_model), generator=g,
+                        device=dev).to(dt)
+        pos = torch.arange(TP_SEQ, device=dev)
+
+        def part(tp):
+            with torch.no_grad():
+                if cfg.block_kind == "mamba1":
+                    return None, S.mamba1_mix(lp["ssm"], h, cfg, tp)
+                if cfg.parallel_block:
+                    return L.parallel_partial(lp["attn"], lp["mlp"], h, cfg,
+                                              pos, tp), None
+                return (L.attention_partial(lp["attn"], h, cfg, pos, tp)
+                        + L.mlp_partial(lp["mlp"], h, cfg, tp)), None
+
+        def finish(tp, mixed, proj):
+            with torch.no_grad():
+                _, z, xc, _ = mixed
+                return S.mamba1_scan_out(lp["ssm"], xc, z, proj, cfg, tp)[0]
+
+        tps = [dist.TensorParallel(TP_RANKS, m, None)
+               for m in range(TP_RANKS)]
+        ops.reset_launches()
+        if cfg.block_kind == "mamba1":
+            one = dist.TensorParallel()
+            _, mixed = part(one)
+            want = finish(one, mixed, mixed[3])
+            mixes = [part(tp)[1] for tp in tps]
+            proj = sum(m[3].float() for m in mixes).to(dt)
+            got = sum(finish(tp, m, proj).float()
+                      for tp, m in zip(tps, mixes))
+            kernel = "mamba_scan"
+        else:
+            want = part(dist.TensorParallel())[0]
+            got = sum(part(tp)[0].float() for tp in tps)
+            kernel = "flash_attention"
+        torch.cuda.synchronize()
+        _need(bool(torch.isfinite(got).all()), f"32c {arch} {name}: "
+              "non-finite output")
+        err = float((got - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        tol = TP_TOL[name] * scale
+        out[name] = {"max_abs_err": err, "max_abs_out": scale,
+                     "tolerance": tol,
+                     "launches": ops.LAUNCHES[kernel]}
+        _need(err <= tol, f"32c {arch} {name}: the {TP_RANKS} ranks' sum "
+              f"differs from the unsplit layer by {err} > {tol}")
+        del lp, h, got, want
+    return {"layer": TP_LAYERS[arch], "ranks": TP_RANKS, "seq": TP_SEQ,
+            "function": {"mamba1": "ssm.mamba1_mix + ssm.mamba1_scan_out",
+                         "parallel": "layers.parallel_partial"}.get(
+                TP_LAYERS[arch],
+                "layers.attention_partial + layers.mlp_partial"),
+            **out}
+
+
+def _tp_kernel_cases(dev) -> dict:
+    """Phase 32d: ``flash_attention`` at qwen2.5-14b's prefill shape cut
+    to its heads at model widths ``TP_WIDTHS`` and ``mamba_scan`` at
+    falcon-mamba-7b's cut to its channels, each against its plain
+    version, timed, bounded (attention beside SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import mamba_scan as ms_k
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(0)
+    att, scan = [], []
+    for m in TP_WIDTHS:
+        hq, hkv, s, d = 40 // m, 8 // m, 2048, 128
+        q, k, v = (torch.randn((1, n, s, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for n in (hq, hkv, hkv))
+        err = _lm_check(ops.flash_attention(q, k, v), fa_k.plain(q, k, v),
+                        f"32d flash_attention at model {m}")
+        pairs = s * (s + 1) // 2
+        bound, by = _bound_ms(2 * 2 * (q.numel() + k.numel()),
+                              4 * hq * d * pairs, BF16_OPS_PER_S)
+        att.append({"model": m, "shape": [1, hq, hkv, s, s, d],
+                    "max_abs_err": err,
+                    "ms": _time_ms(lambda: ops.flash_attention(q, k, v)),
+                    "bound_ms": bound, "bound_by": by,
+                    "library_ms": _time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True))})
+        del q, k, v
+        b, s, di, n = 1, 2048, 8192 // m, 16
+        xdt = torch.randn((b, s, di), generator=g, device=dev)
+        dtv = F.softplus(torch.randn((b, s, di), generator=g, device=dev)
+                         - 4.6)
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(di, n).contiguous()
+        bm = torch.randn((b, s, n), generator=g, device=dev)
+        cm = torch.randn((b, s, n), generator=g, device=dev)
+        args = (xdt, dtv, a, bm, cm)
+        y, h = ops.mamba_scan(*args)
+        y_p, h_p = ms_k.plain(*args)
+        err = max(_lm_check(y, y_p, f"32d mamba_scan y at model {m}"),
+                  _lm_check(h, h_p, f"32d mamba_scan h at model {m}"))
+        bound, by = _bound_ms(
+            4 * (3 * b * s * di + di * n + 2 * b * s * n + b * di * n),
+            7 * b * s * di * n, n_sfu=b * s * di * n)
+        scan.append({"model": m, "shape": [b, s, di, n], "max_abs_err": err,
+                     "ms": _time_ms(lambda: ops.mamba_scan(*args)),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+        del args, xdt, dtv, a, bm, cm, y, h, y_p, h_p
+    return {"flash_attention": att, "mamba_scan": scan}
+
+
+def model_axis_phase(dev, report: dict) -> dict:
+    """Phase 32: the ``model`` axis as compute. (a) Serving under a (1, 1)
+    mesh with one NCCL rank; (b) phase 31a's step (which runs the
+    tensor-parallel path) beside ``GATHERED_LAYERS``; (c) full-width layers
+    split over ``TP_RANKS`` ranks played in turn; (d) the kernels at
+    their per-rank shapes."""
+    import torch
+    from repro_torch import dist
+    out = {}
+    dist.init_ranks("nccl")
+    try:
+        out["serve"] = {a: _tp_serve_cell(a, dev) for a in TP_SERVE}
+    finally:
+        torch.distributed.destroy_process_group()
+    for a, r in out["serve"].items():
+        print("model_axis serve", a, json.dumps(r, default=float),
+              flush=True)
+    cell = report["mesh_train"]["qwen2.5-14b"]
+    out["train"] = {
+        "arch": "qwen2.5-14b", "loss_and_grad_norm":
+            cell["loss_and_grad_norm"], "params": cell["params"],
+        "step_walls_mesh_s": cell["step_walls_mesh_s"],
+        "step_walls_no_mesh_s": cell["step_walls_no_mesh_s"],
+        "collective_calls_profiled_step":
+            cell["collectives_profiled_step"]["calls"],
+        "collectives_by_op": cell["collectives_profiled_step"]["by_op"],
+        "gathered_layers": GATHERED_LAYERS}
+    print("model_axis train", json.dumps(out["train"], default=float),
+          flush=True)
+    out["layers"] = {}
+    for a in TP_LAYERS:
+        out["layers"][a] = _tp_layer_cell(a, dev)
+        print("model_axis layer", a, json.dumps(out["layers"][a],
+                                                default=float), flush=True)
+    out["kernels"] = _tp_kernel_cases(dev)
+    print("model_axis kernels", json.dumps(out["kernels"], default=float),
+          flush=True)
     return out
 
 
@@ -4006,6 +4378,7 @@ def main() -> int:
             label="sharded_elastic")
     report["detect_step_sharded"] = detect_sharded_phase(dev)
     report["mesh_train"] = mesh_train_phase(dev)
+    report["model_axis"] = model_axis_phase(dev, report)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:

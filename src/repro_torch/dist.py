@@ -44,14 +44,26 @@ The LM half (below the station half) runs one process a rank over
 * ``gather_param`` gathers a stored block at use inside autograd: its
   backward sums over the axes whose ranks saw different data (the live
   batch axes) with a ``reduce_scatter`` and takes the local slice over
-  the others (``model`` under the tp layout, whose ranks computed the
-  same thing). ``sum_forward`` (Megatron's "g": all_reduce forward,
-  identity backward), ``sum_backward`` ("f": identity forward,
-  all_reduce backward) and ``mean_forward`` (the aux loss's ``pmean``)
-  are the other collectives the model code runs.
+  the others. ``plan`` decides which entries are gathered: under the
+  fsdp layout every split entry (the model axis is a batch axis there);
+  under the tp layout only the data and pod ones, since the layers
+  compute on their ``model`` blocks. ``sum_forward`` (Megatron's "g":
+  all_reduce forward, identity backward), ``sum_backward`` ("f":
+  identity forward, all_reduce backward) and ``mean_forward`` (the aux
+  loss's ``pmean``) are the other collectives the model code runs.
+* ``tensor_parallel()`` is the ``model`` axis as compute: under the tp
+  layout a ``TensorParallel`` of the rank's coordinate and the axis
+  size, whose methods the layers call (its block of a head, channel or
+  vocab dim, "f" and "g", the vocab-parallel cross-entropy, the
+  flash-decode combine); without a mesh, under fsdp or inside a region
+  where ``model`` is manual, a size-1 one that runs no collective.
+* ``COLLECTIVES`` counts the calls that reach the process group, by
+  operation and axes (``reset_collectives`` zeroes it), so a run can show
+  which collectives its path issued.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import dataclasses
@@ -417,15 +429,19 @@ def _entry_size(entry) -> int:
     return out
 
 
-def sanitize_spec(shape: Sequence[int], spec: Sequence) -> tuple | None:
+def sanitize_spec(shape: Sequence[int], spec: Sequence,
+                  uneven: bool | None = None) -> tuple | None:
     """The spec entries that exist on the mesh and divide their dim (None
     without a mesh), padded with None to ``len(shape)``: "vocab" is the
     model axis; a bare "model" drops under fsdp; axes missing from the
     mesh and manual axes drop; an entry that does not divide drops unless
-    uneven sharding is on and the dim is at least its size."""
+    uneven sharding is on (``uneven``, by default
+    ``allow_uneven_sharding``'s) and the dim is at least its size."""
     mesh = current_mesh()
     if mesh is None:
         return None
+    if uneven is None:
+        uneven = _UNEVEN.get()
     out = []
     for dim, entry in zip(shape, spec):
         if entry is None:
@@ -443,7 +459,7 @@ def sanitize_spec(shape: Sequence[int], spec: Sequence) -> tuple | None:
             out.append(None)
             continue
         if dim % _entry_size(axes) != 0 and not (
-                _UNEVEN.get() and dim >= _entry_size(axes)):
+                uneven and dim >= _entry_size(axes)):
             out.append(None)
             continue
         out.append(axes[0] if len(axes) == 1 else axes)
@@ -519,6 +535,18 @@ _all_gather = getattr(tdist, "all_gather_single", None) or \
 _reduce_scatter = getattr(tdist, "reduce_scatter_single", None) or \
     tdist.reduce_scatter_tensor
 
+# calls that reached the process group: "<op>:<axis>+<axis>" → count;
+# a parameter's gather at use counts under "param_all_gather" besides
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+def _count(op: str, mesh: LMMesh, axes) -> None:
+    COLLECTIVES[op + ":" + "+".join(mesh._key(axes))] += 1
+
 
 def all_gather_dim(x: torch.Tensor, dim: int, axes, full: int,
                    mesh: LMMesh | None = None) -> torch.Tensor:
@@ -532,6 +560,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, axes, full: int,
         xt = torch.cat([xt, xt.new_zeros((b - xt.shape[0], *xt.shape[1:]))])
     xt = xt.contiguous()
     out = xt.new_empty((n * b, *xt.shape[1:]))
+    _count("all_gather", mesh, axes)
     _all_gather(out, xt, group=mesh.group(axes))
     return out[:full].movedim(0, dim).contiguous()
 
@@ -548,6 +577,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, axes,
         xt = torch.cat([xt, xt.new_zeros((n * b - full, *xt.shape[1:]))])
     xt = xt.contiguous()
     out = xt.new_empty((b, *xt.shape[1:]))
+    _count("reduce_scatter", mesh, axes)
     _reduce_scatter(out, xt, op=tdist.ReduceOp.SUM, group=mesh.group(axes))
     lo, hi = block_range(full, n, mesh.coord(axes))
     return out[: hi - lo].movedim(0, dim).contiguous()
@@ -558,6 +588,7 @@ def all_reduce(x: torch.Tensor, axes, op=tdist.ReduceOp.SUM,
     """``x`` reduced over ``axes``'s ranks, in place; no axes: ``x``."""
     mesh = mesh or current_mesh()
     if mesh is not None and axes:
+        _count("all_reduce", mesh, axes)
         tdist.all_reduce(x, op=op, group=mesh.group(axes))
     return x
 
@@ -593,6 +624,7 @@ class Plan:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         for d, e in enumerate(self.spec):
             if e is not None:
+                _count("param_all_gather", self.mesh, e)
                 x = all_gather_dim(x, d, e, self.shape[d], self.mesh)
         return x
 
@@ -611,14 +643,19 @@ class Plan:
         return g
 
 
-def plan(shape: Sequence[int], rule: Sequence) -> Plan | None:
+def plan(shape: Sequence[int], rule: Sequence, *,
+         blocks: bool) -> Plan | None:
     """The ``Plan`` of a parameter of global ``shape`` stored under
     ``rule`` on the current mesh; None without a mesh or when nothing is
-    split."""
+    gathered. ``blocks``: the compute uses the parameter's ``model``
+    blocks as they are (the tp layout), so only its other entries (pod,
+    data) are gathered."""
     mesh = current_mesh()
     if mesh is None:
         return None
     spec = sanitize_spec(shape, rule)
+    if blocks:
+        spec = tuple(None if e == "model" else e for e in spec)
     if not spec_axes(spec):
         return None
     return Plan(mesh, tuple(shape), spec, frozenset(live_batch_axes()))
@@ -725,3 +762,139 @@ def mean_forward(x: torch.Tensor, axes) -> torch.Tensor:
     mesh = current_mesh()
     return x if mesh is None or not axes else _MeanForward.apply(
         x, mesh, tuple(axes))
+
+
+class _GatherSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, full, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return all_gather_dim(x, dim, axes, full, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g.contiguous(), ctx.dim, ctx.axes,
+                                   ctx.mesh), None, None, None, None)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token −log softmax(logits)[label] from this rank's vocab block
+    (B, S, V/M) fp32 of logits whose block starts at ``lo``: the max by
+    an all_reduce(MAX), Σ exp by an all_reduce(SUM), the picked logit
+    from the rank whose block holds the label by an all_reduce(SUM). The
+    backward is local: softmax minus one-hot on the block, times the
+    incoming gradient. The arithmetic is ``torch.logsumexp``'s and its
+    backward's, so on one rank the bits are those of the unsplit loss."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, tp):
+        n = logits.shape[-1]
+        m = tp.reduce(logits.amax(-1, keepdim=True), tdist.ReduceOp.MAX)
+        se = tp.reduce((logits - m).exp_().sum(-1))
+        lse = se.log_().add_(m[..., 0])
+        local = labels.long() - lo
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        picked = logits.gather(-1, local[..., None])[..., 0]
+        picked = tp.reduce(torch.where(inside, picked, 0.0))
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, inside = ctx.saved_tensors
+        d = g[..., None] * (logits - lse[..., None]).exp()
+        d.scatter_add_(-1, local[..., None],
+                       torch.where(inside, -g, 0.0)[..., None])
+        return d, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The ``model`` axis as compute (Megatron's tensor parallelism): this
+    rank is ``rank`` of ``size``; a head, channel or vocab dim of n is
+    cut in blocks of ⌈n / size⌉ (``block_range``), the last ones short or
+    empty. ``mesh`` is the mesh whose ``model`` group the collectives
+    run over; None runs none: one rank (``size`` 1), or ranks played in
+    turn in one process, whose caller sums their partial outputs."""
+
+    size: int = 1
+    rank: int = 0
+    mesh: LMMesh | None = None
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return ("model",) if self.mesh is not None else ()
+
+    def block(self, n: int) -> tuple[int, int]:
+        """[lo, hi) of this rank's block of a dim of n."""
+        return block_range(n, self.size, self.rank)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """"g": the block's partial output summed over the ranks."""
+        return x if self.mesh is None else _SumForward.apply(
+            x, self.mesh, self.axes)
+
+    def sum_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """"f": a replicated input of which each rank uses a part; its
+        gradient is summed over the ranks."""
+        return x if self.mesh is None else _SumBackward.apply(
+            x, self.mesh, self.axes)
+
+    def reduce(self, x: torch.Tensor, op=tdist.ReduceOp.SUM
+               ) -> torch.Tensor:
+        """``x`` reduced over the ranks in place, outside autograd."""
+        return all_reduce(x, self.axes, op, self.mesh)
+
+    def gather(self, x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """The ranks' blocks joined along ``dim`` into a dim of ``full``,
+        outside autograd (serving)."""
+        if self.mesh is None:
+            if x.shape[dim] != full:
+                raise ValueError("ranks played in one process cannot "
+                                 "gather their blocks")
+            return x
+        return all_gather_dim(x, dim, self.axes, full, self.mesh)
+
+    def gather_sum_grad(self, x: torch.Tensor, dim: int,
+                        full: int) -> torch.Tensor:
+        """An activation's blocks gathered whole, each rank to use a part
+        of it: the backward reduce_scatters the gradient to the blocks."""
+        if self.mesh is None:
+            return self.gather(x, dim, full)
+        return _GatherSumGrad.apply(x, dim, full, self.mesh, self.axes)
+
+    def part(self, w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """This rank's block along ``dim`` (of n) of a parameter stored
+        either as that block (the rules split the dim) or whole (they do
+        not: a dim the axis does not divide). A whole one is cut here, so
+        its gradient on each rank is that of the rank's part, which the
+        train step sums over the ranks (``decoder.partial_grad_leaves``):
+        a sum in the backward would be a collective that a rank with an
+        empty part never reaches."""
+        if self.size == 1:
+            return w
+        lo, hi = self.block(n)
+        if w.shape[dim] == n:
+            return w.narrow(dim, lo, hi - lo)
+        if w.shape[dim] != hi - lo:
+            raise ValueError(f"a block of {w.shape[dim]} along dim {dim} "
+                             f"is not rank {self.rank}'s of {n}")
+        return w
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
+                      lo: int) -> torch.Tensor:
+        """Per-token NLL from this rank's vocab block of fp32 logits
+        starting at ``lo`` (the vocab-parallel cross-entropy)."""
+        return _VocabParallelCE.apply(logits, labels, lo, self)
+
+
+def tensor_parallel() -> TensorParallel:
+    """The current mesh's ``model`` axis as compute: under the tp layout
+    on a mesh with a ``model`` axis (not manual), this rank's coordinate
+    on it; else a size-1 ``TensorParallel`` without collectives (no mesh,
+    or fsdp, whose model axis is a batch axis)."""
+    mesh = current_mesh()
+    if (mesh is None or "model" not in mesh.shape or _LAYOUT.get() != "tp"
+            or "model" in _MANUAL.get()):
+        return TensorParallel()
+    return TensorParallel(mesh.shape["model"], mesh.coords["model"], mesh)

@@ -13,6 +13,18 @@ training forward run the ``flash_attention`` kernel once per attention
 layer (the hybrid's: once per shared block) or ``mamba_scan`` once per
 Mamba1 layer, and the training backward their backward kernels. The
 vocabulary is padded to a multiple of 2048, as in the reference.
+
+Under a mesh (``repro_torch.dist``) the parameters are this rank's
+blocks by ``param_sharding_rules``. Under the tp layout the layers
+compute on their ``model`` blocks (``dist.TensorParallel``): the vocab
+rows of the embedding, the heads, ``d_ff`` and ``d_inner`` channels of
+the blocks, and the loss's logits by vocab with the vocab-parallel
+cross-entropy; nothing is gathered over ``model``. Under the fsdp layout
+(the model axis a batch axis) each layer gathers its blocks at use.
+Serving under a mesh takes the global batch, each rank its rows over
+pod×data, and keeps the decode cache as ``cache_sharding_rules`` lays it
+out: the KV caches' sequence split over ``model`` (flash-decode), the
+SSM states' channels too; both entries return whole logits.
 """
 from __future__ import annotations
 
@@ -28,7 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig, dtype
 
-VOCAB_PAD = 2048
+VOCAB_PAD = L.VOCAB_PAD
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -204,20 +216,49 @@ def param_sharding_rules(cfg: ModelConfig) -> dict:
 
 
 def param_plans(cfg: ModelConfig) -> dict | None:
-    """Under a mesh, each parameter's ``dist.Plan`` (its global shape and
-    sanitized rule; None for a leaf nothing splits, and for the routed
-    experts under expert parallelism with the tp layout, which stay
-    local); None without a mesh."""
+    """Under a mesh, each parameter's ``dist.Plan``: what is gathered of
+    its stored block at use (None for a leaf nothing of which is
+    gathered). Under the tp layout the layers compute on the ``model``
+    blocks, so a leaf split only over ``model`` is not gathered, and the
+    routed experts under expert parallelism stay local; the routed
+    experts without it are gathered whole (each rank routes to every
+    expert). None without a mesh."""
     if dist.current_mesh() is None:
         return None
+    tp = dist.tensor_parallel().mesh is not None
     keep = L.expert_parallel(cfg) and "model" not in dist.live_batch_axes()
 
     def walk(path, shapes, rules):
         if isinstance(shapes, tuple):
-            if keep and path[-2:-1] == ("moe",) and path[-1] in (
-                    "wg", "wu", "wd"):
+            routed = path[-2:-1] == ("moe",) and path[-1] in (
+                "wg", "wu", "wd")
+            if keep and routed:
                 return None
-            return dist.plan(shapes, rules)
+            return dist.plan(shapes, rules, blocks=tp and not routed)
+        return {k: walk(path + (k,), shapes[k], rules[k]) for k in shapes}
+
+    return walk((), param_shapes(cfg), param_sharding_rules(cfg))
+
+
+def partial_grad_leaves(cfg: ModelConfig) -> dict | None:
+    """Under the tp layout with ``model`` > 1, True for each parameter
+    stored whole though its rule splits a dim over ``model`` (a dim the
+    axis does not divide, as 5 heads on 4 ranks): the layers cut it to
+    the rank's part (``TensorParallel.part``), so the backward gives each
+    rank the gradient of its part only, and the train step sums it over
+    ``model`` (``train.loop.reduce_gradients``). The routed experts
+    without expert parallelism are used whole by every rank (False).
+    None without tensor parallelism."""
+    if dist.tensor_parallel().size == 1:
+        return None
+
+    def walk(path, shapes, rules):
+        if isinstance(shapes, tuple):
+            routed = path[-2:-1] == ("moe",) and path[-1] in (
+                "wg", "wu", "wd")
+            named = {"model", "vocab"} & set(dist.spec_axes(rules))
+            return bool(named) and not routed and "model" not in \
+                dist.spec_axes(dist.sanitize_spec(shapes, rules))
         return {k: walk(path + (k,), shapes[k], rules[k]) for k in shapes}
 
     return walk((), param_shapes(cfg), param_sharding_rules(cfg))
@@ -254,13 +295,6 @@ def gather_params(params: dict, cfg: ModelConfig) -> dict:
         return dist.gather(x, spec, shape)
 
     return utils.tree_map_with_path(one, params)
-
-
-def _no_mesh(what: str) -> None:
-    if dist.current_mesh() is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh (the sequence-sharded decode cache of "
-            "cache_sharding_rules) is ROADMAP queue 1 item 3, slice B3")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -318,8 +352,10 @@ def _block_body(cfg: ModelConfig, plans: dict | None = None):
     "block_dots" recomputes it but keeps the matmul outputs (selective
     checkpointing), "none" keeps every activation. The three give the
     same loss and gradients. With ``plans`` (under a mesh) the body
-    gathers the layer's blocks first; the checkpointed body runs in the
-    caller's context (``dist.bind_context``) also when it recomputes."""
+    gathers what the plans gather of the layer's blocks first; the
+    checkpointed body runs in the caller's context
+    (``dist.bind_context``) also when it recomputes, and so does every
+    collective inside it, on every rank in the same order."""
     def body(x, lp):
         lp = dist.gather_tree(lp, plans)
         pos = torch.arange(x.shape[1], device=x.device)
@@ -368,14 +404,16 @@ def _embed_inputs(params: dict, batch: dict,
 
 
 def _shared_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                  pos: torch.Tensor):
+                  pos: torch.Tensor, return_kv: bool = False):
     """The hybrid's shared attention (+ MLP) block, prefill / training →
-    (x, (k, v))."""
-    x, kv = L.attention_block(params["shared_attn"], x, cfg, pos,
-                              return_kv=True)
+    x, or with ``return_kv`` (prefill) (x, (k, v))."""
+    x = L.attention_block(params["shared_attn"], x, cfg, pos,
+                          return_kv=return_kv)
+    if return_kv:
+        x, kv = x
     if "shared_mlp" in params:
         x = L.mlp_block(params["shared_mlp"], x, cfg)
-    return x, kv
+    return (x, kv) if return_kv else x
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig,
@@ -391,14 +429,14 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
 
     Under a mesh the parameters are this rank's blocks, stored by
     ``param_sharding_rules`` (``place_params``), and ``batch`` is this
-    rank's rows: each layer gathers its blocks inside its checkpointed
-    body (so remat gathers again in the backward), the other leaves at
-    use; the MoE experts stay local under expert parallelism."""
+    rank's rows. Under the tp layout each layer computes on its blocks
+    (its heads, ``d_ff`` or ``d_inner`` channels, the embedding's vocab
+    rows); under fsdp each layer gathers its blocks inside its
+    checkpointed body (so remat gathers again in the backward), the
+    other leaves at use. The MoE experts stay local under expert
+    parallelism."""
     plans = param_plans(cfg)
-    if plans is not None:
-        top = {k: v for k, v in params.items()
-               if k not in ("layers", "lm_head")}
-        params = dict(params, **dist.gather_tree(top, plans))
+    params = _gather_top(params, plans, skip=("layers", "lm_head"))
     x = _embed_inputs(params, batch, cfg)
     body = _block_body(cfg, None if plans is None else
                        _layer_plans(plans["layers"]))
@@ -410,22 +448,34 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
             if a is not None:
                 aux = aux + a
         if shared:
-            x, _ = _shared_block(params, x, cfg,
-                                 torch.arange(x.shape[1], device=x.device))
+            x = _shared_block(params, x, cfg,
+                              torch.arange(x.shape[1], device=x.device))
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
     return x, aux
 
 
+def _gather_top(params: dict, plans: dict | None,
+                skip=("layers",)) -> dict:
+    """The leaves outside the layer stack (and ``skip``) as the plans
+    gather them (the layers gather inside their bodies)."""
+    if plans is None:
+        return params
+    top = {k: v for k, v in params.items() if k not in skip}
+    return dict(params, **dist.gather_tree(top, plans))
+
+
 def _chunk_loss(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
-                w_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                w_out: torch.Tensor, tp: dist.TensorParallel,
+                lo: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked next-token NLL of one sequence chunk: (sum, mask sum). The
     (B, sc, V) logits are fp32; in bf16 the product is rounded to bf16
     before the cast (as ``_logits`` does in serving), where the reference
-    accumulates to fp32 output."""
+    accumulates to fp32 output. Under the tp layout ``w_out`` is this
+    rank's vocab block from ``lo``, and the NLL the vocab-parallel
+    cross-entropy of the (B, sc, V/M) block of logits; at one rank it is
+    ``torch.logsumexp``'s arithmetic, bit for bit."""
     logits = torch.matmul(h, w_out).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, y[..., None].long())[..., 0]
-    nll = (lse - picked) * m
+    nll = tp.cross_entropy(logits, y, lo) * m
     return nll.sum(), m.sum()
 
 
@@ -443,7 +493,11 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     tokens over their global count (one scalar all_reduce of the count
     over the live batch axes), the same value on every rank. Its backward
     gives this rank's own part of the gradient (``dist.sum_forward``),
-    which the train step sums over the batch axes."""
+    which the train step sums over the batch axes. Under the tp layout
+    each chunk's logits are this rank's (B, sc, V/M) vocab block, from
+    its block of ``lm_head``, and the cross-entropy combines the ranks'
+    blocks (``TensorParallel.cross_entropy``); under fsdp ``lm_head`` is
+    gathered whole."""
     hidden, aux = forward(params, batch, cfg, impl=impl)
     s = hidden.shape[1]
     labels = batch["labels"]
@@ -452,14 +506,21 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     plans = param_plans(cfg)
+    tp = dist.tensor_parallel()
+    v = padded_vocab(cfg)
     w_out = dist.gather_param(params["lm_head"], plans and plans["lm_head"])
+    if tp.mesh is not None:
+        hidden = tp.sum_grad(hidden)
+        w_out = tp.part(w_out, 1, v)
     w_out = w_out.to(cfg.cdtype)
+    chunk = dist.bind_context(functools.partial(_chunk_loss, tp=tp,
+                                                lo=tp.block(v)[0]))
     sc = min(cfg.loss_seq_chunk, s)
     totals = torch.zeros((), dtype=torch.float32, device=hidden.device)
     counts = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(s // sc):
         cut = slice(i * sc, (i + 1) * sc)
-        t, c = ckpt.checkpoint(_chunk_loss, hidden[:, cut], labels[:, cut],
+        t, c = ckpt.checkpoint(chunk, hidden[:, cut], labels[:, cut],
                                mask[:, cut], w_out, use_reentrant=False)
         totals, counts = totals + t, counts + c
     if plans is not None:
@@ -481,6 +542,43 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
 SEQ_CACHES = ("k", "v", "sa_k", "sa_v")
 
 
+def _cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int
+                  ) -> dict:
+    """Each decode-cache leaf's global (shape, dtype)."""
+    kvdt = dtype(cfg.cache_dtype)
+    ldim, b = cfg.n_layers, batch_size
+    out = {"pos": ((b,), torch.int32)}
+    kv = ((ldim, b, max_len, cfg.n_kv_heads, cfg.hd), kvdt)
+    di, n = cfg.d_inner, cfg.ssm_state
+    if cfg.block_kind == "attn":
+        out["k"] = out["v"] = kv
+    elif cfg.block_kind == "mamba1":
+        out["conv"] = ((ldim, b, cfg.ssm_conv - 1, di), kvdt)
+        out["ssm"] = ((ldim, b, di, n), torch.float32)
+    else:
+        out["conv"] = ((ldim, b, cfg.ssm_conv - 1, di + 2 * n), kvdt)
+        out["ssm"] = ((ldim, b, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                      torch.float32)
+    if cfg.shared_attn_every:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        out["sa_k"] = out["sa_v"] = ((groups, *kv[0][1:]), kvdt)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch_size: int, max_len: int
+                ) -> dict | None:
+    """Each cache leaf's sanitized ``cache_sharding_rules`` spec on the
+    current mesh (None without one). A dim is split only where the axes
+    divide it: the cache does not take ``allow_uneven_sharding``, so a
+    rank's block of the sequence starts at rank × its length."""
+    if dist.current_mesh() is None:
+        return None
+    rules = cache_sharding_rules(cfg)
+    return {k: dist.sanitize_spec(shp, rules[k], uneven=False)
+            for k, (shp, _) in _cache_shapes(cfg, batch_size,
+                                             max_len).items()}
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device=None) -> dict:
     """Decode cache: ``pos`` (B,) int32; attention: k / v (L, B, S, Hkv,
@@ -488,34 +586,40 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     (L, B, Di, N) fp32; Mamba2: conv (L, B, d_conv − 1, Di + 2N) and ssm
     (L, B, H, P, N) fp32; the hybrid also sa_k / sa_v (n_layers //
     shared_attn_every, B, S, Hkv, hd). Zeros, on ``device`` (cuda unless
-    named)."""
+    named). Under a mesh this rank's blocks of them (``cache_specs``);
+    ``pos`` stays whole, as its rule says."""
     device = utils.resolve_device(device)
-    kvdt = dtype(cfg.cache_dtype)
-    ldim, b = cfg.n_layers, batch_size
-    cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device)}
-    kv = (max_len, cfg.n_kv_heads, cfg.hd)
-    di, n = cfg.d_inner, cfg.ssm_state
-    if cfg.block_kind == "attn":
-        cache["k"] = torch.zeros((ldim, b, *kv), dtype=kvdt, device=device)
-        cache["v"] = torch.zeros((ldim, b, *kv), dtype=kvdt, device=device)
-    elif cfg.block_kind == "mamba1":
-        cache["conv"] = torch.zeros((ldim, b, cfg.ssm_conv - 1, di),
-                                    dtype=kvdt, device=device)
-        cache["ssm"] = torch.zeros((ldim, b, di, n), dtype=torch.float32,
-                                   device=device)
-    else:
-        cache["conv"] = torch.zeros((ldim, b, cfg.ssm_conv - 1, di + 2 * n),
-                                    dtype=kvdt, device=device)
-        cache["ssm"] = torch.zeros((ldim, b, cfg.ssm_heads,
-                                    cfg.ssm_head_dim, n),
-                                   dtype=torch.float32, device=device)
-    if cfg.shared_attn_every:
-        groups = cfg.n_layers // cfg.shared_attn_every
-        cache["sa_k"] = torch.zeros((groups, b, *kv), dtype=kvdt,
-                                    device=device)
-        cache["sa_v"] = torch.zeros((groups, b, *kv), dtype=kvdt,
-                                    device=device)
-    return cache
+    specs = cache_specs(cfg, batch_size, max_len)
+    cache = {k: torch.zeros(shp if specs is None else
+                            dist.block_shape(shp, specs[k]), dtype=dt,
+                            device=device)
+             for k, (shp, dt) in _cache_shapes(cfg, batch_size,
+                                               max_len).items()}
+    return cache if specs is None else _record_len(cache, max_len)
+
+
+def place_cache(cache: dict, cfg: ModelConfig) -> dict:
+    """This rank's blocks of a whole decode cache under the current mesh
+    (``cache_specs``); the cache itself without a mesh."""
+    if dist.current_mesh() is None:
+        return cache
+    seq = [cache[k].shape[2] for k in SEQ_CACHES if k in cache]
+    max_len = seq[0] if seq else 0
+    specs = cache_specs(cfg, cache["pos"].shape[0], max_len)
+    return _record_len({k: dist.local_block(x, specs[k])
+                        for k, x in cache.items()}, max_len)
+
+
+def gather_cache(cache: dict, cfg: ModelConfig) -> dict:
+    """``place_cache``'s inverse: whole tensors on every rank."""
+    if dist.current_mesh() is None:
+        return cache
+    b = cache["pos"].shape[0]
+    max_len = _cache_len(cache)
+    specs = cache_specs(cfg, b, max_len)
+    shapes = _cache_shapes(cfg, b, max_len)
+    return {k: dist.gather(x, specs[k], shapes[k][0])
+            for k, x in cache.items()}
 
 
 def cache_sharding_rules(cfg: ModelConfig) -> dict:
@@ -542,13 +646,117 @@ def _logits(x: torch.Tensor, lm_head: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits. In bf16 the product is rounded to bf16 before the
     cast, where the reference asks for fp32 output: converting the (d, V)
-    head to fp32 on every step would cost more than the step."""
-    return torch.matmul(x, lm_head.to(cfg.cdtype)).float()
+    head to fp32 on every step would cost more than the step. Under the
+    tp layout the rank's vocab block of them, gathered whole."""
+    tp = dist.tensor_parallel()
+    v = padded_vocab(cfg)
+    out = torch.matmul(x, tp.part(lm_head, 1, v).to(cfg.cdtype)).float()
+    return tp.gather(out, -1, v) if tp.mesh is not None else out
+
+
+class _Serving:
+    """One serving call's layout under a mesh: the rows of the global
+    batch this rank takes (the cache rules' pod×data entry), the cache's
+    specs, the plans of the parameters it gathers, the model axis."""
+
+    def __init__(self, cfg: ModelConfig, b: int, max_len: int):
+        self.mesh = dist.current_mesh()
+        if self.mesh is not None and dist.current_layout() != "tp":
+            raise ValueError("serving under a mesh runs the tp layout (the "
+                             "decode cache's batch is split over pod×data "
+                             "only); fsdp is a training layout")
+        self.b = b
+        self.uniform = cfg.uniform_decode_pos
+        self.specs = cache_specs(cfg, b, max_len)
+        self.plans = param_plans(cfg)
+        self.tp = dist.tensor_parallel()
+        rows = dist.sanitize_spec((b,), (("pod", "data"),), uneven=False)
+        self.rows = rows[0] if rows else None
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (B, ...) input."""
+        if self.rows is None:
+            return x
+        lo, hi = dist.block_range(self.b, self.mesh.size(self.rows),
+                                  self.mesh.coord(self.rows))
+        return x[lo:hi]
+
+    def join(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a (B_rank, ...) output, whole."""
+        if self.rows is None:
+            return x
+        return dist.all_gather_dim(x, 0, self.rows, self.b)
+
+    def layer(self, params: dict, i: int) -> dict:
+        lp = _layer(params["layers"], i)
+        if self.plans is None:
+            return lp
+        return dist.gather_tree(lp, _layer_plans(self.plans["layers"]))
+
+    def write_pos(self, cache: dict, pos: torch.Tensor) -> torch.Tensor:
+        """The positions ``write_kv`` takes: in the uniform mode the
+        global batch's (every row writes at its first), else the rank's
+        rows'."""
+        return cache["pos"] if self.uniform else pos
+
+    def seq_split(self, name: str) -> bool:
+        """The cache leaf's sequence dim is this rank's block."""
+        return self.specs is not None and self.specs[name][2] is not None
+
+    def seq_block(self, name: str, kv: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sequence of a (B, S, ...) prefill
+        k / v, by the cache leaf's spec."""
+        if not self.seq_split(name):
+            return kv
+        e = self.specs[name][2]
+        lo, hi = dist.block_range(kv.shape[1], self.mesh.size(e),
+                                  self.mesh.coord(e))
+        return kv[:, lo:hi]
+
+    def state_in(self, name: str, c: torch.Tensor, dim: int, n: int,
+                 whole: bool) -> torch.Tensor:
+        """A layer's SSM state as the block computes on it: whole
+        (``whole``: Mamba2) or the rank's channels (Mamba1), from the
+        cache leaf's layout."""
+        split = self.specs is not None and \
+            self.specs[name][dim + 1] is not None
+        if whole:
+            return self.tp.gather(c, dim, n) if split else c
+        if split or self.tp.size == 1:
+            return c
+        lo, hi = self.tp.block(n)
+        return c.narrow(dim, lo, hi - lo)
+
+    def state_out(self, name: str, c: torch.Tensor, dim: int, n: int,
+                  whole: bool) -> torch.Tensor:
+        """``state_in``'s inverse: the block's new state in the cache
+        leaf's layout."""
+        split = self.specs is not None and \
+            self.specs[name][dim + 1] is not None
+        if whole:
+            if not split:
+                return c
+            lo, hi = self.tp.block(n)
+            return c.narrow(dim, lo, hi - lo)
+        if split or self.tp.size == 1:
+            return c
+        return self.tp.gather(c, dim, n)
+
+
+# the dim of each SSM state (per layer: (B, ...)) that the model axis
+# splits, and its size
+def _state_dims(cfg: ModelConfig) -> dict:
+    if cfg.block_kind == "mamba1":
+        return {"conv": (2, cfg.d_inner), "ssm": (1, cfg.d_inner)}
+    return {"conv": (2, cfg.d_inner + 2 * cfg.ssm_state),
+            "ssm": (1, cfg.ssm_heads)}
 
 
 def _prefill_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                   pos: torch.Tensor, cache: dict, i: int) -> torch.Tensor:
-    """Layer ``i`` of the prefill; writes its cache entries."""
+                   pos: torch.Tensor, cache: dict, i: int,
+                   sv: _Serving) -> torch.Tensor:
+    """Layer ``i`` of the prefill; writes its cache entries (under a
+    mesh, this rank's blocks of them)."""
     if cfg.block_kind == "attn":
         if _parallel(cfg):
             x, (k, v) = L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x,
@@ -557,13 +765,14 @@ def _prefill_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
             x, (k, v) = L.attention_block(lp["attn"], x, cfg, pos,
                                           return_kv=True)
             x, _ = _ffn(lp, x, cfg)       # decode drops the MoE aux
-        cache["k"][i] = k
-        cache["v"][i] = v
+        cache["k"][i] = sv.seq_block("k", k)
+        cache["v"][i] = sv.seq_block("v", v)
         return x
     block = S.mamba1_block if cfg.block_kind == "mamba1" else S.mamba2_block
     x, st = block(lp["ssm"], x, cfg, return_state=True)
-    cache["conv"][i] = st["conv"]
-    cache["ssm"][i] = st["ssm"]
+    for name, (dim, n) in _state_dims(cfg).items():
+        cache[name][i] = sv.state_out(name, st[name], dim, n,
+                                      cfg.block_kind == "mamba2")
     return x
 
 
@@ -572,45 +781,63 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig
     """Prefill: forward pass over ``batch["tokens"]`` (B, S) (and the
     patch frontend's ``patch_embeds`` where given) that also builds the
     decode cache → (last-position logits (B, V) fp32, cache with pos =
-    S). Runs where the parameters lie; not under a mesh (the sharded
-    decode cache is ROADMAP queue 1 item 3, slice B3)."""
-    _no_mesh("prefill")
+    S). Runs where the parameters lie.
+
+    Under a mesh (the tp layout) ``batch`` is the global batch and the
+    parameters this rank's blocks: the rank prefills its rows, its heads
+    and channels; its cache is its blocks by ``cache_sharding_rules``
+    (the prompt's k / v of every kv head, its block of the sequence) and
+    the logits are whole (B, V) on every rank."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed_inputs(params, batch, cfg)
+    sv = _Serving(cfg, b, s)
+    params = _gather_top(params, sv.plans)
+    local = {k: sv.take(v) for k, v in batch.items()}
+    x = _embed_inputs(params, local, cfg)
     pos = torch.arange(s, device=tokens.device)
     cache = init_cache(cfg, b, s, tokens.device)
     g = 0
     for lo, hi, shared in _groups(cfg):
         for i in range(lo, hi):
-            x = _prefill_layer(_layer(params["layers"], i), x, cfg, pos,
-                               cache, i)
+            x = _prefill_layer(sv.layer(params, i), x, cfg, pos, cache, i,
+                               sv)
         if shared:
-            x, (k, v) = _shared_block(params, x, cfg, pos)
-            cache["sa_k"][g] = k
-            cache["sa_v"][g] = v
+            x, (k, v) = _shared_block(params, x, cfg, pos, return_kv=True)
+            cache["sa_k"][g] = sv.seq_block("sa_k", k)
+            cache["sa_v"][g] = sv.seq_block("sa_v", v)
             g += 1
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
     cache["pos"].fill_(s)
-    return _logits(x[:, -1], params["lm_head"], cfg), cache
+    return sv.join(_logits(x[:, -1], params["lm_head"], cfg)), cache
 
 
 def _decode_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                  pos: torch.Tensor, cache: dict, i: int) -> torch.Tensor:
-    """Layer ``i`` of a decode step; updates its cache entries in place."""
+                  pos: torch.Tensor, cache: dict, i: int,
+                  sv: _Serving) -> torch.Tensor:
+    """Layer ``i`` of a decode step; updates its cache entries in place.
+    ``pos``: the rank's rows' positions; the uniform mode writes at the
+    global batch's first one (``cache["pos"]``)."""
     if cfg.block_kind == "attn":
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
+        split = sv.seq_split("k")
         if _parallel(cfg):
             x, _ = L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x, cfg,
-                                             None, cache=kv, pos=pos)
+                                             None, cache=kv, pos=pos,
+                                             seq_split=split,
+                                             write_pos=sv.write_pos(cache,
+                                                                    pos))
             return x
-        x, _ = L.attention_block_decode(lp["attn"], x, kv, pos, cfg)
+        x, _ = L.attention_block_decode(lp["attn"], x, kv, pos, cfg, split,
+                                        sv.write_pos(cache, pos))
         return _ffn(lp, x, cfg)[0]       # the MoE aux is dropped
     step = S.mamba1_decode if cfg.block_kind == "mamba1" else S.mamba2_decode
-    x, new = step(lp["ssm"], x, {"conv": cache["conv"][i],
-                                 "ssm": cache["ssm"][i]}, cfg)
-    cache["conv"][i] = new["conv"]
-    cache["ssm"][i] = new["ssm"]
+    whole = cfg.block_kind == "mamba2"
+    dims = _state_dims(cfg)
+    x, new = step(lp["ssm"], x, {
+        name: sv.state_in(name, cache[name][i], dim, n, whole)
+        for name, (dim, n) in dims.items()}, cfg)
+    for name, (dim, n) in dims.items():
+        cache[name][i] = sv.state_out(name, new[name], dim, n, whole)
     return x
 
 
@@ -618,22 +845,58 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) → (logits (B, V) fp32, cache with
     pos + 1). The cache's tensors are updated in place (the reference
-    returns new arrays): the returned dict shares them. Not under a mesh
-    (ROADMAP queue 1 item 3, slice B3)."""
-    _no_mesh("decode_step")
-    pos = cache["pos"]
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    returns new arrays): the returned dict shares them.
+
+    Under a mesh (the tp layout) ``tokens`` and ``pos`` are the global
+    batch's, the cache this rank's blocks (``init_cache`` /
+    ``place_cache``): the rank steps its rows; attention is the
+    flash-decode over its block of the sequence with every q head, and
+    the logits are whole (B, V) on every rank."""
+    b = tokens.shape[0]
+    sv = _Serving(cfg, b, _cache_len(cache))
+    params = _gather_top(params, sv.plans)
+    pos = sv.take(cache["pos"])
+    x = L.embed_tokens(params["embed"], sv.take(tokens), cfg)
     g = 0
     for lo, hi, shared in _groups(cfg):
         for i in range(lo, hi):
-            x = _decode_layer(_layer(params["layers"], i), x, cfg, pos,
-                              cache, i)
+            x = _decode_layer(sv.layer(params, i), x, cfg, pos, cache, i,
+                              sv)
         if shared:
             x, _ = L.attention_block_decode(
                 params["shared_attn"], x,
-                {"k": cache["sa_k"][g], "v": cache["sa_v"][g]}, pos, cfg)
+                {"k": cache["sa_k"][g], "v": cache["sa_v"][g]}, pos, cfg,
+                sv.seq_split("sa_k"), sv.write_pos(cache, pos))
             if "shared_mlp" in params:
                 x = L.mlp_block(params["shared_mlp"], x, cfg)
             g += 1
     x = L.rms_norm(x, params["final_ln"], cfg.rms_eps)
-    return _logits(x[:, 0], params["lm_head"], cfg), dict(cache, pos=pos + 1)
+    logits = sv.join(_logits(x[:, 0], params["lm_head"], cfg))
+    return logits, dict(cache, pos=cache["pos"] + 1)
+
+
+def _cache_len(cache: dict) -> int:
+    """The KV caches' global sequence length: their own without a mesh;
+    under one, the length ``init_cache`` / ``place_cache`` / ``prefill``
+    recorded on them (a block's length alone does not tell a sequence
+    split over the model axis from a whole one it does not divide). 0
+    without a KV cache."""
+    name = next((k for k in SEQ_CACHES if k in cache), None)
+    if name is None:
+        return 0
+    if dist.current_mesh() is None:
+        return cache[name].shape[2]
+    n = getattr(cache[name], "seq_len", None)
+    if n is None:
+        raise ValueError("under a mesh the decode cache comes from "
+                         "init_cache, place_cache or prefill (its KV "
+                         "caches record their global sequence length)")
+    return n
+
+
+def _record_len(cache: dict, max_len: int) -> dict:
+    """Records the KV caches' global sequence length on them."""
+    for k in SEQ_CACHES:
+        if k in cache:
+            cache[k].seq_len = max_len
+    return cache

@@ -30,7 +30,8 @@ from repro_torch import dist
 from repro_torch.models import ModelConfig, init_params, lm_loss
 from repro_torch.models.config import dtype
 from repro_torch.models.decoder import (gather_params, param_shapes,
-                                        param_sharding_rules, place_params)
+                                        param_sharding_rules,
+                                        partial_grad_leaves, place_params)
 from repro_torch.train.optimizer import (OptimizerConfig, apply_updates,
                                          init_opt_state, state_layouts)
 from repro_torch.utils import (tree_get, tree_leaves, tree_map_with_path,
@@ -102,7 +103,12 @@ def reduce_gradients(grads: dict, cfg: ModelConfig,
     """Finish the data-parallel sum of the gradients of this rank's
     parameter blocks (as ``torch.autograd.grad`` gives them under a
     mesh): over the live batch axes a parameter is not split on (the
-    backward summed the others). ``like_opt``: reduce_scatter over the
+    backward summed the others), and over ``model`` for the leaves the
+    tensor-parallel layers use a part of on each rank though they are
+    stored whole (``decoder.partial_grad_leaves``); a leaf split over
+    ``model`` comes from autograd as this rank's block, a replicated one
+    (norms, the router, Mamba2's fused projections) equal on every model
+    rank through the "f" operators. ``like_opt``: reduce_scatter over the
     axes ZeRO adds, into the optimizer's blocks (the reference's
     ``_shard_like_opt``), else all_reduce into the parameters' blocks.
     Each leaf of ``grads`` is replaced in place (the tree is returned), so
@@ -112,10 +118,13 @@ def reduce_gradients(grads: dict, cfg: ModelConfig,
     if lay is None:
         return grads
     live = dist.live_batch_axes()
+    partial = partial_grad_leaves(cfg)
 
     def one(path, g):
         leaf = tree_get(lay, path)
         rest = [a for a in live if a not in dist.spec_axes(leaf.param)]
+        if partial is not None and tree_get(partial, path):
+            rest.append("model")
         if like_opt:
             for d, (p, o) in enumerate(zip(leaf.param, leaf.opt)):
                 if p != o:

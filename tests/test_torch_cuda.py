@@ -11,8 +11,9 @@ on the card and the CPU to the CPU's uninterrupted run; the location tier
 on the card (``locate_groups`` within the finest cell of the CPU's with
 ``n_used`` and ``consistent`` equal, and the located stream's alerts and
 detections equal to the CPU's); the LM serving engine's tokens on the
-card equal to its CPU path's; one NCCL rank's ZeRO step and expert
-parallelism equal to the steps without a mesh.
+card equal to its CPU path's; one NCCL rank's ZeRO step, expert
+parallelism and serving (``prefill`` / ``decode_step``) equal to the
+same without a mesh.
 
 Needs a CUDA card and ``nvcc``: every test takes the ``cuda`` fixture,
 which skips with a reason where there is none (as on a CPU-only machine).
@@ -1265,6 +1266,38 @@ def test_one_rank_nccl_expert_parallel_moe_equals_dense(nccl_rank):
         assert L.expert_parallel(cfg) and dist.current_mesh() is not None
         got = L.moe_block(lp, x, cfg)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b"])
+def test_one_rank_nccl_decode_step_equals_the_step_without_a_mesh(
+        nccl_rank, arch):
+    """The bf16 smoke config's ``prefill`` and three ``decode_step`` s
+    under a (1, 1) NCCL mesh (the tensor-parallel path: vocab-split
+    embedding and logits, the sequence-split cache and the flash-decode
+    combine, every collective on one rank) equal the same without a
+    mesh: every logit and the cache, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decoder
+    cfg = get_smoke_config(arch)
+    params = decoder.init_params(cfg, 0, nccl_rank)
+    g = np.random.default_rng(0)
+    toks = torch.as_tensor(g.integers(1, cfg.vocab_size, (2, 64)),
+                           dtype=torch.int32, device=nccl_rank)
+    steps = [torch.as_tensor(g.integers(1, cfg.vocab_size, (2, 1)),
+                             dtype=torch.int32, device=nccl_rank)
+             for _ in range(3)]
+    mesh = make_host_mesh((1, 1))
+    runs = []
+    for use_mesh in (False, True):
+        with mesh if use_mesh else contextlib.nullcontext():
+            logits, cache = decoder.prefill(params, {"tokens": toks}, cfg)
+            out = [logits]
+            for t in steps:
+                logits, cache = decoder.decode_step(params, cache, t, cfg)
+                out.append(logits)
+        runs.append(out + [cache[k] for k in sorted(cache)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_detect_step_on_the_card_equals_the_cpu(cuda):

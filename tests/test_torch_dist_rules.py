@@ -9,9 +9,11 @@ over drawn shapes, specs, layouts and the uneven and manual modes;
 
 Then one gloo rank in this process (a ``FileStore`` under the test's
 temporary directory): the ZeRO step on a 1 × 1 mesh equals the step
-without a mesh bit for bit, and so does ``moe_block`` under expert
-parallelism at ``model`` = 1 — the one-rank runs the card makes with
-NCCL (``chip_smoke.py`` phase 31)."""
+without a mesh bit for bit, and so do ``moe_block`` under expert
+parallelism at ``model`` = 1 and serving (``prefill`` and
+``decode_step``) — the one-rank runs the card makes with NCCL
+(``chip_smoke.py`` phases 31–32); serving under the fsdp layout
+raises."""
 import _torch_threads  # noqa: F401  (one torch thread a process)
 import contextlib
 import dataclasses
@@ -246,18 +248,48 @@ def test_placement_without_a_mesh_is_the_tree_itself():
     assert decoder.gather_params(params, cfg) is params
 
 
-@pytest.mark.parametrize("entry", ["prefill", "decode_step"])
-def test_serving_under_a_mesh_names_the_roadmap(entry):
-    """The sequence-sharded decode cache of ``cache_sharding_rules`` is
-    slice B3: serving under a mesh raises and names it."""
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "falcon-mamba-7b",
+                                  "zamba2-1.2b"])
+def test_one_rank_serving_equals_serving_without_a_mesh(one_rank, arch):
+    """``prefill`` then three ``decode_step`` s under a 1 × 1 mesh (the
+    tensor-parallel path with every collective on one rank: the
+    vocab-split embedding and logits, the sequence-split cache and its
+    flash-decode combine) against the same without a mesh: every logit
+    and the cache bit for bit — the one-rank run the card makes with
+    NCCL (``chip_smoke.py`` phase 32a)."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              param_dtype="float32",
+                              compute_dtype="float32",
+                              cache_dtype="float32")
+    params = decoder.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 12)),
+                           dtype=torch.int32)
+    steps = [torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 1)),
+                             dtype=torch.int32) for _ in range(3)]
+    runs = []
+    for use_mesh in (False, True):
+        with one_rank if use_mesh else contextlib.nullcontext():
+            p = decoder.place_params(params, cfg)
+            logits, cache = decoder.prefill(p, {"tokens": toks}, cfg)
+            out = [logits]
+            for t in steps:
+                logits, cache = decoder.decode_step(p, cache, t, cfg)
+                out.append(logits)
+        runs.append((out, cache))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    _equal_trees(runs[0][1], runs[1][1])
+
+
+def test_serving_under_the_fsdp_layout_raises(one_rank):
+    """Serving under a mesh runs the tp layout: the decode cache's batch
+    is split over pod×data only, where fsdp would split it over model
+    too."""
     cfg = configs.get_smoke_config("qwen2.5-14b")
     params = decoder.init_params(cfg, 0, "cpu")
-    toks = torch.ones((1, 4), dtype=torch.int32)
-    with _both({"data": 1, "model": 1}), \
-            pytest.raises(NotImplementedError, match="queue 1 item 3, "
-                          "slice B3"):
-        if entry == "prefill":
-            decoder.prefill(params, {"tokens": toks}, cfg)
-        else:
-            decoder.decode_step(params, decoder.init_cache(cfg, 1, 8, "cpu"),
-                                toks[:, :1], cfg)
+    with one_rank, dist.layout("fsdp"), \
+            pytest.raises(ValueError, match="tp layout"):
+        decoder.prefill(params, {"tokens": torch.ones((1, 4),
+                                                      dtype=torch.int32)},
+                        cfg)
