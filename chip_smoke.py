@@ -23,7 +23,7 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    same function, that call (CUDA events, median of 30 launches, each
    behind a ~0.5 ms device busy wait so that the events time the device's
    work and not the host's dispatch). The Min-Max bounds count 2 · nnz · H
-   comparisons at the DPX rate (``MINMAX_COMPARES_PER_S``), and a
+   comparisons at the DPX rate (``cost.MINMAX_COMPARES_PER_S``), and a
    ``minmax_sig_buckets_rate`` line gives the plan that ran and the bytes
    it reads from L2 by its design over its time (arithmetic, not traced).
    The replay's shapes that take the row kernel (one station's block; a
@@ -35,7 +35,7 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
    L2 flush of ``L2_FLUSH_BYTES`` before each busy wait, outside the
    events), with a ``jaccard_popcount_rate`` line; its bound counts the
    valid pairs' distinct rows once and 2 POPC a word at
-   ``POPC_OPS_PER_S``.
+   ``cost.POPC_OPS_PER_S``.
 3. The port's ``detect_events`` on the batch golden dataset (regenerated
    from the seed in ``tests/golden/batch_detect.json``): the golden's
    stats, per-station pair triplets, 9 detections and recall 1.0, exactly.
@@ -336,6 +336,26 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     4 and 8 (20 / 4, 10 / 2, 5 / 1) and ``mamba_scan`` at
     falcon-mamba-7b's cut to 4096 / 2048 / 1024 channels, each against
     its plain version, timed, bounded, attention beside SDPA.
+33. The dry run (``repro_torch.launch.dryrun``), in processes of its own
+    (its fake process group of 256 or 512 ranks cannot share a process
+    with phases 31–32's NCCL group). (a) Started in the background right
+    after the build, with CUDA hidden (host work only), one process an
+    arch of ``DRYRUN_JOBS``: qwen2.5-14b, falcon-mamba-7b and
+    deepseek-moe-16b × ``train_4k`` / ``prefill_32k`` / ``decode_32k``,
+    falcon-mamba-7b × ``long_500k`` and fast_seismic × ``station_month``,
+    each single and multi, traced on ``meta`` tensors at full width as
+    rank 0 of the production mesh; here every cell must be ``ok``, and
+    each prints its per-rank flops, bytes, collectives, memory, roofline
+    terms, ``dominant`` and ``useful_flops_ratio``. (b) ``--profile
+    --reuse-trace`` on the card for each of ``DRYRUN_PROFILE``
+    (qwen2.5-14b × ``train_4k`` and fast_seismic × ``station_month``,
+    single): the rank's block run for real (random values, the
+    collectives counted and not performed), one warm-up step and one
+    profiled step: the step must launch its path's kernels, no measured
+    time may fall below its traced bound (the step's device time against
+    the bound without collectives, each kernel's device time against its
+    calls' ``cost.py`` bounds), and ``max_memory_allocated`` must lie in
+    the cell's band of the traced peak (arguments + temporaries).
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -381,24 +401,9 @@ import warnings
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit rate
-# H100 SXM exponentials (MUFU.EX2 on the SFU): 16 a clock an SM, 132 SMs,
-# at the 1.98 GHz that FP32_OPS_PER_S assumes
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
-# H100 32-bit integer min/max: 64 results a clock an SM (IMNMX, the CUDA
-# C++ Programming Guide's throughput table for compute capability 9.0),
-# 132 SMs at the 1.98 GHz FP32_OPS_PER_S assumes. The three-input DPX
-# min/max (__vimin3_s32 / __vimax3_s32) issue at that rate with two
-# comparisons a result (tools/int_minmax_peak.py), the faster of the two:
-INT_OPS_PER_S = 132 * 64 * 1.98e9
-MINMAX_COMPARES_PER_S = 2 * INT_OPS_PER_S
-# H100 population counts (POPC): 15.4 a clock an SM, measured by
-# tools/int_minmax_peak.py's `popc` probe (15.35-15.48 on an H100 80GB
-# HBM3 at 700 W; the CUDA C++ Programming Guide's throughput table gives
-# 16 for compute capability 9.0), 132 SMs at 1.98 GHz
-POPC_OPS_PER_S = 132 * 15.4 * 1.98e9
+# the H100's peak rates and each kernel's work: every bound_ms below is
+# kernels/cost.py's (import-light: no torch)
+from repro_torch.kernels import cost  # noqa: E402
 # bytes written before each cold timing: more than the 50 MB L2 holds
 L2_FLUSH_BYTES = 128 << 20
 RTOL = 1e-5
@@ -536,6 +541,22 @@ GATHERED_LAYERS = {"step_mesh_s": 0.532, "step_no_mesh_s": 0.380,
 # 31d's budget a card: 80 GB (the card reports 85.0e9 bytes; the rest is
 # left to the CUDA context, the allocator and the step's transients)
 CARD_BUDGET = 80e9
+# phase 33: the traced cells, one background process an entry (arch,
+# shapes), each single and multi; the profiled cells (arch, shape) with
+# the band of max_memory_allocated over the traced peak (PERF.md, stated
+# before the first run on the card) and the kernels the step must launch
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_JOBS = (("fast_seismic", "station_month"),
+               ("qwen2.5-14b", "train_4k,prefill_32k,decode_32k"),
+               ("falcon-mamba-7b",
+                "train_4k,prefill_32k,decode_32k,long_500k"),
+               ("deepseek-moe-16b", "train_4k,prefill_32k,decode_32k"))
+DRYRUN_PROFILE = {
+    ("qwen2.5-14b", "train_4k"): ((0.9, 1.3), ("flash_attention",
+                                               "flash_attention_bwd")),
+    ("fast_seismic", "station_month"): ((0.2, 1.3), (
+        "stft_mag", "haar2d", "minmax_sig_buckets"))}
+DRYRUN_TIMEOUT = 900
 WALL_KEYS = ("wall_s", "chunk_ms_p50", "chunk_ms_p95", "chunks_per_s",
              "samples_per_s")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -577,26 +598,6 @@ def _time_ms(fn, iters: int = 30, warmup: int = 3,
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in events)
     return times[len(times) // 2]
-
-
-def _bound_ms(n_bytes: float, n_ops: float,
-              ops_per_s: float = FP32_OPS_PER_S,
-              n_sfu: float = 0.0) -> tuple[float, str]:
-    """The least time for the work and what sets it: bytes over the HBM
-    rate, operations over their pipe's rate, or ``n_sfu`` exponentials
-    over the SFU rate, whichever is longest."""
-    return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (n_ops / ops_per_s * 1e3, "operations"),
-               (n_sfu / SFU_OPS_PER_S * 1e3, "sfu"))
-
-
-def _minmax_bound(n_bytes: float, n_compares: float,
-                  n_int_ops: float = 0.0) -> tuple[float, str]:
-    """A Min-Max kernel's least time: its bytes over the HBM rate, or its
-    comparisons at the DPX rate plus its other integer operations (the
-    signature epilogue's) at the IMNMX rate, on the same pipe."""
-    return _bound_ms(n_bytes, n_compares + n_int_ops * (
-        MINMAX_COMPARES_PER_S / INT_OPS_PER_S), MINMAX_COMPARES_PER_S)
 
 
 def _plan_dict(p) -> dict:
@@ -664,36 +665,16 @@ def _close(got, want) -> float:
     return err
 
 
-def _stft_work(wave, spec, frame_len: int) -> tuple[int, int]:
-    """(bytes, operations) of one ``stft_mag`` call: the waveform, the
-    window and the two DFT matrices read once, the spectrogram written
-    once; a frame's window product, its 2K dot products and K
-    magnitudes."""
-    r, nf, k = spec.shape
-    return (4 * (wave.numel() + frame_len + 2 * frame_len * k
-                 + spec.numel()),
-            r * nf * (k * 4 * frame_len + frame_len + 3 * k))
-
-
-def _haar_work(imgs) -> tuple[int, int]:
-    """(bytes, operations) of one ``haar2d`` call: the images read and
-    written once with the two transform matrices; two matrix products an
-    image."""
-    n, h, w = imgs.shape
-    return (4 * (2 * imgs.numel() + h * h + w * w),
-            n * (2 * h * w * w + 2 * h * h * w))
-
-
-def _shape_case(call, plain, work: tuple[int, int], library=None) -> dict:
+def _shape_case(call, plain, work: cost.Work, library=None) -> dict:
     """A kernel at one more shape of its path: held against its plain
-    version at ``_close``'s tolerance, timed, with its bound and, where
-    one PyTorch call computes the same function (``library``), that
-    call's time."""
+    version at ``_close``'s tolerance, timed, with its bound (``work``'s)
+    and, where one PyTorch call computes the same function
+    (``library``), that call's time."""
     import torch
     got, want = call(), plain()
     torch.cuda.synchronize()
     err = _close(got, want)
-    bound, by = _bound_ms(*work)
+    bound, by = cost.bound_ms(work)
     return {"shape": list(got.shape), "max_abs_err": err,
             "ms": _time_ms(call), "plain_ms": _time_ms(plain),
             "bound_ms": bound, "bound_by": by,
@@ -735,14 +716,14 @@ def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
         -1, frame_len, fcfg.stft_hop)
     xw = (frames * c["window"]).reshape(-1, frame_len).contiguous()
     dft_cat = torch.cat([c["dft_r"], c["dft_i"]], dim=1).contiguous()
-    n_bytes, n_ops = _stft_work(wave, got, frame_len)
-    bound, by = _bound_ms(n_bytes, n_ops)
+    work = cost.stft_mag(*wave.shape, frame_len, k, fcfg.stft_hop)
+    bound, by = cost.bound_ms(work)
     ms = _time_ms(lambda: ops.stft_mag(*args))
     out.append({"name": "stft_mag", "route": "cuda",
                 "source": "src/repro_torch/csrc/stft_mag.cu",
                 "replaces": "src/repro/kernels/stft_mag.py:35",
                 "shape": [r, nf, k], "max_abs_err": err, "ms": ms,
-                "gflop_s": n_ops / ms * 1e-6,
+                "gflop_s": work.ops / ms * 1e-6,
                 "plain_ms": _time_ms(lambda: stft_k.plain(*args)),
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": _time_ms(lambda: torch.matmul(xw, dft_cat))})
@@ -762,14 +743,14 @@ def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
     torch.cuda.synchronize()
     err = _close(got, want)
     n, h, w = imgs.shape
-    n_bytes, n_ops = _haar_work(imgs)
-    bound, by = _bound_ms(n_bytes, n_ops)
+    work = cost.haar2d(n, h, w)
+    bound, by = cost.bound_ms(work)
     ms = _time_ms(lambda: ops.haar2d(imgs))
     out.append({"name": "haar2d", "route": "cuda",
                 "source": "src/repro_torch/csrc/haar2d.cu",
                 "replaces": "src/repro/kernels/haar2d.py:39",
                 "shape": [n, h, w], "max_abs_err": err, "ms": ms,
-                "gflop_s": n_ops / ms * 1e-6,
+                "gflop_s": work.ops / ms * 1e-6,
                 "plain_ms": _time_ms(lambda: haar_k.plain(imgs, th, tw)),
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": _time_ms(lambda: torch.einsum(
@@ -799,11 +780,8 @@ def kernel_phase(ds, n_fp: int, dev) -> tuple[list[dict], dict]:
     nnz = int(bits.sum())
     dims = int(bits.reshape(n, -1).any(dim=0).sum())
     h_fns = mappings.shape[1]
-    bound, by = _minmax_bound(4 * (packed.numel() + dims * h_fns
-                                   + salts.numel() + sig.numel()
-                                   + bkt.numel()),
-                              2 * nnz * h_fns,
-                              6 * n * h_fns + 13 * n * lcfg.n_tables)
+    bound, by = cost.bound_ms(cost.minmax_sig_buckets(
+        n, packed.shape[1], h_fns, lcfg.n_tables, nnz=nnz, dims=dims))
     ms = _time_ms(lambda: ops.minmax_sig_buckets(*mm_args, **kw))
     rate = _minmax_rate("minmax_sig_buckets", packed, mappings, nnz, ms, f)
     # the row kernel's shapes of the replay: one station's block at the
@@ -898,7 +876,7 @@ def jaccard_case(label: str, jac: dict, valid, dev, entry: dict) -> dict:
     plain version; each timed warm (the same call repeated) and cold (an
     L2 flush before each call); the bound counts the rows of the valid
     pairs once, the flags, the valid slots' ids and the scores, and 2
-    POPC a word of each valid pair at ``POPC_OPS_PER_S``. Prints a
+    POPC a word of each valid pair at ``cost.POPC_OPS_PER_S``. Prints a
     ``jaccard_popcount_rate`` line and records each plan in ``entry``."""
     import torch
     from repro_torch.kernels import jaccard_popcount as jac_k
@@ -916,12 +894,12 @@ def jaccard_case(label: str, jac: dict, valid, dev, entry: dict) -> dict:
     st = torch.arange(s, device=dev)[:, None].expand_as(valid)[valid]
     rows = torch.unique(torch.cat([st * ring + (i[valid] % ring)
                                    for i in (i1, i2)])).numel()
-    bound, by = _bound_ms(rows * words * 4 + valid.numel() * 5 + 8 * live,
-                          2 * live * words, POPC_OPS_PER_S)
+    bound, by = cost.bound_ms(cost.jaccard_popcount(
+        s, ring, valid.shape[1], words, live=live, rows=rows))
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"case": label, "shape": [s, valid.shape[1], words],
            "valid_pairs": live, "distinct_rows": rows, "bound_ms": bound,
-           "bound_by": by, "popc_ops_per_s": POPC_OPS_PER_S}
+           "bound_by": by, "popc_ops_per_s": cost.POPC_OPS_PER_S}
     for name, ring_t in (("vector", pk), ("scalar", off)):
         p = jac_k.plan(words, ring_t.data_ptr())
         _need(p.vector == (name == "vector"),
@@ -1459,11 +1437,12 @@ def serve_phase(det, ds, dev) -> tuple[dict, dict]:
     shapes = {
         "stft_mag": _shape_case(lambda: ops.stft_mag(*args),
                                 lambda: stft_k.plain(*args),
-                                _stft_work(blocks, spec, fcfg.stft_len),
+                                cost.stft_mag(*blocks.shape, fcfg.stft_len,
+                                              spec.shape[2], fcfg.stft_hop),
                                 lambda: torch.matmul(xw, dft_cat)),
         "haar2d": _shape_case(lambda: ops.haar2d(imgs),
                               lambda: haar_k.plain(imgs, th, tw),
-                              _haar_work(imgs),
+                              cost.haar2d(*imgs.shape),
                               lambda: torch.einsum("ij,njk,lk->nil", th,
                                                    imgs, tw))}
     del frames, xw
@@ -1498,8 +1477,8 @@ def serve_phase(det, ds, dev) -> tuple[dict, dict]:
     exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     nnz = int(utils.popcount(packed).sum())
     dims = int(utils.unpack_bits(packed, 32 * words).any(dim=0).sum())
-    bound, by = _minmax_bound(4 * (packed.numel() + dims * h + 2 * n * h),
-                              2 * nnz * h)
+    bound, by = cost.bound_ms(cost.minmax_hash(n, words, h, nnz=nnz,
+                                               dims=dims))
     ms = _time_ms(lambda: ops.minmax_hash(packed, mp))
     rate = _minmax_rate("minmax_hash_serve", packed, mp, nnz, ms)
     shapes["minmax_hash"] = {
@@ -2319,8 +2298,8 @@ def minmax_hash_phase(packed0, dev) -> dict:
               f"minmax_hash ({label}) differs from its plain version")
         del want
         h = mp.shape[1]
-        bound, by = _minmax_bound(4 * (packed.numel() + dims * h
-                                       + 2 * n * h), 2 * nnz * h)
+        bound, by = cost.bound_ms(cost.minmax_hash(n, words, h, nnz=nnz,
+                                                   dims=dims))
         ms = _time_ms(lambda: ops.minmax_hash(packed, mp), iters=20)
         rate = _minmax_rate("minmax_hash", packed, mp, nnz, ms)
         runs[label] = {
@@ -2415,17 +2394,15 @@ def lm_kernel_phase(dev) -> list[dict]:
         torch.cuda.synchronize()
         err = _lm_check(got, want, f"flash_attention {[b, hq, sq, sk, d]}")
         del got, want
-        pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
-        n_bytes = q.element_size() * 2 * (q.numel() + k.numel())
-        bound, by = _bound_ms(n_bytes, 4 * b * hq * d * pairs,
-                              BF16_OPS_PER_S if dt == torch.bfloat16
-                              else FP32_OPS_PER_S)
+        pairs = cost.causal_pairs(sq, sk)
+        work = cost.flash_attention(b, hq, hkv, sq, sk, d, dt)
+        bound, by = cost.bound_ms(work)
         ms = _time_ms(lambda: ops.flash_attention(q, k, v))
         runs.append({
             "model": model, "shape": [b, hq, hkv, sq, sk, d],
             "dtype": str(dt)[6:],
             "causal_pairs": pairs, "max_abs_err": err, "ms": ms,
-            "tflop_s": 4 * b * hq * d * pairs / ms * 1e-9,
+            "tflop_s": work.ops / ms * 1e-9,
             "ms_unprimed": _time_ms(lambda: ops.flash_attention(q, k, v),
                                     primed=False),
             "plain_ms": _time_ms(lambda: fa_k.plain(q, k, v), iters=10),
@@ -2463,10 +2440,8 @@ def lm_kernel_phase(dev) -> list[dict]:
     torch.cuda.synchronize()
     err = max(_lm_check(y, y_p, "mamba_scan y"),
               _lm_check(h, h_p, "mamba_scan h_final"))
-    n_bytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + b * di * n)
     # one exponential per (step, channel, state), on the SFU
-    bound, by = _bound_ms(n_bytes, 7 * b * s * di * n,
-                          n_sfu=b * s * di * n)
+    bound, by = cost.bound_ms(cost.mamba_scan(b, s, di, n, torch.float32))
     out.append({"name": "mamba_scan", "route": "cuda",
                 "source": "src/repro_torch/csrc/mamba_scan.cu",
                 "replaces": "src/repro/kernels/mamba_scan.py:54",
@@ -2756,14 +2731,10 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
         err = max(_lm_check(x, w, f"flash_attention_bwd d{n} {[b, hq, s, d]}")
                   for x, w, n in zip(got, want, "qkv"))
         del got, again, want
-        pairs = s * (s + 1) // 2
-        n_bytes = q.element_size() * (3 * q.numel() + 2 * k.numel()
-                                      + q.numel() + 2 * k.numel()) \
-            + 4 * lse.numel()
+        pairs = cost.causal_pairs(s, s)
         # 10·D flops an allowed pair: the 5 products of a backward
-        bound, by = _bound_ms(n_bytes, 10 * b * hq * d * pairs,
-                              BF16_OPS_PER_S if dt == torch.bfloat16
-                              else FP32_OPS_PER_S)
+        work = cost.flash_attention_bwd(b, hq, hkv, s, s, d, dt)
+        bound, by = cost.bound_ms(work)
         ms = _time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         split = _split_ms(lambda ev: fa_k.launch_bwd(
@@ -2780,7 +2751,7 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
         runs.append({"shape": [b, hq, hkv, s, s, d], "dtype": str(dt)[6:],
                      "causal_pairs": pairs, "max_abs_err": err,
                      "lse_max_abs_err": lse_err, "ms": ms,
-                     "tflop_s": 10 * b * hq * d * pairs / ms * 1e-9,
+                     "tflop_s": work.ops / ms * 1e-9,
                      "split_ms": split,
                      "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": library_ms,
@@ -2829,19 +2800,14 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                   for x, w, name in zip(got, want, ("dxdt", "ddt", "da",
                                                     "db", "dc")))
         del got, again, want
-        el = xdt.element_size()
-        n_bytes = el * (5 * b * s * di + 4 * b * s * n) \
-            + 4 * (2 * di * n + hc.numel())
         # one exponential a (step, channel, state) on the SFU: the
         # adjoint's g_t is the recompute's (the kernel forms it twice)
-        bound, by = _bound_ms(n_bytes, 16 * b * s * di * n,
-                              n_sfu=b * s * di * n)
+        work = cost.mamba_scan_bwd(b, s, di, n, dt)
+        bound, by = cost.bound_ms(work)
         # the training path's forward (the instance that stores the chunk
         # states) at the same shape, bounded as phase 13's plus its stores
-        fwd_bound, fwd_by = _bound_ms(
-            el * (3 * b * s * di + 2 * b * s * n)
-            + 4 * (di * n + b * di * n + hc.numel()), 7 * b * s * di * n,
-            n_sfu=b * s * di * n)
+        fwd_bound, fwd_by = cost.bound_ms(cost.mamba_scan(b, s, di, n, dt,
+                                                          chunks=True))
         ms = _time_ms(lambda: ops.mamba_scan_bwd(*args, dy, None, hc))
         grads = (torch.empty_like(xdt), torch.empty_like(xdt),
                  torch.empty_like(a), torch.empty_like(bm),
@@ -2854,7 +2820,7 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
             "shape": [b, s, di, n], "dtype": str(dt)[6:], "max_abs_err": err,
             "fwd_chunks_ms": _time_ms(lambda: ops.mamba_scan_chunks(*args)),
             "fwd_chunks_bound_ms": fwd_bound, "fwd_chunks_bound_by": fwd_by,
-            "ms": ms, "gb_s": n_bytes / ms * 1e-6, "split_ms": split,
+            "ms": ms, "gb_s": work.bytes / ms * 1e-6, "split_ms": split,
             "plain_ms": _time_ms(lambda: ms_k.plain_bwd(*args, dy), iters=1,
                                  warmup=0),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -3502,7 +3468,7 @@ def detect_sharded_phase(dev) -> dict:
            "fingerprints_per_chunk": n_fp,
            "fingerprints_per_s": n_chunks * n_fp / wall,
            "model_flops": flops, "model_flops_per_s": flops / wall,
-           "fp32_peak_flops_per_s": FP32_OPS_PER_S,
+           "fp32_peak_flops_per_s": cost.FP32_OPS_PER_S,
            "memory_before_bytes": base, "peak_memory_bytes": peak,
            "output_bytes": sum(v.numel() * v.element_size()
                                for v in out.values()),
@@ -4166,9 +4132,8 @@ def _tp_kernel_cases(dev) -> dict:
                    .to(torch.bfloat16) for n in (hq, hkv, hkv))
         err = _lm_check(ops.flash_attention(q, k, v), fa_k.plain(q, k, v),
                         f"32d flash_attention at model {m}")
-        pairs = s * (s + 1) // 2
-        bound, by = _bound_ms(2 * 2 * (q.numel() + k.numel()),
-                              4 * hq * d * pairs, BF16_OPS_PER_S)
+        bound, by = cost.bound_ms(cost.flash_attention(1, hq, hkv, s, s, d,
+                                                       torch.bfloat16))
         att.append({"model": m, "shape": [1, hq, hkv, s, s, d],
                     "max_abs_err": err,
                     "ms": _time_ms(lambda: ops.flash_attention(q, k, v)),
@@ -4190,9 +4155,8 @@ def _tp_kernel_cases(dev) -> dict:
         y_p, h_p = ms_k.plain(*args)
         err = max(_lm_check(y, y_p, f"32d mamba_scan y at model {m}"),
                   _lm_check(h, h_p, f"32d mamba_scan h at model {m}"))
-        bound, by = _bound_ms(
-            4 * (3 * b * s * di + di * n + 2 * b * s * n + b * di * n),
-            7 * b * s * di * n, n_sfu=b * s * di * n)
+        bound, by = cost.bound_ms(cost.mamba_scan(b, s, di, n,
+                                                  torch.float32))
         scan.append({"model": m, "shape": [b, s, di, n], "max_abs_err": err,
                      "ms": _time_ms(lambda: ops.mamba_scan(*args)),
                      "bound_ms": bound, "bound_by": by, "library_ms": None})
@@ -4237,6 +4201,112 @@ def model_axis_phase(dev, report: dict) -> dict:
     out["kernels"] = _tp_kernel_cases(dev)
     print("model_axis kernels", json.dumps(out["kernels"], default=float),
           flush=True)
+    return out
+
+
+def _dryrun_cmd(arch: str, shape: str, mesh: str, *extra) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--out",
+            str(DRYRUN_OUT), *extra]
+
+
+def _dryrun_env(**more) -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                OMP_NUM_THREADS="1", **more)
+
+
+def start_dryrun() -> list:
+    """Phase 33a: the traced cells, one background process an entry of
+    ``DRYRUN_JOBS``, CUDA hidden; ``dryrun_phase`` waits for them."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shapes in DRYRUN_JOBS:
+        log = open(DRYRUN_OUT / f"{arch}.log", "w")
+        procs.append((arch, subprocess.Popen(
+            _dryrun_cmd(arch, shapes, "both"), cwd=ROOT,
+            env=_dryrun_env(CUDA_VISIBLE_DEVICES=""), stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _dryrun_record(arch: str, shape: str, mesh: str) -> dict:
+    from repro_torch.launch.dryrun import _cell_name
+    name = _cell_name({"arch": arch, "shape": shape, "mesh": mesh})
+    return json.loads((DRYRUN_OUT / f"{name}.json").read_text())
+
+
+def dryrun_phase(procs: list) -> dict:
+    """Phase 33: (a) every traced cell ``ok``, its numbers printed; (b)
+    the profiled cells on the card, held to their traces."""
+    out = {"cells": {}, "profile": {}}
+    for arch, proc, log in procs:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+        log.close()
+        _need(rc == 0, f"the dry run of {arch} exited {rc} "
+              f"(chiprun_out/dryrun/{arch}.log)")
+    for arch, shapes in DRYRUN_JOBS:
+        for shape in shapes.split(","):
+            for mesh in ("single", "multi"):
+                rec = _dryrun_record(arch, shape, mesh)
+                _need(rec["status"] == "ok", f"dry run {arch} × {shape} × "
+                      f"{mesh}: {rec.get('error')}")
+                rf = rec["roofline"]
+                cell = {"trace_s": rec["compile_s"],
+                        "flops": rf["hlo_flops_per_device"],
+                        "bytes": rf["hlo_bytes_per_device"],
+                        "collectives": {k: v for k, v in rec[
+                            "collectives"]["counts"].items() if v},
+                        "nvlink_bytes": rf["collective_bytes_nvlink"],
+                        "network_bytes": rf["collective_bytes_network"],
+                        "memory": rec["memory"],
+                        **{k: rf[k] for k in (
+                            "compute_s", "memory_s", "collective_s",
+                            "dominant", "useful_flops_ratio",
+                            "step_time_lower_bound_s")},
+                        "microbatches": rec.get("microbatches")}
+                out["cells"][f"{arch}|{shape}|{mesh}"] = cell
+                print("dryrun", arch, shape, mesh, json.dumps(cell),
+                      flush=True)
+    for (arch, shape), (band, kernels) in DRYRUN_PROFILE.items():
+        t0 = time.perf_counter()
+        r = subprocess.run(_dryrun_cmd(arch, shape, "single", "--profile",
+                                       "--reuse-trace"), cwd=ROOT,
+                           env=_dryrun_env(), capture_output=True,
+                           text=True, timeout=DRYRUN_TIMEOUT)
+        (DRYRUN_OUT / f"{arch}_profile.log").write_text(r.stdout + r.stderr)
+        _need(r.returncode == 0, f"dry run --profile {arch} × {shape}: "
+              f"exit {r.returncode}: {r.stdout[-1500:]}{r.stderr[-1500:]}")
+        rec = _dryrun_record(arch, shape, "single")
+        prof = rec["profile"]
+        for k in kernels:
+            _need(prof["launches"].get(k, 0) > 0,
+                  f"dry run --profile {arch}: {k} was not launched")
+        for k, bound in prof["port_kernel_bound_ms"].items():
+            _need(prof["port_kernel_ms"].get(k, 0.0) >= bound,
+                  f"dry run --profile {arch}: {k}'s device time "
+                  f"{prof['port_kernel_ms'].get(k)} ms is below its "
+                  f"traced bound {bound} ms")
+        _need(prof["device_time_s"] >= prof["bound_without_collectives_s"],
+              f"dry run --profile {arch}: device time "
+              f"{prof['device_time_s']} s below the traced bound "
+              f"{prof['bound_without_collectives_s']} s")
+        _need(band[0] <= prof["peak_over_traced"] <= band[1],
+              f"dry run --profile {arch}: max_memory_allocated "
+              f"{prof['max_memory_allocated']} is "
+              f"{prof['peak_over_traced']:.3f}× the traced peak, outside "
+              f"{band}")
+        res = {"seconds": time.perf_counter() - t0, "peak_band": band,
+               **{k: prof[k] for k in (
+                   "device_time_s", "bound_without_collectives_s",
+                   "device_time_over_bound", "max_memory_allocated",
+                   "traced_peak_bytes", "peak_over_traced", "launches",
+                   "port_kernel_ms", "port_kernel_bound_ms", "wall_s",
+                   "device_ops")},
+               "step_time_lower_bound_s": rec["roofline"][
+                   "step_time_lower_bound_s"]}
+        out["profile"][f"{arch}|{shape}"] = res
+        print("dryrun_profile", arch, shape, json.dumps(res), flush=True)
     return out
 
 
@@ -4299,8 +4369,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from repro_torch.configs import fast_seismic
-    from repro_torch.core import SynthConfig, make_dataset
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -4322,6 +4390,21 @@ def main() -> int:
                  if "registers" in ln or "smem" in ln]
         print(f"built {name} in {r['seconds']:.1f}s: {' | '.join(usage)}",
               flush=True)
+    dryrun_procs = start_dryrun()
+    try:
+        return _phases(report, dev, dryrun_procs, t_start)
+    finally:
+        for _, proc, log in dryrun_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _phases(report: dict, dev, dryrun_procs: list, t_start: float) -> int:
+    import torch
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import SynthConfig, make_dataset
 
     t0 = time.perf_counter()
     syn = SynthConfig(duration_s=PAPER_HOURS * 3600.0, n_stations=N_STATIONS,
@@ -4379,6 +4462,7 @@ def main() -> int:
     report["detect_step_sharded"] = detect_sharded_phase(dev)
     report["mesh_train"] = mesh_train_phase(dev)
     report["model_axis"] = model_axis_phase(dev, report)
+    report["dryrun"] = dryrun_phase(dryrun_procs)
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_phase(ds, dev)
     for k in kernels:

@@ -1,5 +1,7 @@
 """Configurations of the port (the reference's widths) and the LM
-architecture registry: ``--arch <id>`` → config / smoke config.
+architecture registry: ``--arch <id>`` → config / smoke config / module
+(``get_module``: the arch's config module, with its ``SHAPES`` and
+``input_specs`` where it has them).
 
 The registry names every architecture of ``repro.configs``, and the port
 builds, serves and trains each of the ten LM architectures: the dense GQA
@@ -42,3 +44,7 @@ def get_config(arch: str):
 
 def get_smoke_config(arch: str):
     return _mod(arch).smoke_config()
+
+
+def get_module(arch: str):
+    return _mod(arch)

@@ -59,7 +59,8 @@ The LM half (below the station half) runs one process a rank over
   where ``model`` is manual, a size-1 one that runs no collective.
 * ``COLLECTIVES`` counts the calls that reach the process group, by
   operation and axes (``reset_collectives`` zeroes it), so a run can show
-  which collectives its path issued.
+  which collectives its path issued; ``TRACE``, while a step analyzer
+  sets it, also takes each call's bytes.
 """
 from __future__ import annotations
 
@@ -540,12 +541,26 @@ _reduce_scatter = getattr(tdist, "reduce_scatter_single", None) or \
 COLLECTIVES: collections.Counter = collections.Counter()
 
 
+# while not None, receives (op, mesh, axes, bytes) for every call that
+# reaches the process group, its bytes the larger of its input and output
+# (set by ``launch.hlo_stats.analyze_step``; a plain list, not a context
+# variable, so that a backward running on another thread records too)
+TRACE: list | None = None
+
+
 def reset_collectives() -> None:
     COLLECTIVES.clear()
 
 
-def _count(op: str, mesh: LMMesh, axes) -> None:
-    COLLECTIVES[op + ":" + "+".join(mesh._key(axes))] += 1
+def _count(op: str, mesh: LMMesh, axes, nbytes: int = 0) -> None:
+    key = mesh._key(axes)
+    COLLECTIVES[op + ":" + "+".join(key)] += 1
+    if TRACE is not None and nbytes:
+        TRACE.append((op, mesh, key, nbytes))
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, axes, full: int,
@@ -560,7 +575,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, axes, full: int,
         xt = torch.cat([xt, xt.new_zeros((b - xt.shape[0], *xt.shape[1:]))])
     xt = xt.contiguous()
     out = xt.new_empty((n * b, *xt.shape[1:]))
-    _count("all_gather", mesh, axes)
+    _count("all_gather", mesh, axes, _nbytes(out))
     _all_gather(out, xt, group=mesh.group(axes))
     return out[:full].movedim(0, dim).contiguous()
 
@@ -577,7 +592,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, axes,
         xt = torch.cat([xt, xt.new_zeros((n * b - full, *xt.shape[1:]))])
     xt = xt.contiguous()
     out = xt.new_empty((b, *xt.shape[1:]))
-    _count("reduce_scatter", mesh, axes)
+    _count("reduce_scatter", mesh, axes, _nbytes(xt))
     _reduce_scatter(out, xt, op=tdist.ReduceOp.SUM, group=mesh.group(axes))
     lo, hi = block_range(full, n, mesh.coord(axes))
     return out[: hi - lo].movedim(0, dim).contiguous()
@@ -588,7 +603,7 @@ def all_reduce(x: torch.Tensor, axes, op=tdist.ReduceOp.SUM,
     """``x`` reduced over ``axes``'s ranks, in place; no axes: ``x``."""
     mesh = mesh or current_mesh()
     if mesh is not None and axes:
-        _count("all_reduce", mesh, axes)
+        _count("all_reduce", mesh, axes, _nbytes(x))
         tdist.all_reduce(x, op=op, group=mesh.group(axes))
     return x
 

@@ -25,7 +25,10 @@ causal 2048² prefill (230 TFLOP/s, 4.3× the bound), the fp32 one 1.98 ms
 (PERF.md). ``plain`` is the
 reference's arithmetic (``repro.kernels.ref.flash_attention``): K and V
 repeated per q head, fp32 scores, −inf mask, softmax, fp32 P·V, cast to
-q's dtype. ``kernels.ops.flash_attention`` picks between them by device.
+q's dtype (the Pallas kernel's ``NEG_INF`` = −1e30 mask value has no
+counterpart: the CUDA kernels skip masked keys and the plain version
+masks with −inf). ``kernels.ops.flash_attention`` picks between them by
+device.
 
 Both kernels take element strides for q, k, v and out (last dim
 contiguous), so the model passes its (B, S, H, D) activations as

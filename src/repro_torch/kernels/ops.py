@@ -2,9 +2,13 @@
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on the device of its tensors: a CPU tensor goes to the kernel's plain
-PyTorch version, a CUDA tensor to the CUDA kernel, and anything else
-raises. There is no flag and no fallback — a CUDA tensor never reaches a
-plain version here, and a kernel that fails to build or launch raises.
+PyTorch version, a CUDA tensor to the CUDA kernel, a ``meta`` tensor to
+the kernel's shape function, and anything else raises. There is no flag
+and no fallback — a CUDA tensor never reaches a plain version here, and a
+kernel that fails to build or launch raises. A ``meta`` call computes no
+values and launches nothing: it returns ``meta`` outputs of the kernel's
+shapes and dtypes and records the kernel's work (``kernels/cost.py``) for
+the step analyzer that is recording (``launch/hlo_stats``), if one is.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do
 not count), so a run can show that its main path went through the
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import haar2d as _haar
 from repro_torch.kernels import jaccard_popcount as _jac
@@ -40,14 +45,15 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+def _route(name: str, *tensors: torch.Tensor) -> str:
+    """The one device type of ``tensors``: "cpu", "cuda" or "meta"."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {devs}")
     kind = next(iter(devs)).type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {kind}")
-    return kind == "cuda"
+    return kind
 
 
 def _require(cond: bool, name: str, what: str) -> None:
@@ -76,11 +82,16 @@ def stft_mag(wave: torch.Tensor, window: torch.Tensor, dft_r: torch.Tensor,
              name, "dft_r/dft_i must both be (frame_len, K)")
     _require(hop > 0 and wave.shape[1] >= frame_len, name,
              "need hop > 0 and at least one frame")
-    if not _on_cuda(name, wave, window, dft_r, dft_i):
+    route = _route(name, wave, window, dft_r, dft_i)
+    if route == "cpu":
         return _stft.plain(wave, window, dft_r, dft_i, hop)
     nf = _stft.n_frames(wave.shape[1], frame_len, hop)
     out = torch.empty((wave.shape[0], nf, dft_r.shape[1]),
                       dtype=torch.float32, device=wave.device)
+    if route == "meta":
+        cost.record(name, cost.stft_mag(*wave.shape, frame_len,
+                                        dft_r.shape[1], hop))
+        return out
     _stft.launch(wave, window, dft_r, dft_i, hop, out)
     LAUNCHES[name] += 1
     return out
@@ -105,8 +116,12 @@ def haar2d(imgs: torch.Tensor) -> torch.Tensor:
     name = "haar2d"
     _typed(name, imgs, torch.float32, 3, "imgs")
     n, h, w = imgs.shape
+    route = _route(name, imgs)
+    if route == "meta":
+        cost.record(name, cost.haar2d(n, h, w))
+        return torch.empty_like(imgs)
     th, tw, tw_t = haar_mats(h, w, imgs.device)
-    if not _on_cuda(name, imgs):
+    if route == "cpu":
         return _haar.plain(imgs, th, tw)
     out = torch.empty_like(imgs)
     _haar.launch(imgs, th, tw_t, out)
@@ -124,12 +139,15 @@ def minmax_hash(packed: torch.Tensor, mappings: torch.Tensor
     _typed(name, mappings, torch.int32, 2, "mappings")
     _require(mappings.shape[0] == 32 * packed.shape[1], name,
              "mappings rows must equal 32 * packed words")
-    if not _on_cuda(name, packed, mappings):
+    route = _route(name, packed, mappings)
+    if route == "cpu":
         return _mm.plain_raw(packed, mappings)
     shape = (packed.shape[0], mappings.shape[1])
     mins = torch.empty(shape, dtype=torch.int32, device=packed.device)
     maxs = torch.empty(shape, dtype=torch.int32, device=packed.device)
-    if mins.numel():
+    if route == "meta":
+        cost.record(name, cost.minmax_hash(*packed.shape, shape[1]))
+    elif mins.numel():
         _mm.launch_raw(packed, mappings, mins, maxs)
         LAUNCHES[name] += 1
     return mins, maxs
@@ -157,12 +175,16 @@ def minmax_sig_buckets(packed: torch.Tensor, mappings: torch.Tensor,
     _require(n_buckets > 0 and n_buckets & (n_buckets - 1) == 0, name,
              "n_buckets must be a power of two")
     f = mappings.shape[1] // t
-    if not _on_cuda(name, packed, mappings, salts):
+    route = _route(name, packed, mappings, salts)
+    if route == "cpu":
         return _mm.plain(packed, mappings, salts, f, use_minmax, n_buckets)
     n = packed.shape[0]
     sig = torch.empty((n, t), dtype=torch.int32, device=packed.device)
     bkt = torch.empty((n, t), dtype=torch.int32, device=packed.device)
-    if n:
+    if route == "meta":
+        cost.record(name, cost.minmax_sig_buckets(
+            *packed.shape, mappings.shape[1], t))
+    elif n:
         _mm.launch(packed, mappings, salts, f, use_minmax, n_buckets, sig,
                    bkt)
         LAUNCHES[name] += 1
@@ -192,18 +214,24 @@ def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
         _typed(name, valid, torch.bool, 2, "valid")
         _require(valid.shape == i1.shape, name, "valid must be (S, M)")
         tensors += (valid,)
-    if not _on_cuda(name, *tensors):
+    route = _route(name, *tensors)
+    if route == "cpu":
         return _jac.plain(pk, i1, i2, valid)
     out = torch.empty(i1.shape, dtype=torch.float32, device=pk.device)
-    if out.numel():
+    if route == "meta":
+        cost.record(name, cost.jaccard_popcount(*pk.shape[:2],
+                                                i1.shape[1], pk.shape[2]))
+    elif out.numel():
         _jac.launch(pk, i1, i2, valid, out)
         LAUNCHES[name] += 1
     return out
 
 
 def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> bool:
-    """Checks the inputs of the attention kernels; True on the card."""
+                     v: torch.Tensor) -> str:
+    """Checks the inputs of the attention kernels; their device type. On
+    the card and on ``meta`` the head size must be the kernel's; the
+    card's alignment checks need storage, which ``meta`` has not."""
     _require(q.dtype in _FLOATS and k.dtype == v.dtype == q.dtype, name,
              f"q, k, v must share one of {_FLOATS}")
     _require(q.dim() == k.dim() == v.dim() == 4, name, "q, k, v must be 4-D")
@@ -213,18 +241,25 @@ def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
     _require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d
              and k.shape[1] > 0 and hq % k.shape[1] == 0, name,
              "k and v must be (B, Hkv, Sk, D) with Hq a multiple of Hkv")
-    if not _on_cuda(name, q, k, v):
-        return False
+    route = _route(name, q, k, v)
+    if route == "cpu":
+        return route
     _require(d in _fa.HEAD_DIMS, name,
              f"the kernel takes head sizes {_fa.HEAD_DIMS}, not {d}")
-    if q.dtype == torch.bfloat16:
+    if route == "cuda" and q.dtype == torch.bfloat16:
         for t, label in ((q, "q"), (k, "k"), (v, "v")):
             _require(_fa.aligned(t), name,
                      f"the bf16 kernel loads 16 bytes a thread: {label} must "
                      "start on a 16-byte boundary and have batch/head/seq "
                      "strides that are multiples of 8 elements (offset "
                      f"{t.data_ptr() % 16} B, strides {t.stride()[:3]})")
-    return True
+    return route
+
+
+def _attention_work(q, k, causal: bool, bwd: bool = False) -> cost.Work:
+    b, hq, sq, d = q.shape
+    fn = cost.flash_attention_bwd if bwd else cost.flash_attention
+    return fn(b, hq, k.shape[1], sq, k.shape[2], d, q.dtype, causal)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -238,8 +273,11 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        _fa.launch(q, k, v, out, causal, lse)
-        LAUNCHES["flash_attention"] += 1
+        if q.is_meta:
+            cost.record("flash_attention", _attention_work(q, k, causal))
+        else:
+            _fa.launch(q, k, v, out, causal, lse)
+            LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -261,11 +299,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are multiples of 8 elements; others raise (no copy is made). On CUDA
     tensors that require grad it runs ``FlashAttentionFn``."""
     name = "flash_attention"
-    if not _check_attention(name, q, k, v):
+    route = _check_attention(name, q, k, v)
+    if route == "cpu":
         return _fa.plain(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal)
     out = torch.empty_like(q)
+    if route == "meta":
+        cost.record(name, _attention_work(q, k, causal))
+        return out
     _fa.launch(q, k, v, out, causal)
     LAUNCHES[name] += 1
     return out
@@ -286,22 +328,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              == q.dtype, name, "o and do must match q's shape and dtype")
     _require(lse.dtype == torch.float32 and lse.shape == q.shape[:3], name,
              "lse must be fp32 (B, Hq, Sq)")
-    if not _check_attention(name, q, k, v):
+    route = _check_attention(name, q, k, v)
+    if route == "cpu":
         return _fa.plain_bwd(q, k, v, o, lse, do, causal)
-    _on_cuda(name, q, o, lse, do)
+    _route(name, q, o, lse, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if route == "meta":
+        cost.record(name, _attention_work(q, k, causal, bwd=True))
+        return dq, dk, dv
     if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
                               and not _fa.aligned(do)):
         do = do.contiguous()
     _require(o.stride(-1) == 1 and lse.is_contiguous(), name,
              "o's last dim and lse must be contiguous")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _fa.launch_bwd(q, k, v, o, lse, do, dq, dk, dv, causal)
     LAUNCHES[name] += 1
     return dq, dk, dv
 
 
-def _check_scan(name: str, xdt, dt, a, b, c) -> bool:
-    """Checks the inputs of the scan kernels; True on the card."""
+def _check_scan(name: str, xdt, dt, a, b, c) -> str:
+    """Checks the inputs of the scan kernels; their device type."""
     _require(xdt.dtype in _FLOATS, name, f"xdt must be one of {_FLOATS}")
     for t, label, nd in ((xdt, "xdt", 3), (dt, "dt", 3), (b, "b", 3),
                          (c, "c", 3)):
@@ -313,20 +359,21 @@ def _check_scan(name: str, xdt, dt, a, b, c) -> bool:
              "dt must match xdt and a must be (Di, N)")
     _require(b.shape == c.shape == (bsz, s, n), name, "b and c must be "
              "(B, S, N)")
-    if not _on_cuda(name, xdt, dt, a, b, c):
-        return False
-    _require(1 <= n <= _ms.MAX_STATE, name,
-             f"the kernel takes 1 <= N <= {_ms.MAX_STATE}, not {n}")
-    return True
+    route = _route(name, xdt, dt, a, b, c)
+    if route != "cpu":
+        _require(1 <= n <= _ms.MAX_STATE, name,
+                 f"the kernel takes 1 <= N <= {_ms.MAX_STATE}, not {n}")
+    return route
 
 
 def mamba_scan_chunks(xdt, dt, a, b, c) -> tuple[torch.Tensor, ...]:
     """``mamba_scan`` on the card that also returns the state entering
     each 32-step chunk, (B, ⌈S/32⌉, Di, N) fp32: the checkpoints
-    ``mamba_scan_bwd`` recomputes from. CUDA tensors only."""
+    ``mamba_scan_bwd`` recomputes from. CUDA (or ``meta``) tensors
+    only."""
     name = "mamba_scan"
-    _require(_check_scan(name, xdt, dt, a, b, c), name,
-             "mamba_scan_chunks runs on the card only")
+    route = _check_scan(name, xdt, dt, a, b, c)
+    _require(route != "cpu", name, "mamba_scan_chunks runs on the card only")
     bsz, s, di = xdt.shape
     n = a.shape[1]
     y = torch.empty_like(xdt)
@@ -334,6 +381,10 @@ def mamba_scan_chunks(xdt, dt, a, b, c) -> tuple[torch.Tensor, ...]:
                           device=xdt.device)
     h_chunks = torch.empty((bsz, -(-s // _ms.CHUNK), di, n),
                            dtype=torch.float32, device=xdt.device)
+    if route == "meta":
+        cost.record(name, cost.mamba_scan(bsz, s, di, n, xdt.dtype,
+                                          chunks=True))
+        return y, h_final, h_chunks
     _ms.launch(xdt, dt, a, b, c, y, h_final, h_chunks)
     LAUNCHES[name] += 1
     return y, h_final, h_chunks
@@ -368,7 +419,8 @@ def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     N) fp32). xdt, dt, b, c share fp32 or bf16. On CUDA tensors that
     require grad it runs ``MambaScanFn``."""
     name = "mamba_scan"
-    if not _check_scan(name, xdt, dt, a, b, c):
+    route = _check_scan(name, xdt, dt, a, b, c)
+    if route == "cpu":
         return _ms.plain(xdt, dt, a, b, c)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xdt, dt, a, b, c)):
@@ -377,6 +429,10 @@ def mamba_scan(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(xdt)
     h_final = torch.empty((bsz, di, a.shape[1]), dtype=torch.float32,
                           device=xdt.device)
+    if route == "meta":
+        cost.record(name, cost.mamba_scan(bsz, s, di, a.shape[1],
+                                          xdt.dtype))
+        return y, h_final
     _ms.launch(xdt, dt, a, b, c, y, h_final)
     LAUNCHES[name] += 1
     return y, h_final
@@ -399,20 +455,25 @@ def mamba_scan_bwd(xdt: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         _require(dh_final.dtype == torch.float32 and dh_final.shape ==
                  (xdt.shape[0], xdt.shape[2], a.shape[1]), name,
                  "dh_final must be fp32 (B, Di, N)")
-    if not _check_scan(name, xdt, dt, a, b, c):
+    route = _check_scan(name, xdt, dt, a, b, c)
+    if route == "cpu":
         return _ms.plain_bwd(xdt, dt, a, b, c, dy, dh_final)
     _require(h_chunks is not None, name, "the kernel needs h_chunks from "
              "mamba_scan_chunks")
     tensors = (dy, h_chunks) + (() if dh_final is None else (dh_final,))
-    _on_cuda(name, xdt, *tensors)
+    _route(name, xdt, *tensors)
     bsz, s, di = xdt.shape
     _typed(name, h_chunks, torch.float32, 4, "h_chunks")
     _require(h_chunks.shape == (bsz, -(-s // _ms.CHUNK), di, a.shape[1]),
              name, "h_chunks must be (B, ceil(S / 32), Di, N)")
-    dy = dy.contiguous()
-    dh_final = None if dh_final is None else dh_final.contiguous()
     grads = (torch.empty_like(xdt), torch.empty_like(xdt),
              torch.empty_like(a), torch.empty_like(b), torch.empty_like(c))
+    if route == "meta":
+        cost.record(name, cost.mamba_scan_bwd(bsz, s, di, a.shape[1],
+                                              xdt.dtype))
+        return grads
+    dy = dy.contiguous()
+    dh_final = None if dh_final is None else dh_final.contiguous()
     _ms.launch_bwd(xdt, dt, a, b, c, dy, dh_final, h_chunks, grads)
     LAUNCHES[name] += 1
     return grads

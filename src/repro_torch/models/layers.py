@@ -20,7 +20,9 @@ MLP and the shared experts by ``d_ff``, the embedding by vocab rows.
 Each block's input goes through "f" and its output through one "g" (the
 parallel block: one for both branches). The ``*_partial`` functions
 compute a rank's partial output of a block for any ``TensorParallel``,
-so ranks played in turn in one process can be summed by their caller.
+so ranks played in turn in one process can be summed by their caller
+(``qkv_partial`` is the reference's ``qkv_project`` for a rank's heads:
+it projects q, k and v and applies RoPE).
 Decode attention is the flash-decode over the rank's sequence block of
 the cache: every q head, the combine three all_reduces.
 """

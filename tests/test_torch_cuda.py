@@ -1398,3 +1398,112 @@ def test_detect_step_sharded_on_the_card_equals_detect_step(cuda):
         one = detect.detect_step(chunks[r].to(cuda), med, mad, cfg)
         for k, v in one.items():
             assert got[k].is_cuda and torch.equal(got[k][r], v), k
+
+
+
+def _work_case(name: str, dev):
+    """(call, its ``cost.py`` work) of one kernel at a shape of its path,
+    the data-dependent counts (set bits, valid pairs, distinct rows) read
+    from the inputs; ``call(to)`` runs the wrapper on ``to(*inputs)``."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_attention as fa_k
+    g = torch.Generator(device=dev).manual_seed(3)
+    i32 = torch.int32
+    if name == "stft_mag":
+        wave = torch.randn((4, 54375), generator=g, device=dev)
+        win = torch.hann_window(200, device=dev)
+        dr, di = (torch.as_tensor(np.ascontiguousarray(m[:, 1:36]),
+                                  device=dev)
+                  for m in ref.dft_matrices(200, 101))
+        return (lambda to: ops.stft_mag(*to(wave, win, dr, di), 25),
+                cost.stft_mag(4, 54375, 200, 35, 25))
+    if name == "haar2d":
+        imgs = torch.randn((1024, 32, 128), generator=g, device=dev)
+        return (lambda to: ops.haar2d(*to(imgs)),
+                cost.haar2d(1024, 32, 128))
+    if name in ("minmax_hash", "minmax_sig_buckets"):
+        bits = torch.rand((2048, 8192), generator=g, device=dev) < 0.05
+        packed = tu.pack_bits(bits).contiguous()
+        mp = torch.randint(0, 2**31 - 1, (8192, 400), generator=g,
+                           device=dev, dtype=i32)
+        nnz, dims = int(bits.sum()), int(bits.any(0).sum())
+        if name == "minmax_hash":
+            return (lambda to: ops.minmax_hash(*to(packed, mp)),
+                    cost.minmax_hash(2048, 256, 400, nnz=nnz, dims=dims))
+        salts = torch.randint(0, 2**31 - 1, (100,), generator=g, device=dev,
+                              dtype=i32)
+        return (lambda to: ops.minmax_sig_buckets(
+                    *to(packed, mp, salts), use_minmax=True,
+                    n_buckets=16384),
+                cost.minmax_sig_buckets(2048, 256, 400, 100, nnz=nnz,
+                                        dims=dims))
+    if name == "jaccard_popcount":
+        pk = torch.randint(-2**31, 2**31 - 1, (4, 4096, 256), generator=g,
+                           device=dev, dtype=i32)
+        i1, i2 = (torch.randint(0, 4096, (4, 4096), generator=g, device=dev,
+                                dtype=i32) for _ in range(2))
+        rows = sum(int(torch.unique(torch.cat([i1[s], i2[s]])).numel())
+                   for s in range(4))
+        return (lambda to: ops.jaccard_popcount(*to(pk, i1, i2)),
+                cost.jaccard_popcount(4, 4096, 4096, 256, live=4 * 4096,
+                                      rows=rows))
+    if name.startswith("flash_attention"):
+        bf = torch.bfloat16
+        q = torch.randn((1, 8, 1024, 128), generator=g, device=dev).to(bf)
+        k, v = (torch.randn((1, 2, 1024, 128), generator=g,
+                            device=dev).to(bf) for _ in range(2))
+        if name == "flash_attention":
+            return (lambda to: ops.flash_attention(*to(q, k, v)),
+                    cost.flash_attention(1, 8, 2, 1024, 1024, 128, bf))
+        o = torch.empty_like(q)
+        lse = torch.empty((1, 8, 1024), dtype=torch.float32, device=dev)
+        fa_k.launch(q, k, v, o, True, lse)
+        return (lambda to: ops.flash_attention_bwd(*to(q, k, v, o, lse, q)),
+                cost.flash_attention_bwd(1, 8, 2, 1024, 1024, 128, bf))
+    xdt = torch.randn((1, 1024, 2048), generator=g, device=dev)
+    dt = torch.rand((1, 1024, 2048), generator=g, device=dev) * 0.1
+    a = -torch.arange(1, 17, dtype=torch.float32,
+                      device=dev).expand(2048, 16).contiguous()
+    b, c = (torch.randn((1, 1024, 16), generator=g, device=dev)
+            for _ in range(2))
+    if name == "mamba_scan":
+        return (lambda to: ops.mamba_scan(*to(xdt, dt, a, b, c)),
+                cost.mamba_scan(1, 1024, 2048, 16, torch.float32))
+    hc = ops.mamba_scan_chunks(xdt, dt, a, b, c)[2]
+    return (lambda to: ops.mamba_scan_bwd(*to(xdt, dt, a, b, c, xdt), None,
+                                          *to(hc)),
+            cost.mamba_scan_bwd(1, 1024, 2048, 16, torch.float32))
+
+
+@pytest.mark.parametrize("name", ["stft_mag", "haar2d", "minmax_hash",
+                                  "minmax_sig_buckets", "jaccard_popcount",
+                                  "flash_attention", "flash_attention_bwd",
+                                  "mamba_scan", "mamba_scan_bwd"])
+def test_kernel_time_is_at_least_its_cost_bound_and_meta_shapes_match(
+        cuda, name):
+    """Each kernel at a shape of its path: its CUDA-event time (the mean
+    of 20 launches) is at least ``kernels/cost.py``'s bound, and the
+    ``meta`` path's outputs have the kernel's shapes and dtypes."""
+    from repro_torch.kernels import cost
+    call, work = _work_case(name, cuda)
+    same = lambda *ts: ts  # noqa: E731
+    got = call(same)
+    for _ in range(3):
+        call(same)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(20):
+        call(same)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / 20
+    bound, _ = cost.bound_ms(work)
+    assert ms >= bound, (ms, bound)
+    launches = dict(ops.LAUNCHES)
+    meta = call(lambda *ts: tuple(torch.empty_like(t, device="meta")
+                                  for t in ts))
+    assert ops.LAUNCHES == launches
+    got, meta = ((x,) if isinstance(x, torch.Tensor) else x
+                 for x in (got, meta))
+    assert [(t.shape, t.dtype, t.is_meta) for t in meta] == \
+        [(t.shape, t.dtype, True) for t in got]

@@ -1,8 +1,8 @@
 """The Min-Max kernels' launch plan on the CPU: which kernel each caller's
 shape takes, the tiled kernel's tiling, split and shared memory, the plan's
-constants against the CUDA source's, and ``chip_smoke.py``'s bound for the
-two kernels. Nothing here needs a card: the plan is plain Python, and the
-tiled kernel itself is held against the plain version by
+constants against the CUDA source's, and the two kernels' bound
+(``kernels/cost.py``, which ``chip_smoke.py`` reports). Nothing here
+needs a card: the plan is plain Python, and the tiled kernel itself is held against the plain version by
 ``tests/test_torch_cuda.py`` on the card.
 """
 import _torch_threads  # noqa: F401  (one torch thread a process)
@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.configs import fast_seismic
 from repro_torch.data.dedup import DedupConfig
+from repro_torch.kernels import cost
 from repro_torch.kernels import minmax_hash as mm_k
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -172,30 +173,35 @@ def _chip_smoke():
 
 
 def test_minmax_bound_counts_comparisons_at_the_dpx_rate():
-    cs = _chip_smoke()
     # 64 IMNMX results a clock an SM, 132 SMs, 1.98 GHz; DPX: 2 a result
-    assert cs.INT_OPS_PER_S == pytest.approx(16.7270e12, rel=1e-4)
-    assert cs.MINMAX_COMPARES_PER_S == 2 * cs.INT_OPS_PER_S
+    assert cost.INT_OPS_PER_S == pytest.approx(16.7270e12, rel=1e-4)
+    assert cost.MINMAX_COMPARES_PER_S == 2 * cost.INT_OPS_PER_S
     # the paper block: 405,200 set bits x 400 functions, min and max
     compares = 2 * 405_200 * 400
-    ms, by = cs._minmax_bound(4 * 1024 * 256, compares)
+    ms, by = cost.bound_ms(cost.Work(ops=compares, bytes=4 * 1024 * 256,
+                                     pipe="minmax"))
     assert by == "operations"
     assert ms == pytest.approx(compares / 33.454e12 * 1e3, rel=1e-4)
     assert ms == pytest.approx(0.00969, abs=1e-5)
     # the epilogue's integer operations count at half the comparison rate
-    ms_epi, _ = cs._minmax_bound(0, compares, 1e6)
-    assert ms_epi - ms == pytest.approx(1e6 / cs.INT_OPS_PER_S * 1e3)
+    ms_epi, _ = cost.bound_ms(cost.Work(ops=compares, bytes=0, pipe="minmax",
+                                        int_ops=1e6))
+    assert ms_epi - ms == pytest.approx(1e6 / cost.INT_OPS_PER_S * 1e3)
+    # minmax_sig_buckets' work at the paper block: 6 integer operations a
+    # column and 13 a table besides the comparisons
+    w = cost.minmax_sig_buckets(1024, 256, 400, 100, nnz=405_200, dims=8192)
+    assert (w.ops, w.int_ops) == (compares, 6 * 1024 * 400 + 13 * 1024 * 100)
+    assert w.bytes == 4 * (1024 * 256 + 8192 * 400 + 100 + 2 * 1024 * 100)
 
 
 def test_minmax_bound_of_a_station_day():
-    cs = _chip_smoke()
     n, nnz, h = 43_184, 17_095_200, 400
-    ms, by = cs._minmax_bound(4 * (n * 256 + 8192 * h + 2 * n * h),
-                              2 * nnz * h)
+    ms, by = cost.bound_ms(cost.minmax_hash(n, 256, h, nnz=nnz, dims=8192))
     assert by == "operations"
     assert ms == pytest.approx(0.4088, rel=1e-3)
     # with little to compare, the bytes bound it
-    ms_b, by_b = cs._minmax_bound(4 * (n * 256 + 8192 * h + 2 * n * h), 1e6)
+    ms_b, by_b = cost.bound_ms(cost.minmax_hash(n, 256, h, nnz=1250,
+                                                dims=8192))
     assert by_b == "bytes"
     assert ms_b == pytest.approx(4 * (n * 256 + 8192 * h + 2 * n * h)
                                  / 3.35e12 * 1e3)
