@@ -99,8 +99,10 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     2048-token prefills (heads / kv heads / D: yi-9b 32 / 4 / 128,
     codeqwen1.5-7b 32 / 32 / 128, command-r-35b 64 / 8 / 128, the two MoE
     16 / 16 / 128, musicgen-large and zamba2-1.2b 32 / 32 / 64,
-    internvl2-1b 14 / 2 / 64); ``mamba_scan`` at
-    falcon-mamba-7b's (B = 1, S = 2048, Di = 8192, N = 16, fp32).
+    internvl2-1b 14 / 2 / 64) and at command-r-35b-smoke's head dim 16
+    (``D16_CASES``: 8 / 2 heads, 2048 × 2048, bf16 and fp32);
+    ``mamba_scan`` at falcon-mamba-7b's (B = 1, S = 2048, Di = 8192,
+    N = 16, fp32).
     Tolerance max abs err ≤ 5e-5·max|plain| in fp32 (summation order, the
     online-softmax rescale) and ≤ 2⁻⁷·max|plain| for a bf16 output (one
     rounding of the output, P rounded to bf16 before P·V). Prints each
@@ -110,11 +112,12 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     the SFU (16 a clock an SM) beside its bytes and fp32 operations.
 14. LM parity: ``ServeEngine`` on the card against the port's CPU path on
     the fp32 variants of the default smoke model and the ten LM archs'
-    smoke configs (command-r-35b's with 4 / 2 heads, ``LM_PARITY_CHANGES``:
-    its head dim 16 is outside the kernel's), same parameters, 4
-    requests: equal token lists, prefill logits within 1e-4·max|logit|
-    (internvl2-1b's also on a prompt with ``patch_embeds``), and for the
-    two MoE archs the prefills' routed expert ids equal.
+    smoke configs as they are (command-r-35b-smoke's head dim 16 runs the
+    D = 16 kernels), same parameters, 4 requests: equal token lists,
+    prefill logits within 1e-4·max|logit| (internvl2-1b's also on a
+    prompt with ``patch_embeds``), and for the two MoE archs the
+    prefills' routed expert ids equal; launch counters zeroed before the
+    card's run and read after it (each config's kernel launched).
 15. LM serving at full width: every LM arch's ``config()`` with every
     width unchanged, ``n_layers`` cut to 4 but for zamba2-1.2b (38
     layers: 6 shared-attention groups and a tail of 2) and internvl2-1b
@@ -193,7 +196,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     the output as phase 13's, the log-sum-exp within 1e-3 absolute), an
     fp32 case at S = 512 and phase 26's other attention microbatches in
     bf16 (deepseek-moe-16b 1 × 16 / 16, D 128; zamba2-1.2b 2 × 32 / 32,
-    D 64; internvl2-1b 2 × 14 / 2, D 64), its bound 10·D flops an
+    D 64; internvl2-1b 2 × 14 / 2, D 64) and ``D16_CASES`` (1 × 8 / 2,
+    D 16, bf16 and fp32), its bound 10·D flops an
     allowed q–k pair at the tensor (or fp32) rate and its library column
     the backward of
     ``scaled_dot_product_attention`` on the same tensors;
@@ -214,8 +218,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     ``index_put_``, timed, and ``F.embedding``'s gradient bitwise
     repeatable (the launcher's resume relies on it).
 25. Training parity: on the fp32 smoke config of every LM arch and the
-    launcher's smoke model (``_lm_smoke_configs()``, command-r-35b's
-    with ``LM_PARITY_CHANGES``; remat "block"; internvl2-1b's batches
+    launcher's smoke model (``_lm_smoke_configs()``, command-r-35b-smoke
+    at head dim 16; remat "block"; internvl2-1b's batches
     with seeded ``patch_embeds``), the card's ``lm_loss`` and gradients
     and three ``make_train_step`` steps in each ``accum_mode`` against
     the port's CPU path from the same parameters and batches (loss 1e-5
@@ -335,7 +339,12 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     qwen2.5-14b's 2048-token prefill cut to its heads at model widths 2,
     4 and 8 (20 / 4, 10 / 2, 5 / 1) and ``mamba_scan`` at
     falcon-mamba-7b's cut to 4096 / 2048 / 1024 channels, each against
-    its plain version, timed, bounded, attention beside SDPA.
+    its plain version, timed, bounded, attention beside SDPA. (e) Phase
+    32a's cell again under the (1, 1) mesh in the fsdp layout (each
+    layer's blocks gathered whole at use, the decode cache's rows over
+    data): every logit bitwise equal to serving without a mesh (the same
+    no-mesh run as 32a's), the tokens equal, tokens/s, a decode step's
+    collectives (``fsdp_serve`` lines).
 33. The dry run (``repro_torch.launch.dryrun``), in processes of its own
     (its fake process group of 256 or 512 ranks cannot share a process
     with phases 31–32's NCCL group). (a) Started in the background right
@@ -355,7 +364,10 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     time may fall below its traced bound (the step's device time against
     the bound without collectives, each kernel's device time against its
     calls' ``cost.py`` bounds), and ``max_memory_allocated`` must lie in
-    the cell's band of the traced peak (arguments + temporaries).
+    the cell's band of the traced peak (arguments + temporaries). (a)
+    also traces ``DRYRUN_FSDP`` (qwen2.5-14b × ``prefill_32k`` /
+    ``decode_32k`` × single) under ``--layout fsdp``, its records tagged
+    ``fsdp``: each ``ok`` and printed as the others.
 
 ``--profile`` adds a last phase: the first 2 h of the paper-scale replay
 again under ``torch.profiler``, reporting device time by kernel and the
@@ -372,7 +384,10 @@ four kernels of the detection core, each with the batch replay's count
 each also with the training run's count under ``launches_by_path``; the
 training runs (phase 26) for ``flash_attention_bwd`` and
 ``mamba_scan_bwd``; the four LM kernels with every serve and training
-run's count under ``launches_by_model``.
+run's count under ``launches_by_model``. ``flash_attention`` and
+``flash_attention_bwd`` also carry ``head_dim_16``: the D = 16 cases of
+phases 13 and 24 (error, times, bound, SDPA) and the launches of
+command-r-35b-smoke's card runs in phases 14 and 25.
 The serving phase's counts stand beside them under ``launches_by_path``
 (``serve``) for ``stft_mag``, ``haar2d`` and ``minmax_hash``, whose entries
 also carry their error, time, bound and library time at the serving
@@ -467,11 +482,13 @@ LM_SERVE_MODELS = (("qwen2.5-14b", True), ("falcon-mamba-7b", True),
                    ("deepseek-moe-16b", True),
                    ("moonshot-v1-16b-a3b", True), ("zamba2-1.2b", False),
                    ("internvl2-1b", False))
-# phase 14's change to a smoke config: command-r-35b-smoke's head dim is
-# 128 / 8 = 16, outside the flash_attention kernel's HEAD_DIMS; with 4 /
-# 2 heads it is 32 (the CPU tests hold the smoke config as it is)
-LM_PARITY_CHANGES = {"command-r-35b-smoke": {"n_heads": 4,
-                                             "n_kv_heads": 2}}
+# the smoke config whose head dim, 128 / 8 = 16, phases 14 and 25 run the
+# D = 16 kernels on (the kernels line's head_dim_16 launches), and the
+# D = 16 attention cases of phases 13 and 24: its 8 / 2 heads at a
+# 2048-token prefill, bf16 and fp32
+D16_MODEL = "command-r-35b-smoke"
+D16_CASES = ((1, 8, 2, 2048, 2048, 16, "bfloat16"),
+             (1, 8, 2, 2048, 2048, 16, "float32"))
 # full-width training (phase 26): seq 2048, per model (global batch,
 # microbatches, n_layers cut to 4 as the serve phase cuts it); timed
 # steps after one warm-up step. One arch of each family that fits one
@@ -551,6 +568,9 @@ DRYRUN_JOBS = (("fast_seismic", "station_month"),
                ("falcon-mamba-7b",
                 "train_4k,prefill_32k,decode_32k,long_500k"),
                ("deepseek-moe-16b", "train_4k,prefill_32k,decode_32k"))
+# the serving cells traced under the fsdp layout (single only, records
+# tagged "fsdp" beside the tp ones)
+DRYRUN_FSDP = ("qwen2.5-14b", "prefill_32k,decode_32k")
 DRYRUN_PROFILE = {
     ("qwen2.5-14b", "train_4k"): ((0.9, 1.3), ("flash_attention",
                                                "flash_attention_bwd")),
@@ -2357,6 +2377,15 @@ def _lm_check(got, want, what: str) -> float:
     return err
 
 
+def _d16_cases(runs: list) -> dict:
+    """The kernels line's D = 16 cases of an attention kernel's runs
+    (their launches are added from phases 14 and 25)."""
+    keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return {"cases": [{k: r[k] for k in keys} for r in runs
+                      if r["shape"][5] == 16]}
+
+
 def lm_kernel_phase(dev) -> list[dict]:
     """``flash_attention`` and ``mamba_scan`` against their plain versions
     at the LM prefill shapes, timed and bounded."""
@@ -2384,6 +2413,9 @@ def lm_kernel_phase(dev) -> list[dict]:
     cases += [(1, hq, hkv, 2048, 2048, d, torch.bfloat16)
               for hq, hkv, d in family_cases.values()]
     models = ["qwen2.5-14b"] * 4 + list(family_cases)
+    # head dim 16: command-r-35b-smoke's heads, bf16 and fp32
+    cases += [(*c[:6], getattr(torch, c[6])) for c in D16_CASES]
+    models += [D16_MODEL] * len(D16_CASES)
     runs = []
     for (b, hq, hkv, sq, sk, d, dt), model in zip(cases, models):
         q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
@@ -2423,7 +2455,7 @@ def lm_kernel_phase(dev) -> list[dict]:
                 **{k: main[k] for k in ("shape", "max_abs_err", "ms",
                                         "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-                "cases": runs})
+                "cases": runs, "head_dim_16": _d16_cases(runs)})
 
     # --- mamba_scan at falcon-mamba-7b's prefill shape, fp32, with the
     # model's A = -exp(a_log) = -(1..N) and a softplus-sized dt
@@ -2458,7 +2490,7 @@ def lm_kernel_phase(dev) -> list[dict]:
 
 def _lm_smoke_configs():
     """The fp32 variants of the launcher's smoke model and of every LM
-    arch's smoke config, with ``LM_PARITY_CHANGES`` applied."""
+    arch's smoke config."""
     import dataclasses
     from repro_torch.configs import LM_ARCHS, get_smoke_config
     from repro_torch.launch.serve import default_smoke_model
@@ -2467,8 +2499,7 @@ def _lm_smoke_configs():
     out = []
     for c in [default_smoke_model()] + [get_smoke_config(a)
                                         for a in LM_ARCHS]:
-        out.append(dataclasses.replace(
-            c, **f32, **LM_PARITY_CHANGES.get(c.name, {})))
+        out.append(dataclasses.replace(c, **f32))
     return out
 
 
@@ -2516,6 +2547,7 @@ def lm_parity_phase(dev) -> dict:
     patch frontend's prefill also on a prompt with ``patch_embeds``)."""
     import numpy as np
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import init_params, prefill
     out = {}
@@ -2532,6 +2564,7 @@ def lm_parity_phase(dev) -> dict:
                 "patch_embeds": rng.standard_normal(
                     (1, cfg.n_patches, cfg.d_model)).astype(np.float32)})
         runs = []
+        ops.reset_launches()        # the card's run; the CPU's launches none
         for d in (dev, torch.device("cpu")):
             p = _tree_to(params, d)
             reqs = [Request(i, pr, 8) for i, pr in enumerate(prompts)]
@@ -2545,12 +2578,13 @@ def lm_parity_phase(dev) -> dict:
                          [r.cpu() for r in routes]))
         err = float((runs[0][2] - runs[1][2]).abs().max())
         out[cfg.name] = {"tokens": runs[0][0], "ticks": runs[0][1],
+                         "head_dim": cfg.hd, "launches": dict(ops.LAUNCHES),
+                         "kernel": "mamba_scan" if cfg.block_kind == "mamba1"
+                         else "flash_attention",
                          "tokens_equal_cpu": runs[0][:2] == runs[1][:2],
                          "prefill_logit_max_abs_err": err,
                          "max_abs_logit": float(runs[1][2].abs().max()),
                          "prefill_batches": len(batches)}
-        if cfg.name in LM_PARITY_CHANGES:
-            out[cfg.name]["changed"] = LM_PARITY_CHANGES[cfg.name]
         if cfg.is_moe:
             card, cpu = runs[0][3], runs[1][3]
             out[cfg.name]["routings"] = len(cpu)
@@ -2566,6 +2600,8 @@ def lm_parity_phase(dev) -> dict:
               f"{r['prefill_logit_max_abs_err']}")
         _need(r.get("expert_ids_equal_cpu", True),
               f"LM parity {name}: the card routes tokens to other experts")
+        _need(r["launches"].get(r["kernel"], 0) > 0,
+              f"LM parity {name}: the card's run launched no {r['kernel']}")
     return out
 
 
@@ -2708,7 +2744,10 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                                  (1, 40, 8, 512, 128, torch.float32),
                                  (1, 16, 16, 2048, 128, torch.bfloat16),
                                  (2, 32, 32, 2048, 64, torch.bfloat16),
-                                 (2, 14, 2, 2048, 64, torch.bfloat16)):
+                                 (2, 14, 2, 2048, 64, torch.bfloat16),
+                                 *((c[0], c[1], c[2], c[3], c[5],
+                                    getattr(torch, c[6]))
+                                   for c in D16_CASES)):
         q, do = (torch.randn((b, hq, s, d), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=g, device=dev).to(dt)
@@ -2765,7 +2804,7 @@ def lm_bwd_kernel_phase(dev) -> list[dict]:
                 **{k: main[k] for k in ("shape", "max_abs_err", "ms",
                                         "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-                "cases": runs})
+                "cases": runs, "head_dim_16": _d16_cases(runs)})
 
     # --- mamba_scan_bwd: (B, dtype) at falcon-mamba-7b's S, Di, N; the
     # first is the training path's microbatch (LM_TRAIN: 4 sequences in 2
@@ -3020,8 +3059,6 @@ def lm_train_parity_phase(dev) -> dict:
         r = {"loss_card": res[0][0], "loss_cpu": res[1][0],
              "grad_max_rel_err": grad_err, "launches": launches,
              "steps": steps}
-        if cfg.name in LM_PARITY_CHANGES:
-            r["changed"] = LM_PARITY_CHANGES[cfg.name]
         if cfg.is_moe:
             r["routings"] = len(routes[1])
             r["expert_ids_equal_cpu"] = _same_routes(*routes)
@@ -3939,13 +3976,17 @@ class _RecordServe:
         serve.prefill, serve.decode_step = self._saved
 
 
-def _tp_serve_cell(arch: str, dev) -> dict:
-    """Phase 32a: phase 15's cell of ``arch`` served without a mesh and
-    under a (1, 1) data×model mesh (one NCCL rank: the tensor-parallel
-    path with every collective), each after a warm-up: every logit of
-    the two runs compared, tokens/s, the collectives of a decode step."""
+def _mesh_serve_cell(arch: str, dev) -> dict:
+    """Phases 32a and 32e: phase 15's cell of ``arch`` served without a
+    mesh, under a (1, 1) data×model mesh in the tp layout (32a: the
+    tensor-parallel path with every collective) and in the fsdp layout
+    (32e: every layer gathered whole at use, the cache's rows over data),
+    one NCCL rank, each after a warm-up: every logit of each mesh run
+    against the run without one, tokens/s, the collectives of a decode
+    step → {"tp": 32a's record, "fsdp": 32e's}."""
     import numpy as np
     import torch
+    from repro_torch import dist
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
@@ -3962,9 +4003,9 @@ def _tp_serve_cell(arch: str, dev) -> dict:
                for n in lens]
     mesh = make_host_mesh((1, 1))
     runs = {}
-    for label in ("no_mesh", "mesh"):
-        ctx = mesh if label == "mesh" else _Null()
-        with ctx:
+    for label in ("no_mesh", "tp", "fsdp"):
+        ctx = _Null() if label == "no_mesh" else mesh
+        with ctx, dist.layout("tp" if label == "no_mesh" else label):
             ServeEngine(cfg, n_slots=n_slots, max_len=2560,
                         params=params).run(
                 [Request(i, q, 2) for i, q in enumerate(prompts)])
@@ -3976,39 +4017,47 @@ def _tp_serve_cell(arch: str, dev) -> dict:
             with _RecordServe() as rec:
                 stats = eng.run(reqs)
             torch.cuda.synchronize()
+        phase = "32e" if label == "fsdp" else "32a"
         _need(all(q.done and len(q.out) == max_new + 1 for q in reqs),
-              f"32a {arch} {label}: a request was not served in full")
+              f"{phase} {arch} {label}: a request was not served in full")
         runs[label] = {"stats": stats, "logits": rec.logits,
                        "collectives": rec.step_collectives,
                        "launches": dict(ops.LAUNCHES),
                        "tokens": [q.out for q in reqs]}
-    a, b = runs["no_mesh"], runs["mesh"]
-    _need(len(a["logits"]) == len(b["logits"]),
-          f"32a {arch}: {len(a['logits'])} calls without a mesh, "
-          f"{len(b['logits'])} with")
     kernel = "mamba_scan" if cfg.block_kind == "mamba1" else \
         "flash_attention"
-    out = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
-           "mesh": {"data": 1, "model": 1}, "prompt_lens": [int(n) for n
-                                                            in lens],
-           "calls": len(b["logits"]),
-           "logits": _same_or_close(b["logits"], a["logits"],
-                                    f"32a {arch} logits"),
-           "tokens_equal": a["tokens"] == b["tokens"],
-           "tokens_per_s_no_mesh": a["stats"]["tokens_per_s"],
-           "tokens_per_s_mesh": b["stats"]["tokens_per_s"],
-           "wall_s_no_mesh": a["stats"]["wall_s"],
-           "wall_s_mesh": b["stats"]["wall_s"],
-           "collectives_a_decode_step": b["collectives"],
-           "launches_mesh": {kernel: b["launches"][kernel]},
-           "launches_no_mesh": {kernel: a["launches"][kernel]}}
-    _need(out["tokens_equal"], f"32a {arch}: the mesh generated other "
-          "tokens")
-    _need(b["launches"][kernel] == a["launches"][kernel] > 0,
-          f"32a {arch}: {kernel} launched {b['launches'][kernel]} times "
-          f"under the mesh, {a['launches'][kernel]} without")
-    _need(sum(b["collectives"].values()) > 0,
-          f"32a {arch}: a decode step ran no collective")
+    a = runs["no_mesh"]
+    out = {}
+    for label, phase in (("tp", "32a"), ("fsdp", "32e")):
+        b = runs[label]
+        _need(len(a["logits"]) == len(b["logits"]),
+              f"{phase} {arch}: {len(a['logits'])} calls without a mesh, "
+              f"{len(b['logits'])} with")
+        r = {"reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+             "mesh": {"data": 1, "model": 1}, "layout": label,
+             "prompt_lens": [int(n) for n in lens],
+             "calls": len(b["logits"]),
+             "logits": _same_or_close(b["logits"], a["logits"],
+                                      f"{phase} {arch} logits"),
+             "tokens_equal": a["tokens"] == b["tokens"],
+             "tokens_per_s_no_mesh": a["stats"]["tokens_per_s"],
+             "tokens_per_s_mesh": b["stats"]["tokens_per_s"],
+             "wall_s_no_mesh": a["stats"]["wall_s"],
+             "wall_s_mesh": b["stats"]["wall_s"],
+             "collectives_a_decode_step": b["collectives"],
+             "launches_mesh": {kernel: b["launches"][kernel]},
+             "launches_no_mesh": {kernel: a["launches"][kernel]}}
+        _need(r["tokens_equal"], f"{phase} {arch}: the mesh generated "
+              "other tokens")
+        _need(b["launches"][kernel] == a["launches"][kernel] > 0,
+              f"{phase} {arch}: {kernel} launched {b['launches'][kernel]} "
+              f"times under the mesh, {a['launches'][kernel]} without")
+        _need(sum(b["collectives"].values()) > 0,
+              f"{phase} {arch}: a decode step ran no collective")
+        out[label] = r
+    _need(out["fsdp"]["logits"] == "bitwise",
+          f"32e {arch}: the fsdp layout's logits are not bitwise equal to "
+          "serving without a mesh")
     del params
     return out
 
@@ -4175,12 +4224,16 @@ def model_axis_phase(dev, report: dict) -> dict:
     out = {}
     dist.init_ranks("nccl")
     try:
-        out["serve"] = {a: _tp_serve_cell(a, dev) for a in TP_SERVE}
+        cells = {a: _mesh_serve_cell(a, dev) for a in TP_SERVE}
     finally:
         torch.distributed.destroy_process_group()
+    out["serve"] = {a: c["tp"] for a, c in cells.items()}
+    out["serve_fsdp"] = {a: c["fsdp"] for a, c in cells.items()}
     for a, r in out["serve"].items():
         print("model_axis serve", a, json.dumps(r, default=float),
               flush=True)
+    for a, r in out["serve_fsdp"].items():
+        print("fsdp_serve", a, json.dumps(r, default=float), flush=True)
     cell = report["mesh_train"]["qwen2.5-14b"]
     out["train"] = {
         "arch": "qwen2.5-14b", "loss_and_grad_norm":
@@ -4220,19 +4273,23 @@ def start_dryrun() -> list:
     """Phase 33a: the traced cells, one background process an entry of
     ``DRYRUN_JOBS``, CUDA hidden; ``dryrun_phase`` waits for them."""
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(arch, _dryrun_cmd(arch, shapes, "both"))
+            for arch, shapes in DRYRUN_JOBS]
+    jobs.append((f"{DRYRUN_FSDP[0]}_fsdp", _dryrun_cmd(
+        *DRYRUN_FSDP, "single", "--layout", "fsdp", "--tag", "fsdp")))
     procs = []
-    for arch, shapes in DRYRUN_JOBS:
-        log = open(DRYRUN_OUT / f"{arch}.log", "w")
-        procs.append((arch, subprocess.Popen(
-            _dryrun_cmd(arch, shapes, "both"), cwd=ROOT,
-            env=_dryrun_env(CUDA_VISIBLE_DEVICES=""), stdout=log,
-            stderr=subprocess.STDOUT), log))
+    for label, cmd in jobs:
+        log = open(DRYRUN_OUT / f"{label}.log", "w")
+        procs.append((label, subprocess.Popen(
+            cmd, cwd=ROOT, env=_dryrun_env(CUDA_VISIBLE_DEVICES=""),
+            stdout=log, stderr=subprocess.STDOUT), log))
     return procs
 
 
-def _dryrun_record(arch: str, shape: str, mesh: str) -> dict:
+def _dryrun_record(arch: str, shape: str, mesh: str, tag: str = "") -> dict:
     from repro_torch.launch.dryrun import _cell_name
-    name = _cell_name({"arch": arch, "shape": shape, "mesh": mesh})
+    name = _cell_name({"arch": arch, "shape": shape, "mesh": mesh,
+                       "tag": tag})
     return json.loads((DRYRUN_OUT / f"{name}.json").read_text())
 
 
@@ -4245,29 +4302,34 @@ def dryrun_phase(procs: list) -> dict:
         log.close()
         _need(rc == 0, f"the dry run of {arch} exited {rc} "
               f"(chiprun_out/dryrun/{arch}.log)")
-    for arch, shapes in DRYRUN_JOBS:
-        for shape in shapes.split(","):
-            for mesh in ("single", "multi"):
-                rec = _dryrun_record(arch, shape, mesh)
-                _need(rec["status"] == "ok", f"dry run {arch} × {shape} × "
-                      f"{mesh}: {rec.get('error')}")
-                rf = rec["roofline"]
-                cell = {"trace_s": rec["compile_s"],
-                        "flops": rf["hlo_flops_per_device"],
-                        "bytes": rf["hlo_bytes_per_device"],
-                        "collectives": {k: v for k, v in rec[
-                            "collectives"]["counts"].items() if v},
-                        "nvlink_bytes": rf["collective_bytes_nvlink"],
-                        "network_bytes": rf["collective_bytes_network"],
-                        "memory": rec["memory"],
-                        **{k: rf[k] for k in (
-                            "compute_s", "memory_s", "collective_s",
-                            "dominant", "useful_flops_ratio",
-                            "step_time_lower_bound_s")},
-                        "microbatches": rec.get("microbatches")}
-                out["cells"][f"{arch}|{shape}|{mesh}"] = cell
-                print("dryrun", arch, shape, mesh, json.dumps(cell),
-                      flush=True)
+    cells = [(arch, shape, mesh, "") for arch, shapes in DRYRUN_JOBS
+             for shape in shapes.split(",") for mesh in ("single", "multi")]
+    cells += [(DRYRUN_FSDP[0], shape, "single", "fsdp")
+              for shape in DRYRUN_FSDP[1].split(",")]
+    for arch, shape, mesh, tag in cells:
+        rec = _dryrun_record(arch, shape, mesh, tag)
+        _need(rec["status"] == "ok", f"dry run {arch} × {shape} × "
+              f"{mesh} {tag}: {rec.get('error')}")
+        _need(rec["layout"] == (tag or "tp"), f"dry run {arch} × "
+              f"{shape} × {mesh} {tag}: layout {rec['layout']}")
+        rf = rec["roofline"]
+        cell = {"trace_s": rec["compile_s"],
+                "flops": rf["hlo_flops_per_device"],
+                "bytes": rf["hlo_bytes_per_device"],
+                "collectives": {k: v for k, v in rec[
+                    "collectives"]["counts"].items() if v},
+                "nvlink_bytes": rf["collective_bytes_nvlink"],
+                "network_bytes": rf["collective_bytes_network"],
+                "memory": rec["memory"],
+                **{k: rf[k] for k in (
+                    "compute_s", "memory_s", "collective_s",
+                    "dominant", "useful_flops_ratio",
+                    "step_time_lower_bound_s")},
+                "microbatches": rec.get("microbatches")}
+        key = "|".join(x for x in (arch, shape, mesh, tag) if x)
+        out["cells"][key] = cell
+        print("dryrun", arch, shape, mesh, tag or "tp",
+              json.dumps(cell), flush=True)
     for (arch, shape), (band, kernels) in DRYRUN_PROFILE.items():
         t0 = time.perf_counter()
         r = subprocess.run(_dryrun_cmd(arch, shape, "single", "--profile",
@@ -4487,12 +4549,22 @@ def _phases(report: dict, dev, dryrun_procs: list, t_start: float) -> int:
                        for m, r in report[path].items()
                        if r["launches"].get(k["name"])}
                 for path in ("lm_serve", "lm_train")}
+        if "head_dim_16" in k:
+            # the D = 16 kernels' launches: the card's serving (phase 14)
+            # and training (phase 25) of the smoke config with head dim 16
+            k["head_dim_16"]["launches_by_path"] = {
+                path: report[path][D16_MODEL]["launches"].get(k["name"], 0)
+                for path in ("lm_parity", "lm_train_parity")}
+            _need(k["head_dim_16"]["launches_by_path"][
+                "lm_train_parity"] > 0, f"{k['name']} at D = 16 was not "
+                f"launched on {D16_MODEL}'s path")
     report["kernels"] = kernels
     # the Min-Max kernels also carry the plan of each shape they ran at,
     # the detection core's kernels their launches on each driver's path
     line = [{**{key: k[key] for key in KERNEL_KEYS},
              **{x: k[x] for x in ("plans", "launches_by_path",
-                                  "launches_by_model", "serving_shape")
+                                  "launches_by_model", "serving_shape",
+                                  "head_dim_16")
                 if x in k}}
             for k in kernels]
     report["seconds"] = time.perf_counter() - t_start

@@ -50,6 +50,13 @@
 // warp with shuffles and every thread keeps its rows' m, l and accumulator
 // in registers.
 //
+// Head sizes D = 16, 32, 64 and 128 are instantiated. At D = 16 a bf16 row
+// is 32 bytes, two 16-byte chunks: a K / V tile is 128 chunks (the last
+// threads of a 256-thread load idle), four rows share a 128-byte line (the
+// swizzle swaps the two chunks of rows 4-7 of every 8), Q K^T is one k16
+// step and P V two n8 tiles; the fp32 kernel's thread owns one output
+// column of its rows.
+//
 // Both: rows and columns past Sq / Sk (the ragged edge) are masked in the
 // kernel, for any Sq and Sk, causal with offset Sk - Sq; strided q / k / v /
 // out (last dim contiguous), so the model's (B, S, H, D) activations are
@@ -311,7 +318,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
   if constexpr (D / 8 >= 8) return r * D + ((c ^ (r & 7)) << 3);
-  else return r * D + ((c ^ ((r >> 1) & 3)) << 3);   // D = 32: 2 rows a line
+  else if constexpr (D == 32)   // 2 rows a 128-byte line, 4 chunks a row
+    return r * D + ((c ^ ((r >> 1) & 3)) << 3);
+  else   // D = 16: 4 rows a line, 2 chunks a row; rows r and r + 4 swap
+    return r * D + ((c ^ ((r >> 2) & 1)) << 3);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -359,16 +369,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // cp.async rows [row0, row0 + 64) of one (b, h) slice into a swizzled
-// tile; rows past n_rows are zero-filled.
+// tile; rows past n_rows are zero-filled. A tile of fewer 16-byte chunks
+// than threads (D = 16 under 256 threads) leaves the last threads idle.
 template <int D, int NT = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long s_stride, int row0,
                                           int n_rows) {
   constexpr int kChunks = D / 8;
-  static_assert(kBK * kChunks % NT == 0, "tile / thread split");
+  constexpr int kTotal = kBK * kChunks;
+  static_assert(kTotal % NT == 0 || NT % kTotal == 0, "tile / thread split");
 #pragma unroll
-  for (int j = 0; j < kBK * kChunks / NT; ++j) {
+  for (int j = 0; j < (kTotal + NT - 1) / NT; ++j) {
     const int i = threadIdx.x + j * NT;
+    if (kTotal < NT && i >= kTotal) break;
     const int r = i / kChunks;
     const int c = i % kChunks;
     const int row = row0 + r;
@@ -605,8 +618,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 //     (PERF.md). What separates it from its bound: dQ's recomputed S and
 //     dP (7 products where 5 would do), the softmax work between a
 //     consumer's products, and the pre-pass and combine launches.
-//   bf16, D 32: mma.sync kernels (tc:: below; 64-key tiles of 8 warps for
-//     dK / dV, key tiles slowest in the grid so that the heaviest start
+//   bf16, D 16 / 32: mma.sync kernels (tc:: below; 64-key tiles of 8 warps
+//     for dK / dV, key tiles slowest in the grid so that the heaviest start
 //     first; 4 warps a 64-row q tile for dQ).
 //   fp32: exact FMAs on the CUDA cores (1.175 ms for the same heads at
 //     512^2, against a 0.100 ms bound at the fp32 rate).
@@ -2145,6 +2158,8 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
              const long long* st, int causal, float scale,
              cudaStream_t stream) {
   switch (d) {
+    case 16: return launch<T, 16>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
+                                  causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
                                   causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
@@ -2160,6 +2175,8 @@ int launch_bf16(int d, const void* q, const void* k, const void* v,
                 int sk, const long long* st, int causal, float scale,
                 cudaStream_t stream) {
   switch (d) {
+    case 16: return tc::launch<16>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
+                                   causal, scale, stream);
     case 32: return tc::launch<32>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
                                    causal, scale, stream);
     case 64: return tc::launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, st,
@@ -2177,7 +2194,7 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
                  int hq, int hkv, int sq, int sk, int causal, float scale,
                  cudaStream_t stream, cudaEvent_t* ev) {
   if constexpr (sizeof(T) == 2) {
-    if constexpr (D != 32) {
+    if constexpr (D >= 64) {
       return -1;   // bf16 at D 64 / 128 runs the wgmma kernels
     } else {
       return tc::launch_bwd<D>(
@@ -2198,9 +2215,9 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
   }
 }
 
-// bf16 at D = 64 / 128 runs the wgmma kernels; fp32, and bf16 at D = 32,
-// the Dv pre-pass and the mma.sync / FMA kernels.
-bool uses_wgmma(bool bf16_in, int d) { return bf16_in && d != 32; }
+// bf16 at D = 64 / 128 runs the wgmma kernels; fp32, and bf16 at D = 16
+// and 32, the Dv pre-pass and the mma.sync / FMA kernels.
+bool uses_wgmma(bool bf16_in, int d) { return bf16_in && d >= 64; }
 
 template <typename T>
 int launch_bwd_t(int d, const void* q, const void* k, const void* v,
@@ -2208,7 +2225,7 @@ int launch_bwd_t(int d, const void* q, const void* k, const void* v,
                  void* dk, void* dv, float* scratch, const Strides* st, int b,
                  int hq, int hkv, int sq, int sk, int causal, float scale,
                  cudaStream_t stream, cudaEvent_t* ev) {
-  if (d != 32 && d != 64 && d != 128) return -1;
+  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
   constexpr bool kBf16 = sizeof(T) == 2;
   if (uses_wgmma(kBf16, d)) {
     using hop::bf16;
@@ -2229,6 +2246,9 @@ int launch_bwd_t(int d, const void* q, const void* k, const void* v,
       st[4], hq, sq, d, rows);
   if (ev) cudaEventRecord(ev[1], stream);
   switch (d) {
+    case 16: return launch_bwd_d<T, 16>(q, k, v, dout, lse, scratch, dq, dk,
+                                        dv, st, b, hq, hkv, sq, sk, causal,
+                                        scale, stream, ev);
     case 32: return launch_bwd_d<T, 32>(q, k, v, dout, lse, scratch, dq, dk,
                                         dv, st, b, hq, hkv, sq, sk, causal,
                                         scale, stream, ev);

@@ -36,7 +36,9 @@ The LM half (below the station half) runs one process a rank over
   ``current_mesh()`` reads it back.
 * ``layout`` / ``current_layout``, ``manual_axes`` / ``in_manual_region``,
   ``allow_uneven_sharding``, ``axis_size``, ``batch_axes``, ``dp_size``
-  and ``sanitize_spec`` are the reference's, name for name.
+  and ``sanitize_spec`` are the reference's, name for name;
+  ``replicated_rows`` marks batch axes whose ranks hold the same rows
+  (serving under fsdp), which ``live_batch_axes`` leaves out.
 * ``shard`` / ``shard_batch`` are placement: this rank's block of a
   global tensor under the sanitized spec (``x`` itself without a mesh);
   ``gather`` is the inverse. The reference's constraints only pin XLA's
@@ -222,6 +224,10 @@ _MANUAL: contextvars.ContextVar[frozenset] = contextvars.ContextVar(
 _UNEVEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "repro_torch_allow_uneven", default=False)
 
+# batch axes whose ranks hold the same rows (``replicated_rows``)
+_REPLICATED: contextvars.ContextVar[frozenset] = contextvars.ContextVar(
+    "repro_torch_replicated_rows", default=frozenset())
+
 # "tp" (default: tensor-parallel rules over 'model') or "fsdp" (pure data
 # parallelism over pod×data×model, parameters fully sharded)
 _LAYOUT: contextvars.ContextVar[str] = contextvars.ContextVar(
@@ -360,6 +366,20 @@ def in_manual_region() -> bool:
 
 
 @contextlib.contextmanager
+def replicated_rows(axes):
+    """Inside, the ranks along ``axes`` hold the same rows of the batch,
+    so ``live_batch_axes`` leaves them out: serving under the fsdp layout,
+    whose decode cache splits its batch over pod×data only (a bare
+    ``model`` entry of its rules drops), so that a ``model`` group's
+    ranks step the same rows. No axes: nothing changes."""
+    tok = _REPLICATED.set(_REPLICATED.get() | frozenset(axes))
+    try:
+        yield
+    finally:
+        _REPLICATED.reset(tok)
+
+
+@contextlib.contextmanager
 def allow_uneven_sharding():
     """Let a dim that the axes do not divide (but ≥ their size) shard:
     blocks of ⌈dim / n⌉, the last ones short or empty (XLA pads)."""
@@ -405,11 +425,12 @@ def batch_axes() -> tuple[str, ...]:
 
 
 def live_batch_axes() -> tuple[str, ...]:
-    """``batch_axes()`` without the manual ones: the axes whose ranks hold
-    other rows of the batch in this region (inside the pod-compressed
-    region a pod's ranks reduce among themselves only)."""
-    manual = _MANUAL.get()
-    return tuple(a for a in batch_axes() if a not in manual)
+    """``batch_axes()`` without the manual and the replicated ones: the
+    axes whose ranks hold other rows of the batch in this region (inside
+    the pod-compressed region a pod's ranks reduce among themselves only;
+    serving under fsdp splits the rows over pod×data only)."""
+    out = _MANUAL.get() | _REPLICATED.get()
+    return tuple(a for a in batch_axes() if a not in out)
 
 
 def dp_size() -> int:
@@ -430,19 +451,16 @@ def _entry_size(entry) -> int:
     return out
 
 
-def sanitize_spec(shape: Sequence[int], spec: Sequence,
-                  uneven: bool | None = None) -> tuple | None:
+def sanitize_spec(shape: Sequence[int], spec: Sequence) -> tuple | None:
     """The spec entries that exist on the mesh and divide their dim (None
     without a mesh), padded with None to ``len(shape)``: "vocab" is the
     model axis; a bare "model" drops under fsdp; axes missing from the
     mesh and manual axes drop; an entry that does not divide drops unless
-    uneven sharding is on (``uneven``, by default
-    ``allow_uneven_sharding``'s) and the dim is at least its size."""
+    ``allow_uneven_sharding`` is on and the dim is at least its size."""
     mesh = current_mesh()
     if mesh is None:
         return None
-    if uneven is None:
-        uneven = _UNEVEN.get()
+    uneven = _UNEVEN.get()
     out = []
     for dim, entry in zip(shape, spec):
         if entry is None:

@@ -50,11 +50,11 @@ is short of 1.5 waves; and a dQ kernel (one CTA per batch, q head and
 128-row block, K and V tiles streamed, S and dP computed again); key
 and q blocks are launched heaviest first. On an H100 80GB HBM3 at 700 W
 that takes 0.340 ms at the qwen shape, against 0.347 ms for
-``scaled_dot_product_attention``'s backward (PERF.md). bf16 at D = 32
-keeps the ``mma.sync`` kernels, fp32 the exact FMA ones. ``plain_bwd`` is
-the same FlashAttention-2 formulas in plain torch (P recomputed from the
-log-sum-exp, dS = P ∘ (dP − rowsum(dO ∘ O))); it is what the kernels are
-held against.
+``scaled_dot_product_attention``'s backward (PERF.md). bf16 at D = 16
+and 32 keeps the ``mma.sync`` kernels, fp32 the exact FMA ones.
+``plain_bwd`` is the same FlashAttention-2 formulas in plain torch (P
+recomputed from the log-sum-exp, dS = P ∘ (dP − rowsum(dO ∘ O))); it is
+what the kernels are held against.
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)     # head sizes the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)   # head sizes the kernel is instantiated for
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

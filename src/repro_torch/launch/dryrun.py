@@ -15,6 +15,11 @@ at the archs' published widths (nothing cut); the detection cell traces
 one rank's C / ranks chunks of ``detect_step_sharded`` (the chunks are
 independent, so the global flops are a rank's × ranks).
 
+``--layout fsdp`` traces the cells under the fsdp rules: training with
+the model axis a batch axis, serving with each layer gathered whole at
+use and the decode cache's rows over pod×data (``models.decoder``'s
+``_Serving``), the reference's ``--layout fsdp``.
+
 ``--profile`` runs the cell's rank block for real on the card besides
 (random values, the port's kernels, the collectives counted and not
 performed: no other rank exists): one warm-up step, then one step under
@@ -32,6 +37,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch command-r-35b \\
       --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+      --shape prefill_32k,decode_32k,long_500k --mesh both --layout fsdp
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-14b \\
       --shape train_4k --profile          # on the card
 """
@@ -454,13 +461,21 @@ def _cell_name(record: dict) -> str:
 
 
 def iter_cells(archs, shapes_arg, meshes):
+    """The (arch, shape, mesh) cells: ``["all"]`` takes each arch's own
+    shapes (the detection module's, an LM's ``shapes_for``); a list of
+    names takes those its kind defines (``LM_SHAPES`` for an LM, the
+    detection module's ``SHAPES``), so ``--arch all --shape
+    prefill_32k`` pairs no LM shape with the detection cell (the
+    reference lists such a pair and fails it on a KeyError)."""
     for arch in archs:
         if arch == "fast_seismic":
-            names = list(get_module(arch).SHAPES) if shapes_arg == ["all"] \
-                else shapes_arg
+            known = list(get_module(arch).SHAPES)
+            names = known if shapes_arg == ["all"] else [
+                s for s in shapes_arg if s in known]
         else:
             cfg = get_config(arch)
-            names = shapes_for(cfg) if shapes_arg == ["all"] else shapes_arg
+            names = shapes_for(cfg) if shapes_arg == ["all"] else [
+                s for s in shapes_arg if s in LM_SHAPES]
         for shp in names:
             for mk in meshes:
                 yield arch, shp, mk

@@ -23,8 +23,10 @@ cross-entropy; nothing is gathered over ``model``. Under the fsdp layout
 (the model axis a batch axis) each layer gathers its blocks at use.
 Serving under a mesh takes the global batch, each rank its rows over
 pod×data, and keeps the decode cache as ``cache_sharding_rules`` lays it
-out: the KV caches' sequence split over ``model`` (flash-decode), the
-SSM states' channels too; both entries return whole logits.
+out: under tp the KV caches' sequence split over ``model``
+(flash-decode), the SSM states' channels too; under fsdp, where a bare
+``model`` entry drops, the cache whole but for its rows, which a model
+group's ranks compute alike. Both entries return whole logits.
 """
 from __future__ import annotations
 
@@ -222,11 +224,11 @@ def param_plans(cfg: ModelConfig) -> dict | None:
     blocks, so a leaf split only over ``model`` is not gathered, and the
     routed experts under expert parallelism stay local; the routed
     experts without it are gathered whole (each rank routes to every
-    expert). None without a mesh."""
+    expert), and so is every leaf under fsdp. None without a mesh."""
     if dist.current_mesh() is None:
         return None
     tp = dist.tensor_parallel().mesh is not None
-    keep = L.expert_parallel(cfg) and "model" not in dist.live_batch_axes()
+    keep = tp and L.expert_parallel(cfg)
 
     def walk(path, shapes, rules):
         if isinstance(shapes, tuple):
@@ -568,13 +570,16 @@ def _cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int
 def cache_specs(cfg: ModelConfig, batch_size: int, max_len: int
                 ) -> dict | None:
     """Each cache leaf's sanitized ``cache_sharding_rules`` spec on the
-    current mesh (None without one). A dim is split only where the axes
-    divide it: the cache does not take ``allow_uneven_sharding``, so a
-    rank's block of the sequence starts at rank × its length."""
+    current mesh (None without one), as ``sanitize_spec`` takes the
+    layout and ``allow_uneven_sharding``: under fsdp the bare ``model``
+    entries drop (the sequence and the SSM channels stay whole); with
+    the flag a dim the axes do not divide (but at least their size) is
+    split too, rank k's block ``dist.block_range``'s k-th of ⌈dim /
+    ranks⌉, the last ones short or empty."""
     if dist.current_mesh() is None:
         return None
     rules = cache_sharding_rules(cfg)
-    return {k: dist.sanitize_spec(shp, rules[k], uneven=False)
+    return {k: dist.sanitize_spec(shp, rules[k])
             for k, (shp, _) in _cache_shapes(cfg, batch_size,
                                              max_len).items()}
 
@@ -657,21 +662,44 @@ def _logits(x: torch.Tensor, lm_head: torch.Tensor,
 class _Serving:
     """One serving call's layout under a mesh: the rows of the global
     batch this rank takes (the cache rules' pod×data entry), the cache's
-    specs, the plans of the parameters it gathers, the model axis."""
+    specs, the plans of the parameters it gathers, the model axis.
+
+    Under the tp layout the model axis is compute: the layers work on
+    the rank's heads and channels, the KV caches' sequence and the SSM
+    states' channels are the rank's blocks. Under the fsdp layout the
+    reference's serving computes the same function with the model axis
+    a batch axis: every parameter is gathered whole at use by
+    ``param_plans`` (each layer's blocks as the layer runs; ``lm_head``
+    whole too, so each rank computes whole logits for its rows where the
+    reference splits them by vocab: the same values), and the cache
+    rules' bare ``model`` entries drop, so the cache's rows go over
+    pod×data and its sequence and SSM channels stay whole. The ranks of
+    one model group then hold the same rows, and each computes them:
+    the group's work is redundant but for the routed experts under
+    expert parallelism (a model axis that divides ``n_experts``), which
+    the group's ranks divide and sum with one all_reduce. A call runs
+    inside ``dist.replicated_rows(("model",))`` there (``rows_ctx``).
+
+    Under ``allow_uneven_sharding`` the rows and the cache take the
+    flag as ``sanitize_spec`` does: blocks of ⌈dim / ranks⌉ from
+    ``dist.block_range``, the last ones short or empty."""
 
     def __init__(self, cfg: ModelConfig, b: int, max_len: int):
         self.mesh = dist.current_mesh()
-        if self.mesh is not None and dist.current_layout() != "tp":
-            raise ValueError("serving under a mesh runs the tp layout (the "
-                             "decode cache's batch is split over pod×data "
-                             "only); fsdp is a training layout")
         self.b = b
+        self.max_len = max_len
         self.uniform = cfg.uniform_decode_pos
         self.specs = cache_specs(cfg, b, max_len)
         self.plans = param_plans(cfg)
         self.tp = dist.tensor_parallel()
-        rows = dist.sanitize_spec((b,), (("pod", "data"),), uneven=False)
+        rows = dist.sanitize_spec((b,), (("pod", "data"),))
         self.rows = rows[0] if rows else None
+
+    def rows_ctx(self):
+        """The context a call runs in: under fsdp the model ranks hold
+        the same rows (``dist.replicated_rows``)."""
+        fsdp = self.mesh is not None and dist.current_layout() == "fsdp"
+        return dist.replicated_rows(("model",) if fsdp else ())
 
     def take(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global (B, ...) input."""
@@ -699,16 +727,22 @@ class _Serving:
         rows'."""
         return cache["pos"] if self.uniform else pos
 
-    def seq_split(self, name: str) -> bool:
-        """The cache leaf's sequence dim is this rank's block."""
-        return self.specs is not None and self.specs[name][2] is not None
+    def seq_range(self, name: str) -> tuple[int, int] | None:
+        """(first position, the sequence's length) of this rank's block
+        of the cache leaf's sequence dim; None where it is whole."""
+        e = None if self.specs is None else self.specs[name][2]
+        if e is None:
+            return None
+        lo, _ = dist.block_range(self.max_len, self.mesh.size(e),
+                                 self.mesh.coord(e))
+        return lo, self.max_len
 
     def seq_block(self, name: str, kv: torch.Tensor) -> torch.Tensor:
         """This rank's block of the sequence of a (B, S, ...) prefill
         k / v, by the cache leaf's spec."""
-        if not self.seq_split(name):
+        e = None if self.specs is None else self.specs[name][2]
+        if e is None:
             return kv
-        e = self.specs[name][2]
         lo, hi = dist.block_range(kv.shape[1], self.mesh.size(e),
                                   self.mesh.coord(e))
         return kv[:, lo:hi]
@@ -783,14 +817,23 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig
     decode cache → (last-position logits (B, V) fp32, cache with pos =
     S). Runs where the parameters lie.
 
-    Under a mesh (the tp layout) ``batch`` is the global batch and the
-    parameters this rank's blocks: the rank prefills its rows, its heads
-    and channels; its cache is its blocks by ``cache_sharding_rules``
-    (the prompt's k / v of every kv head, its block of the sequence) and
-    the logits are whole (B, V) on every rank."""
+    Under a mesh ``batch`` is the global batch and the parameters this
+    rank's blocks: the rank prefills its rows; its cache is its blocks by
+    ``cache_specs`` and the logits are whole (B, V) on every rank. Under
+    the tp layout the rank computes its heads and channels, and its cache
+    holds the prompt's k / v of every kv head over its block of the
+    sequence; under fsdp it gathers each layer whole and its cache holds
+    its rows whole (``_Serving``)."""
+    tokens = batch["tokens"]
+    sv = _Serving(cfg, *tokens.shape)
+    with sv.rows_ctx():
+        return _prefill(params, batch, cfg, sv)
+
+
+def _prefill(params: dict, batch: dict, cfg: ModelConfig,
+             sv: _Serving) -> tuple[torch.Tensor, dict]:
     tokens = batch["tokens"]
     b, s = tokens.shape
-    sv = _Serving(cfg, b, s)
     params = _gather_top(params, sv.plans)
     local = {k: sv.take(v) for k, v in batch.items()}
     x = _embed_inputs(params, local, cfg)
@@ -819,15 +862,15 @@ def _decode_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
     global batch's first one (``cache["pos"]``)."""
     if cfg.block_kind == "attn":
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
-        split = sv.seq_split("k")
+        seq = sv.seq_range("k")
         if _parallel(cfg):
             x, _ = L.parallel_attn_mlp_block(lp["attn"], lp["mlp"], x, cfg,
                                              None, cache=kv, pos=pos,
-                                             seq_split=split,
+                                             seq=seq,
                                              write_pos=sv.write_pos(cache,
                                                                     pos))
             return x
-        x, _ = L.attention_block_decode(lp["attn"], x, kv, pos, cfg, split,
+        x, _ = L.attention_block_decode(lp["attn"], x, kv, pos, cfg, seq,
                                         sv.write_pos(cache, pos))
         return _ffn(lp, x, cfg)[0]       # the MoE aux is dropped
     step = S.mamba1_decode if cfg.block_kind == "mamba1" else S.mamba2_decode
@@ -847,13 +890,20 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     pos + 1). The cache's tensors are updated in place (the reference
     returns new arrays): the returned dict shares them.
 
-    Under a mesh (the tp layout) ``tokens`` and ``pos`` are the global
-    batch's, the cache this rank's blocks (``init_cache`` /
-    ``place_cache``): the rank steps its rows; attention is the
-    flash-decode over its block of the sequence with every q head, and
-    the logits are whole (B, V) on every rank."""
-    b = tokens.shape[0]
-    sv = _Serving(cfg, b, _cache_len(cache))
+    Under a mesh ``tokens`` and ``pos`` are the global batch's, the
+    cache this rank's blocks (``init_cache`` / ``place_cache``): the
+    rank steps its rows, and the logits are whole (B, V) on every rank.
+    Under the tp layout attention is the flash-decode over the rank's
+    block of the sequence with every q head; under fsdp each layer is
+    gathered whole and attends over the rank's rows' whole cache."""
+    sv = _Serving(cfg, tokens.shape[0], _cache_len(cache))
+    with sv.rows_ctx():
+        return _decode_step(params, cache, tokens, cfg, sv)
+
+
+def _decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig, sv: _Serving
+                 ) -> tuple[torch.Tensor, dict]:
     params = _gather_top(params, sv.plans)
     pos = sv.take(cache["pos"])
     x = L.embed_tokens(params["embed"], sv.take(tokens), cfg)
@@ -866,7 +916,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             x, _ = L.attention_block_decode(
                 params["shared_attn"], x,
                 {"k": cache["sa_k"][g], "v": cache["sa_v"][g]}, pos, cfg,
-                sv.seq_split("sa_k"), sv.write_pos(cache, pos))
+                sv.seq_range("sa_k"), sv.write_pos(cache, pos))
             if "shared_mlp" in params:
                 x = L.mlp_block(params["shared_mlp"], x, cfg)
             g += 1

@@ -203,7 +203,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``seq_lo`` (the flash-decode of the sequence-sharded cache), and q
     has every head. The combine is three all_reduces over the ranks: the
     max of the scores, Σ exp(s − m), and — once the weights are rounded
-    with the global m and l — the weighted sum of V."""
+    with the global m and l — the weighted sum of V. A block may be
+    short or empty (uneven sharding: blocks of ⌈S / ranks⌉): an empty
+    one adds nothing to any of the three."""
     tp = tp or dist.TensorParallel()
     b, one, hq, hd = q.shape
     hkv = k_cache.shape[2]
@@ -212,7 +214,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_cache.float()) / math.sqrt(hd)
     ki = seq_lo + torch.arange(k_cache.shape[1], device=q.device)
     s = s.masked_fill(ki > pos[:, None, None, None, None], -1e30)
-    m = tp.reduce(s.amax(-1, keepdim=True), torch.distributed.ReduceOp.MAX)
+    mx = s.amax(-1, keepdim=True) if s.shape[-1] else \
+        s.new_full((*s.shape[:-1], 1), -1e30)
+    m = tp.reduce(mx, torch.distributed.ReduceOp.MAX)
     e = torch.exp(s - m)
     den = tp.reduce(e.sum(-1, keepdim=True))
     w = (e / den).to(v_cache.dtype).float()
@@ -265,11 +269,13 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     at pos[b], and rows whose position is past the cache are dropped, as
     the reference's scatter drops them. Positions stay on the device (no
     host sync). ``seq_lo`` / ``seq_len``: the cache is the block from
-    ``seq_lo`` of a sequence of ``seq_len``; the clamp and the drop hold
-    for the whole sequence, and only the rank whose block holds the
-    position writes."""
+    ``seq_lo`` of a sequence of ``seq_len`` (short or empty where uneven
+    sharding cut it); the clamp and the drop hold for the whole sequence,
+    and only the rank whose block holds the position writes."""
     new = new.to(cache.dtype)
     n = cache.shape[1]
+    if n == 0:
+        return
     last = (n if seq_len is None else seq_len) - 1
     whole = seq_lo == 0 and last == n - 1
     if cfg.uniform_decode_pos:
@@ -293,27 +299,27 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 def attention_decode_partial(params: dict, h: torch.Tensor, cache: dict,
                              pos: torch.Tensor, cfg: ModelConfig,
                              tp: dist.TensorParallel,
-                             seq_split: bool = False,
+                             seq: tuple[int, int] | None = None,
                              write_pos: torch.Tensor | None = None
                              ) -> torch.Tensor:
     """A decode step's attention as this rank's partial sum of the output
     projection (B, 1, D); writes the new k / v into ``cache`` in place.
     Every q head (the rank's, gathered), the new k / v of every kv head,
-    written by the rank whose block holds the position; ``seq_split``:
-    the cache is this rank's block of the sequence (the flash-decode
-    combine), else whole. ``write_pos``: the positions ``write_kv`` takes
+    written by the rank whose block holds the position; ``seq`` (its
+    first position, the sequence's length): the cache is this rank's
+    block of the sequence (the flash-decode combine), else (None) whole.
+    ``write_pos``: the positions ``write_kv`` takes
     where they are not ``pos`` (the global batch's, whose first one the
     uniform mode writes at, when ``pos`` is this rank's rows)."""
     q, k_new, v_new, _ = qkv_partial(params, h, cfg, pos[:, None], tp,
                                      whole_kv=True)
     q = tp.gather(q, 2, cfg.n_heads) if tp.size > 1 else q
-    n = cache["k"].shape[1]
-    lo, total = (tp.rank * n, tp.size * n) if seq_split else (0, n)
+    lo, total = (0, cache["k"].shape[1]) if seq is None else seq
     for name, new in (("k", k_new), ("v", v_new)):
         write_kv(cache[name], new, pos if write_pos is None else write_pos,
                  cfg, lo, total)
     o = decode_attention(q, cache["k"], cache["v"], pos,
-                         tp if seq_split else None, lo)
+                         None if seq is None else tp, lo)
     hlo, hhi = tp.block(cfg.n_heads)
     wo = tp.part(params["wo"], 0, cfg.n_heads)
     return torch.einsum("bshk,hkd->bsd", o[:, :, hlo:hhi],
@@ -322,16 +328,16 @@ def attention_decode_partial(params: dict, h: torch.Tensor, cache: dict,
 
 def attention_block_decode(params: dict, x: torch.Tensor, cache: dict,
                            pos: torch.Tensor, cfg: ModelConfig,
-                           seq_split: bool = False,
+                           seq: tuple[int, int] | None = None,
                            write_pos: torch.Tensor | None = None):
     """Decode-step attention block; updates the KV cache in place.
 
     x: (B, 1, D); cache: {"k": (B, S, Hkv, hd), "v": ...}; pos: (B,) int32
-    (``seq_split`` / ``write_pos``: see ``attention_decode_partial``).
+    (``seq`` / ``write_pos``: see ``attention_decode_partial``).
     """
     tp = dist.tensor_parallel()
     h = tp.sum_grad(rms_norm(x, params["ln"], cfg.rms_eps))
-    o = attention_decode_partial(params, h, cache, pos, cfg, tp, seq_split,
+    o = attention_decode_partial(params, h, cache, pos, cfg, tp, seq,
                                  write_pos)
     return x + tp.sum(o), cache
 
@@ -373,7 +379,7 @@ def parallel_partial(attn_params: dict, mlp_params: dict, h: torch.Tensor,
                      cfg: ModelConfig, positions: torch.Tensor | None,
                      tp: dist.TensorParallel, *, cache: dict | None = None,
                      pos: torch.Tensor | None = None,
-                     seq_split: bool = False,
+                     seq: tuple[int, int] | None = None,
                      write_pos: torch.Tensor | None = None,
                      return_kv: bool = False):
     """This rank's partial sum of the parallel block's two branches,
@@ -384,7 +390,7 @@ def parallel_partial(attn_params: dict, mlp_params: dict, h: torch.Tensor,
     kv = None
     if cache is not None:
         ao = attention_decode_partial(attn_params, h, cache, pos, cfg, tp,
-                                      seq_split, write_pos)
+                                      seq, write_pos)
     else:
         ao = attention_partial(attn_params, h, cfg, positions, tp,
                                return_kv=return_kv)
@@ -400,7 +406,7 @@ def parallel_attn_mlp_block(attn_params: dict, mlp_params: dict,
                             cache: dict | None = None,
                             pos: torch.Tensor | None = None,
                             return_kv: bool = False,
-                            seq_split: bool = False,
+                            seq: tuple[int, int] | None = None,
                             write_pos: torch.Tensor | None = None):
     """Command-r-style parallel block: y = x + (attn(ln(x)) + mlp(ln(x))),
     one norm (the attention's ``ln``) for both branches, their sum added
@@ -413,7 +419,7 @@ def parallel_attn_mlp_block(attn_params: dict, mlp_params: dict,
     tp = dist.tensor_parallel()
     h = tp.sum_grad(rms_norm(x, attn_params["ln"], cfg.rms_eps))
     out = parallel_partial(attn_params, mlp_params, h, cfg, positions, tp,
-                           cache=cache, pos=pos, seq_split=seq_split,
+                           cache=cache, pos=pos, seq=seq,
                            write_pos=write_pos, return_kv=return_kv)
     if return_kv:
         out, kv = out
@@ -518,26 +524,30 @@ def _moe_ep(params: dict, h2: torch.Tensor, cfg: ModelConfig):
     """The routed experts under expert parallelism → (y (T, D), this
     data shard's aux). Model rank m holds experts m·E/M … (m+1)·E/M − 1
     (``wg`` etc. of E/M experts; a whole E is cut to them). Every model
-    rank routes the same tokens — the data shard's: under fsdp, where the
-    model ranks hold other rows, they are gathered first — so the input
-    and the router are replicated over ``model`` and their gradients are
-    summed over it (the reference's ``shard_map`` transpose). Under tp
-    the input comes through "f" already and y is this rank's experts'
-    partial sum, which the caller sums over ``model`` with the shared
-    experts' (one all_reduce, identity backward); under fsdp a
-    reduce_scatter to the rank's rows, with an all_gather backward."""
+    rank routes the same tokens — the data shard's: under fsdp training,
+    where the model ranks hold other rows, they are gathered first — so
+    the input and the router are replicated over ``model`` and their
+    gradients are summed over it (the reference's ``shard_map``
+    transpose). Under tp the input comes through "f" already and y is
+    this rank's experts' partial sum, which the caller sums over
+    ``model`` with the shared experts' (one all_reduce, identity
+    backward); under fsdp training a reduce_scatter to the rank's rows,
+    with an all_gather backward. Serving under fsdp, whose model ranks
+    hold the same rows (``dist.replicated_rows``), routes them as they
+    are and sums the ranks' experts with one all_reduce over ``model``."""
     mesh = dist.current_mesh()
     m = mesh.shape["model"]
     e_loc = cfg.n_experts // m
     e_base = mesh.coords["model"] * e_loc
     rows = "model" in dist.live_batch_axes()
+    tp = dist.tensor_parallel().mesh is not None
     router = params["router"]
     if rows:        # fsdp: the gather's backward sums over model
         t = h2.shape[0]
         h2 = dist.gather_param(h2, dist.Plan(
             mesh, (t * m, h2.shape[1]), ("model", None),
             frozenset({"model"})))
-    else:           # tp: the step sums over the batch axes only
+    elif tp:        # tp: the step sums over the batch axes only
         router = dist.sum_backward(router, ("model",))
     top_e, top_w, aux = _route(h2, router, cfg)
     wg, wu, wd = (params[k] if params[k].shape[0] == e_loc
@@ -546,6 +556,8 @@ def _moe_ep(params: dict, h2: torch.Tensor, cfg: ModelConfig):
     y = _moe_local(h2, top_e, top_w, wg, wu, wd, e_base, cfg)
     if rows:        # this rank's rows of the experts' sum
         return dist.reduce_scatter_rows(y, ("model",)), aux
+    if not tp:      # the same rows on every model rank: their sum
+        return dist.sum_forward(y, ("model",)), aux
     return y, aux
 
 

@@ -6,8 +6,10 @@ under the tp layout. It reads the reference's inputs (numpy, pickled by
 the parent) and runs the port's side of every check: serving (``prefill``
 and ``decode_step`` with the cache in this rank's blocks), the
 tensor-parallel loss and gradients, the collective and kernel counts of
-the split, and the uneven heads. It pickles its results for the parent,
-which holds them to the reference's one-device results."""
+the split, and the uneven heads; then serving again under the fsdp
+layout, and the ragged prompts' serving under ``allow_uneven_sharding``
+(the cache's sequence in blocks of ⌈10 / 4⌉). It pickles its results for
+the parent, which holds them to the reference's one-device results."""
 import dataclasses
 import pickle
 import time
@@ -28,19 +30,14 @@ def _tree_np(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def _slices(x: torch.Tensor, spec, mesh) -> list:
-    """[lo, hi) of each dim of this rank's block of a cache leaf whose
-    global shape the block's dims times the split's size give."""
+def _slices(shape, spec, mesh) -> list:
+    """[lo, hi) of each dim of this rank's block of a cache leaf of
+    global ``shape`` under its sanitized ``spec``."""
     from repro_torch import dist
-    out = []
-    for d, n in enumerate(x.shape):
-        e = spec[d] if spec is not None else None
-        if e is None:
-            out.append((0, int(n)))
-        else:
-            full = int(n) * mesh.size(e)
-            out.append(dist.block_range(full, mesh.size(e), mesh.coord(e)))
-    return out
+    return [(0, int(n)) if spec is None or spec[d] is None else
+            dist.block_range(int(n), mesh.size(spec[d]),
+                             mesh.coord(spec[d]))
+            for d, n in enumerate(shape)]
 
 
 def _serve(cfg, np_params: dict, case: dict, mesh) -> dict:
@@ -63,11 +60,14 @@ def _serve(cfg, np_params: dict, case: dict, mesh) -> dict:
     for t in case["steps"]:
         lg, cache = D.decode_step(params, cache, torch.as_tensor(t), cfg)
         logits.append(_np(lg))
-    b = cache["pos"].shape[0]
-    specs = D.cache_specs(cfg, b, D._cache_len(cache))
+    b, n = cache["pos"].shape[0], D._cache_len(cache)
+    specs = D.cache_specs(cfg, b, n)
+    shapes = D._cache_shapes(cfg, b, n)
     blocks = {k: (_np(v) if v.is_floating_point() else v.numpy(),
-                  _slices(v, specs[k], mesh), specs[k])
+                  _slices(shapes[k][0], specs[k], mesh), specs[k])
               for k, v in cache.items()}
+    for k, (block, cut, _) in blocks.items():
+        assert block.shape == tuple(hi - lo for lo, hi in cut), k
     return {"logits": logits, "cache": blocks}
 
 
@@ -199,6 +199,27 @@ def run(rank: int, init_method: str, in_path: str, out_dir: str) -> None:
             for label, case in inp["uneven_serve"].items():
                 out["serve", arch, label, True] = _serve(
                     cfgs[arch], inp["params"][arch], case, mesh)
+            for arch in inp["uneven_cache"]:
+                for uniform in (True, False):
+                    cfg = dataclasses.replace(cfgs[arch],
+                                              uniform_decode_pos=uniform)
+                    out["uneven_cache", arch, "ragged", uniform] = _serve(
+                        cfg, inp["params"][arch],
+                        inp["serve"][arch]["ragged"], mesh)
+            for uniform in (True, False):
+                arch = "qwen2.5-14b"
+                cfg = dataclasses.replace(cfgs[arch],
+                                          uniform_decode_pos=uniform)
+                out["uneven_cache", arch, "short", uniform] = _serve(
+                    cfg, inp["params"][arch], inp["uneven_short"], mesh)
+        with dist.layout("fsdp"):
+            for arch, cases in inp["serve"].items():
+                for label, case in cases.items():
+                    for uniform in (True, False):
+                        cfg = dataclasses.replace(
+                            cfgs[arch], uniform_decode_pos=uniform)
+                        out["fsdp", arch, label, uniform] = _serve(
+                            cfg, inp["params"][arch], case, mesh)
     out["seconds"] = time.perf_counter() - t0
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)

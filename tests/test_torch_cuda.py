@@ -928,6 +928,35 @@ def test_flash_attention_kernel_takes_model_layout(cuda):
                                        v.transpose(1, 2).contiguous()))
 
 
+# head dim 16 (command-r-35b-smoke's 128 / 8): a bf16 row is two 16-byte
+# chunks; fp32 and bf16, causal and not, GQA groups 1 to 5, ragged tiles,
+# Sq < Sk, one query row, and the smoke model's heads at a 2048 prefill
+_D16_CASES = [
+    (2, 8, 2, 128, 128, 16, torch.float32, True),
+    (1, 5, 1, 77, 200, 16, torch.float32, False),
+    (1, 5, 1, 1000, 1000, 16, torch.float32, True),
+    (2, 8, 2, 128, 128, 16, torch.bfloat16, True),
+    (1, 5, 1, 1000, 1000, 16, torch.bfloat16, True),
+    (1, 12, 3, 200, 333, 16, torch.bfloat16, True),
+    (2, 6, 3, 77, 77, 16, torch.bfloat16, False),
+    (1, 4, 1, 1, 50, 16, torch.bfloat16, True),
+    (1, 8, 2, 2048, 2048, 16, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dt,causal", _D16_CASES)
+def test_flash_attention_head_dim_16(cuda, b, hq, hkv, sq, sk, d, dt,
+                                     causal):
+    g = torch.Generator().manual_seed(16 + sq)
+    q = torch.randn((b, hq, sq, d), generator=g).to(cuda, dt)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(cuda, dt)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    _lm_close(got, ref.flash_attention(q, k, v, causal))
+
+
 @pytest.mark.parametrize("b,s,di,n,dt", [
     (2, 16, 8, 4, torch.float32), (1, 33, 24, 5, torch.float32),
     (3, 8, 128, 16, torch.float32), (1, 100, 300, 16, torch.bfloat16),
@@ -1079,6 +1108,15 @@ def test_flash_attention_bwd_wgmma_tile_edges(cuda, b, hq, hkv, sq, sk, d,
                                               causal):
     _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, torch.bfloat16, causal,
                   sq * 7 + sk)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dt,causal", _D16_CASES)
+def test_flash_attention_bwd_head_dim_16(cuda, b, hq, hkv, sq, sk, d, dt,
+                                         causal):
+    """The backward at D = 16: the Dv pre-pass and the mma.sync (bf16) or
+    FMA (fp32) dK / dV and dQ kernels, whose 256-thread tile loads leave
+    half the threads idle."""
+    _fa_bwd_check(cuda, b, hq, hkv, sq, sk, d, dt, causal, 160 + sq)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

@@ -11,9 +11,8 @@ Then one gloo rank in this process (a ``FileStore`` under the test's
 temporary directory): the ZeRO step on a 1 × 1 mesh equals the step
 without a mesh bit for bit, and so do ``moe_block`` under expert
 parallelism at ``model`` = 1 and serving (``prefill`` and
-``decode_step``) — the one-rank runs the card makes with NCCL
-(``chip_smoke.py`` phases 31–32); serving under the fsdp layout
-raises."""
+``decode_step``, under the tp and the fsdp layout) — the one-rank runs
+the card makes with NCCL (``chip_smoke.py`` phases 31–32)."""
 import _torch_threads  # noqa: F401  (one torch thread a process)
 import contextlib
 import dataclasses
@@ -261,6 +260,13 @@ def test_one_rank_serving_equals_serving_without_a_mesh(one_rank, arch):
                               param_dtype="float32",
                               compute_dtype="float32",
                               cache_dtype="float32")
+    _serve_with_and_without_a_mesh(one_rank, cfg, "tp")
+
+
+def _serve_with_and_without_a_mesh(one_rank, cfg, layout: str):
+    """``prefill`` of two 12-token prompts then three ``decode_step`` s
+    without a mesh and under the one-rank mesh in ``layout``: every
+    logit and the cache bit for bit."""
     params = decoder.init_params(cfg, 0, "cpu")
     rng = np.random.default_rng(5)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 12)),
@@ -269,7 +275,8 @@ def test_one_rank_serving_equals_serving_without_a_mesh(one_rank, arch):
                              dtype=torch.int32) for _ in range(3)]
     runs = []
     for use_mesh in (False, True):
-        with one_rank if use_mesh else contextlib.nullcontext():
+        with one_rank if use_mesh else contextlib.nullcontext(), \
+                dist.layout(layout):
             p = decoder.place_params(params, cfg)
             logits, cache = decoder.prefill(p, {"tokens": toks}, cfg)
             out = [logits]
@@ -282,14 +289,19 @@ def test_one_rank_serving_equals_serving_without_a_mesh(one_rank, arch):
     _equal_trees(runs[0][1], runs[1][1])
 
 
-def test_serving_under_the_fsdp_layout_raises(one_rank):
-    """Serving under a mesh runs the tp layout: the decode cache's batch
-    is split over pod×data only, where fsdp would split it over model
-    too."""
-    cfg = configs.get_smoke_config("qwen2.5-14b")
-    params = decoder.init_params(cfg, 0, "cpu")
-    with one_rank, dist.layout("fsdp"), \
-            pytest.raises(ValueError, match="tp layout"):
-        decoder.prefill(params, {"tokens": torch.ones((1, 4),
-                                                      dtype=torch.int32)},
-                        cfg)
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "deepseek-moe-16b",
+                                  "falcon-mamba-7b", "zamba2-1.2b",
+                                  "command-r-35b"])
+def test_one_rank_fsdp_serving_equals_serving_without_a_mesh(one_rank,
+                                                             arch):
+    """Serving under the fsdp layout on a 1 × 1 mesh (each layer's
+    blocks gathered whole at use, the cache's rows over data, MoE expert
+    parallelism summing the one rank's experts) against serving without
+    a mesh, bit for bit, for five families (dense GQA, MoE, Mamba1, the
+    Zamba2 hybrid, the parallel block): the one-rank run the card makes
+    with NCCL (``chip_smoke.py`` phase 32e)."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              param_dtype="float32",
+                              compute_dtype="float32",
+                              cache_dtype="float32")
+    _serve_with_and_without_a_mesh(one_rank, cfg, "fsdp")

@@ -31,12 +31,25 @@ its one-device ``prefill`` / ``decode_step`` / ``lm_loss``.
   ``mamba_scan`` on Di/M channels.
 - Uneven heads: 6 heads on ``model`` 4 under ``allow_uneven_sharding``
   (blocks of 2, 2, 2, 0), loss, gradients and serving logits as above.
+- Serving under the fsdp layout: the same cases, each rank's cache laid
+  out by the reference's sanitized fsdp rules (batch over data, the
+  sequence and the SSM channels whole: a bare ``model`` drops), its
+  blocks, ``pos`` and every step's logits held as above; the MoE routes
+  each data shard's rows with its experts split over ``model`` and
+  summed, against the reference's one-device logits (never a reference
+  fsdp run: its expert-parallel branch adds other rows' outputs there).
+- The decode cache under ``allow_uneven_sharding``: the 10-token prompts
+  of the four archs with a KV cache on ``model`` 4, the sequence in
+  ``dist.block_range`` blocks of 3, 3, 3, 1, and a 5-token prompt of
+  qwen2.5-14b's (2, 2, 1 and an empty block), both position modes;
+  logits and blocks as above.
 """
 import _torch_threads  # noqa: F401  (one torch thread a process)
 import dataclasses
 import functools
 import pickle
 import time
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -46,13 +59,19 @@ import torch.multiprocessing as mp
 
 import _torch_dist_tp_ranks as ranks
 from repro import configs as jconfigs
+from repro import dist as jdist
 from repro.models import ModelConfig as JConfig
 from repro.models import decoder as jdec
+from repro_torch.models import decoder as tdec
+from repro_torch.models.config import ModelConfig as TConfig
 
 DEADLINE_S = 300
 SERVE = ("qwen2.5-14b", "falcon-mamba-7b", "deepseek-moe-16b",
          "command-r-35b", "zamba2-1.2b")
 TRAIN = ("falcon-mamba-7b", "command-r-35b", "zamba2-1.2b")
+# the archs whose ragged prompts are served with allow_uneven_sharding
+UNEVEN_CACHE = ("qwen2.5-14b", "deepseek-moe-16b", "command-r-35b",
+                "zamba2-1.2b")
 # a 1-layer dense LM whose heads and kv heads both split over model 4
 DENSE = dict(name="tp", n_layers=1, d_model=64, n_heads=8, n_kv_heads=4,
              d_ff=128, vocab_size=256, attn_q_block=16, attn_kv_block=16,
@@ -115,9 +134,13 @@ def _inputs() -> dict:
     uneven_serve = {"prefill": {"tokens": _toks(rng, (4, 16)),
                                 "steps": [_toks(rng, (4, 1))
                                           for _ in range(2)]}}
+    # 5 positions on model 4 under uneven sharding: blocks 2, 2, 1, 0
+    uneven_short = {"tokens": _toks(rng, (4, 5)),
+                    "steps": [_toks(rng, (4, 1)) for _ in range(2)]}
     return {"configs": cfgs, "params": params, "batches": batches,
             "serve": serve, "train": TRAIN, "split": split,
-            "uneven_serve": uneven_serve}
+            "uneven_serve": uneven_serve, "uneven_cache": UNEVEN_CACHE,
+            "uneven_short": uneven_short}
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,6 +188,11 @@ def _reference(inp: dict) -> dict:
     for label, case in inp["uneven_serve"].items():
         out["serve", "uneven", label, True] = _ref_serve(
             cfgs["uneven"], inp["params"]["uneven"], case)
+    for uniform in (True, False):
+        out["serve", "qwen2.5-14b", "short", uniform] = _ref_serve(
+            dataclasses.replace(cfgs["qwen2.5-14b"],
+                                uniform_decode_pos=uniform),
+            inp["params"]["qwen2.5-14b"], inp["uneven_short"])
     for arch in TRAIN + ("uneven",):
         out["train", arch] = _value_and_grad(cfgs[arch], inp["params"][arch],
                                              inp["batches"][arch])
@@ -226,10 +254,10 @@ def _serve_keys(inp):
         ("uneven", label, True) for label in inp["uneven_serve"]]
 
 
-def _check_serving(res, ref, key):
+def _check_serving(res, ref, key, kind="serve"):
     want_logits, want_cache = ref[("serve",) + key]
     for out in res:
-        got = out[("serve",) + key]
+        got = out[(kind,) + key]
         assert len(got["logits"]) == len(want_logits)
         for i, (g, w) in enumerate(zip(got["logits"], want_logits)):
             np.testing.assert_allclose(g, w, atol=2e-4, rtol=0,
@@ -243,7 +271,7 @@ def _check_serving(res, ref, key):
                 continue
             np.testing.assert_allclose(
                 block, w.astype(np.float32), rtol=0,
-                atol=1e-5 * max(float(np.abs(w).max()), 1.0),
+                atol=1e-5 * max(float(np.abs(w).max(initial=0.0)), 1.0),
                 err_msg=f"{key} {name}")
 
 
@@ -337,3 +365,90 @@ def test_uneven_heads(run):
     _assert_grads(res[0]["train", "uneven"]["grads"], grads, 3e-4)
     for label in inp["uneven_serve"]:
         _check_serving(res, ref, ("uneven", label, True))
+
+
+class _FakeMesh:
+    axis_names = ("data", "model")
+    empty = False
+    shape = dict(zip(axis_names, ranks.MESH))
+
+
+def _reference_specs(cfg: dict, b: int, max_len: int, layout: str,
+                     uneven: bool) -> dict:
+    """The reference's sanitized ``cache_sharding_rules`` of each cache
+    leaf on the (2, 4) mesh in ``layout``, with or without uneven
+    sharding (the leaves' shapes are the port's ``_cache_shapes``, which
+    ``test_torch_models.py`` holds to the reference's cache)."""
+    shapes = tdec._cache_shapes(TConfig(**cfg), b, max_len)
+    rules = jdec.cache_sharding_rules(JConfig(**cfg))
+    toks = (jdist._LAYOUT.set(layout), jdist._UNEVEN.set(uneven))
+    try:
+        with mock.patch.object(jdist, "current_mesh", lambda: _FakeMesh):
+            return {k: tuple(jdist.sanitize_spec(shp, rules[k]))
+                    for k, (shp, _) in shapes.items()}
+    finally:
+        jdist._LAYOUT.reset(toks[0])
+        jdist._UNEVEN.reset(toks[1])
+
+
+@pytest.mark.parametrize("arch", SERVE)
+def test_fsdp_serving_matches_one_device(run, arch):
+    res, ref, inp = run
+    for key in _serve_keys(inp):
+        if key[0] == arch:
+            _check_serving(res, ref, key, "fsdp")
+
+
+def test_fsdp_serving_cache_layout(run):
+    """Under fsdp every leaf's spec is the reference's sanitized fsdp
+    rule: the batch rows over data, the sequence and the SSM channels
+    whole on every rank (the four model ranks of a data coordinate hold
+    the same rows), ``pos`` whole."""
+    res, _, inp = run
+    for out in res:
+        c = out["coords"]
+        for key, got in out.items():
+            if key[0] != "fsdp":
+                continue
+            arch, cache = key[1], got["cache"]
+            kv = [n for n in ("k", "sa_k") if n in cache]
+            max_len = cache[kv[0]][1][2][1] if kv else 0
+            want = _reference_specs(inp["configs"][arch], 4, max_len,
+                                    "fsdp", False)
+            for name, (block, cut, spec) in cache.items():
+                assert spec == want[name], (key, name)
+                if name == "pos":
+                    continue
+                assert spec[1] == "data" and cut[1] == (2 * c["data"],
+                                                        2 * c["data"] + 2)
+                assert all(e is None for i, e in enumerate(spec) if i != 1)
+
+
+def test_uneven_serving_cache(run):
+    """With ``allow_uneven_sharding`` a 10-position cache on 4 model ranks
+    is split in ``block_range``'s blocks (3, 3, 3, 1), and qwen2.5-14b's
+    5-position one in blocks of 2, 2, 1 and 0 (the last rank's block
+    empty), by the reference's sanitized rules with the flag; each
+    step's logits and the cache blocks equal the reference's one-device
+    ones."""
+    res, ref, inp = run
+    cases = [(arch, "ragged", 10) for arch in UNEVEN_CACHE]
+    cases.append(("qwen2.5-14b", "short", 5))
+    for out in res:
+        c = out["coords"]
+        for arch, label, n in cases:
+            b = -(-n // MODEL)
+            lo = min(b * c["model"], n)
+            for uniform in (True, False):
+                key = (arch, label, uniform)
+                _check_serving([out], ref, key, "uneven_cache")
+                got = out[("uneven_cache",) + key]["cache"]
+                want = _reference_specs(inp["configs"][arch], 4, n, "tp",
+                                        True)
+                for name in ("k", "v", "sa_k", "sa_v"):
+                    if name not in got:
+                        continue
+                    block, cut, spec = got[name]
+                    assert spec == want[name] and spec[2] == "model"
+                    assert cut[2] == (lo, min(lo + b, n))
+                    assert block.shape[2] == cut[2][1] - cut[2][0]

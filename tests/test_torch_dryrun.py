@@ -150,6 +150,23 @@ def test_iter_cells_and_the_cli_list_give_the_references_68(reference,
     assert printed == reference["cells"]
 
 
+def test_a_list_of_shapes_pairs_each_arch_with_its_kinds_shapes():
+    """``--shape prefill_32k,decode_32k,long_500k`` with ``--arch all``:
+    each LM arch × the three × both meshes (60 cells), none for the
+    detection arch, whose shapes are its own; a detection shape pairs
+    with the detection arch only."""
+    names = ["prefill_32k", "decode_32k", "long_500k"]
+    cells = list(dryrun.iter_cells(configs.ALL_ARCHS, names,
+                                   ["single", "multi"]))
+    assert cells == [(a, s, m) for a in configs.ALL_ARCHS
+                     if a != "fast_seismic" for s in names
+                     for m in ("single", "multi")]
+    assert len(cells) == 60
+    assert list(dryrun.iter_cells(configs.ALL_ARCHS, ["station_month"],
+                                  ["single"])) == [
+        ("fast_seismic", "station_month", "single")]
+
+
 def test_pick_microbatches_model_flops_and_cell_names(reference):
     for key, want in reference["mb"].items():
         arch, name, dp = key.split("|")
@@ -420,6 +437,11 @@ _TABLE_BOUNDS = [
      "sfu"),
     ("flash_attention_bwd", lambda f: cost.flash_attention_bwd(
         1, 40, 8, 2048, 2048, 128, torch.bfloat16), 0.1086, "operations"),
+    # head dim 16 in bf16: the exponentials, one a causal pair, bound it
+    ("flash_attention_d16", lambda f: cost.flash_attention(
+        1, 8, 2, 2048, 2048, 16, torch.bfloat16), 0.004014, "sfu"),
+    ("flash_attention_bwd_d16", lambda f: cost.flash_attention_bwd(
+        1, 8, 2, 2048, 2048, 16, torch.bfloat16), 0.004014, "sfu"),
     ("mamba_scan_bwd", lambda f: cost.mamba_scan_bwd(
         2, 2048, 8192, 16, torch.float32), 0.2210, "bytes"),
 ]
@@ -486,10 +508,11 @@ def _smoke(monkeypatch):
             v, seq_len=128 if k == "long_500k" else 64, global_batch=16))
 
 
-def _trace(world, n, rank, shape, arch, shape_name, overrides=None):
+def _trace(world, n, rank, shape, arch, shape_name, overrides=None,
+           layout="tp"):
     world(n, rank)
     mesh = make_host_mesh(shape)
-    with dist.layout("tp"):
+    with dist.layout(layout):
         low, cfg, spec, extra = dryrun.lower_lm_cell(
             arch, shape_name, mesh, "masked", 2, cfg_overrides=overrides)
         return low, low.analyze()
@@ -532,6 +555,31 @@ def test_a_cells_ranks_add_up_to_the_one_rank_cell(world, monkeypatch,
         kflops += sum(k["flops"] for k in st.kernels.values())
     assert dots == one.dot_flops
     assert kflops == sum(k["flops"] for k in one.kernels.values())
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+def test_fsdp_serving_cells_trace_and_their_ranks_add_up(world, monkeypatch,
+                                                        shape_name):
+    """The smoke arch's serving cells under the fsdp layout: the (1, 1)
+    cell and each rank of (2, 4) trace, and the ranks' dot flops add up
+    to the one rank's the way the layout divides the work: the rows over
+    data, every parameter gathered whole at use, so the four model ranks
+    of a data coordinate compute the same rows (each the same dots) and
+    the two data coordinates' dots add up to the (1, 1) cell's; each rank
+    gathers its parameters over ``model`` (``param_all_gather``)."""
+    _smoke(monkeypatch)
+    over = {"n_heads": 8, "n_kv_heads": 4, "d_model": 256}
+    _, one = _trace(world, 1, 0, (1, 1), "qwen2.5-14b", shape_name, over,
+                    layout="fsdp")
+    by_data = {0: [], 1: []}
+    for r in range(8):
+        _, st = _trace(world, 8, r, (2, 4), "qwen2.5-14b", shape_name,
+                       over, layout="fsdp")
+        assert st.coll_counts["all-gather"] > 0
+        by_data[r // 4].append(st.dot_flops)
+    for dots in by_data.values():
+        assert len(set(dots)) == 1
+    assert by_data[0][0] + by_data[1][0] == one.dot_flops
 
 
 def test_a_full_width_cell_traces_end_to_end(tmp_path):

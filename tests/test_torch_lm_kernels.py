@@ -32,6 +32,7 @@ def _qkv(rng, b, hq, hkv, sq, sk, d):
     (2, 4, 2, 128, 128, 64),
     (1, 8, 1, 64, 64, 32),
     (2, 4, 4, 8, 128, 64),     # decode-ish: short q against long cache
+    (2, 8, 2, 128, 128, 16),   # command-r-35b-smoke's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas(rng, b, hq, hkv, sq, sk, d,
@@ -104,7 +105,10 @@ _KERNEL_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
     (1, 5, 1, 125, 125, 128, torch.bfloat16, True),
     (1, 5, 1, 256, 256, 128, torch.float32, True),
     # the card test's non-causal case: small max|plain| against max|v|
-    (2, 6, 3, 77, 77, 128, torch.bfloat16, False)])
+    (2, 6, 3, 77, 77, 128, torch.bfloat16, False),
+    # head dim 16 (command-r-35b-smoke's heads at chip_smoke's 2048 / 8)
+    (1, 8, 2, 256, 256, 16, torch.bfloat16, True),
+    (1, 8, 2, 256, 256, 16, torch.float32, True)])
 def test_kernel_numerics_stay_within_the_card_tolerance(
         b, hq, hkv, sq, sk, d, dtype, causal):
     """The bf16 kernel rounds P to bf16 before P·V; by design that stays
@@ -159,7 +163,8 @@ def _emulate_bwd(q, k, v, do, causal):
     # lengths 2048 → 256, causal; Sq < Sk; the non-causal card case
     (1, 5, 1, 256, 256, 128, True),
     (1, 5, 1, 129, 256, 64, True),
-    (2, 6, 3, 77, 77, 128, False)])
+    (2, 6, 3, 77, 77, 128, False),
+    (1, 8, 2, 256, 256, 16, True)])        # head dim 16
 def test_bwd_kernel_numerics_stay_within_the_card_tolerance(
         b, hq, hkv, sq, sk, d, causal):
     """The bf16 backward rounds P and dS to bf16 before their products and
