@@ -8,7 +8,9 @@ segment reductions become scatters over a segment-id vector. All values
 stay int32, so wrap-around matches the reference bit for bit.
 ``align_streamed`` is the host-side external merge (paper §7.2) for
 triplet sets larger than memory: numpy, spill files and a heap merge, a
-copy of the reference's.
+copy of the reference's. While a ``torch.profiler`` records,
+``merge_channels``, ``cluster_station`` and ``associate_network`` are
+each its annotation ``align.<name>`` (``obsv.spans.traced``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.core.lsh import INVALID, Pairs
+from repro_torch.obsv import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,7 @@ def _sort_triplets(dt, idx1, sim, valid):
     return _lex_sort(k1, k2, sim, valid.to(torch.int32))
 
 
+@spans.traced("align.merge_channels")
 def merge_channels(triplets: Sequence[tuple], threshold: int) -> Pairs:
     """Sum similarity of identical (dt, idx1) across channels; threshold.
 
@@ -90,6 +94,7 @@ def merge_channels(triplets: Sequence[tuple], threshold: int) -> Pairs:
                  sim=torch.where(keep, tot, 0), valid=keep)
 
 
+@spans.traced("align.cluster_station")
 def cluster_station(pairs: Pairs, cfg: AlignConfig) -> Events:
     """Cluster triplets along diagonals into candidate events (§7.1/7.2):
     per-diagonal gap clustering, then one adjacent-diagonal merge pass over
@@ -138,6 +143,7 @@ def cluster_station(pairs: Pairs, cfg: AlignConfig) -> Events:
                   valid=keep)
 
 
+@spans.traced("align.associate_network")
 def associate_network(events: Sequence[Events], cfg: AlignConfig,
                       n_stations: int, with_onsets: bool = False) -> dict:
     """Group per-station events by (dt, onset); require ≥ min_stations.

@@ -25,6 +25,7 @@ import torch
 from repro_torch import utils
 from repro_torch.kernels import minmax_hash as _mm
 from repro_torch.kernels import ops
+from repro_torch.obsv import spans
 
 INVALID = 2**31 - 1
 
@@ -289,20 +290,32 @@ def occurrence_filter(pairs: Pairs, n_fp: int, frac: float,
 def search(packed, cfg: LSHConfig, valid=None, device=None
            ) -> tuple[Pairs, dict]:
     """Packed fingerprints (N, D/32) → similar pairs + search statistics
-    (0-d tensors, as the reference returns them)."""
-    packed = utils.placed(packed, device)
-    n = packed.shape[0]
-    if valid is not None:
-        valid = utils.placed(valid, packed.device)
-    mp = hash_mappings(32 * packed.shape[1], cfg, packed.device)
-    sigs = signatures(packed, mp, cfg, valid=valid)
-    pairs = candidate_pairs(sigs, cfg)
-    stats = {"pre_filter_pairs": pairs.count()}
-    if cfg.occurrence_frac > 0:
-        pairs, excluded = occurrence_filter(pairs, n, cfg.occurrence_frac)
-        stats["excluded_fingerprints"] = excluded.sum()
-    stats["pairs"] = pairs.count()
-    stats.update(bucket_stats(sigs))
+    (0-d tensors, as the reference returns them).
+
+    While a ``torch.profiler`` records, the call is its annotation
+    ``lsh.search`` (``obsv.spans.bridge``), with the stages
+    ``lsh.signatures``, ``lsh.candidates`` (``candidate_pairs`` and its
+    multiplicity sort), ``lsh.occurrence_filter`` and
+    ``lsh.bucket_stats``."""
+    with spans.bridge("lsh.search"):
+        packed = utils.placed(packed, device)
+        n = packed.shape[0]
+        if valid is not None:
+            valid = utils.placed(valid, packed.device)
+        with spans.bridge("lsh.signatures"):
+            mp = hash_mappings(32 * packed.shape[1], cfg, packed.device)
+            sigs = signatures(packed, mp, cfg, valid=valid)
+        with spans.bridge("lsh.candidates"):
+            pairs = candidate_pairs(sigs, cfg)
+            stats = {"pre_filter_pairs": pairs.count()}
+        if cfg.occurrence_frac > 0:
+            with spans.bridge("lsh.occurrence_filter"):
+                pairs, excluded = occurrence_filter(pairs, n,
+                                                    cfg.occurrence_frac)
+                stats["excluded_fingerprints"] = excluded.sum()
+        stats["pairs"] = pairs.count()
+        with spans.bridge("lsh.bucket_stats"):
+            stats.update(bucket_stats(sigs))
     return pairs, stats
 
 
@@ -393,10 +406,12 @@ def bucket_stats(sigs: torch.Tensor) -> dict:
     }
 
 
+@spans.traced("lsh.verify_jaccard")
 def verify_jaccard(packed: torch.Tensor, pairs: Pairs) -> torch.Tensor:
     """Exact Jaccard of each valid pair's packed fingerprints, 0 elsewhere:
     one ``ops.jaccard_popcount`` call with a station axis of 1 (the valid
-    mask and the gathers are fused into it; no host sync)."""
+    mask and the gathers are fused into it; no host sync). Annotation
+    ``lsh.verify_jaccard`` of a running profiler."""
     return ops.jaccard_popcount(packed[None], pairs.idx1[None],
                                 pairs.idx2[None], pairs.valid[None])[0]
 

@@ -103,6 +103,7 @@ class QueryRequest:
     t_submit: float = 0.0
     t_admit: float = 0.0          # dequeued into a slot
     t_done: float = 0.0
+    t_traced: float = 0.0         # submit on the tracer's clock
 
     @property
     def queue_wait_s(self) -> float:
@@ -270,6 +271,7 @@ class ServeDetectEngine:
         at once with ``outcome="rejected"``."""
         now = self.clock()
         req.t_submit = now
+        req.t_traced = self.telemetry.tracer.clock()
         if len(self.queue) >= self.max_queue:
             req.done = True
             req.outcome = "rejected"
@@ -325,40 +327,59 @@ class ServeDetectEngine:
         most one batched ``_serve_step`` over every active slot (one
         device→host copy of its match tables), and complete requests whose
         last block was answered. Returns the slots served; an idle tick
-        returns 0 without assembling a batch or launching anything."""
-        if self.state is not None:
-            self._admit()
-        active = [s for s in range(self.n_slots)
-                  if self.slot_req[s] is not None]
-        self.ticks += 1
-        self.telemetry.record_serve_tick(len(active), len(self.queue))
-        if not active:
+        returns 0 without assembling a batch, launching anything or
+        opening a span.
+
+        A dispatched tick is the tracer's ``serve.tick`` span (``tick``:
+        the dispatch number, ``slots``: the active slots), with the
+        children ``serve.admit``, ``serve.assemble`` (the slot batch and
+        masks stacked and put on the device), ``serve.step`` (the step
+        enqueued), ``serve.fetch`` (the one device→host copy, which waits
+        for the device) and ``serve.unpack`` (match lists, completions)."""
+        if self.state is None or not (self.queue or self.active()):
+            self.ticks += 1
+            self.telemetry.record_serve_tick(0, len(self.queue))
             return 0
-        batch = np.stack([
-            self.slot_blocks[s][0][0] if self.slot_req[s] is not None
-            else self._zero_block for s in range(self.n_slots)])
-        slot_valid = np.stack([
-            self.slot_blocks[s][0][1] if self.slot_req[s] is not None
-            else self._zero_mask for s in range(self.n_slots)])
-        ids, sims = _serve_step(
-            self.state, torch.as_tensor(batch, device=self.device),
-            self.med, self.mad, self.mappings,
-            torch.as_tensor(slot_valid, device=self.device),
-            self.cfg.fingerprint, self.cfg.lsh, self.top_k, self.max_pairs)
-        self.dispatches += 1
-        ids_h, sims_h = torch.stack([ids, sims]).cpu().numpy()  # (S, slots, k)
-        for slot in active:
-            req = self.slot_req[slot]
-            for station in range(self.n_stations):
-                keep = sims_h[station, slot] > 0
-                req.matches.extend(
-                    (station, int(i), int(s))
-                    for i, s in zip(ids_h[station, slot][keep],
-                                    sims_h[station, slot][keep]))
-            req.ticks += 1
-            self.slot_blocks[slot].pop(0)
-            if not self.slot_blocks[slot]:
-                self._complete(slot)
+        tr = self.telemetry.tracer
+        with tr.span("serve.tick", tick=self.dispatches) as attrs:
+            with tr.span("serve.admit"):
+                self._admit()
+            active = [s for s in range(self.n_slots)
+                      if self.slot_req[s] is not None]
+            attrs["slots"] = len(active)
+            self.ticks += 1
+            self.telemetry.record_serve_tick(len(active), len(self.queue))
+            with tr.span("serve.assemble"):
+                batch = np.stack([
+                    self.slot_blocks[s][0][0] if self.slot_req[s] is not None
+                    else self._zero_block for s in range(self.n_slots)])
+                slot_valid = np.stack([
+                    self.slot_blocks[s][0][1] if self.slot_req[s] is not None
+                    else self._zero_mask for s in range(self.n_slots)])
+                batch = torch.as_tensor(batch, device=self.device)
+                slot_valid = torch.as_tensor(slot_valid, device=self.device)
+            with tr.span("serve.step"):
+                ids, sims = _serve_step(
+                    self.state, batch, self.med, self.mad, self.mappings,
+                    slot_valid, self.cfg.fingerprint, self.cfg.lsh,
+                    self.top_k, self.max_pairs)
+            self.dispatches += 1
+            with tr.span("serve.fetch"):
+                # (S, slots, k) each
+                ids_h, sims_h = torch.stack([ids, sims]).cpu().numpy()
+            with tr.span("serve.unpack"):
+                for slot in active:
+                    req = self.slot_req[slot]
+                    for station in range(self.n_stations):
+                        keep = sims_h[station, slot] > 0
+                        req.matches.extend(
+                            (station, int(i), int(s))
+                            for i, s in zip(ids_h[station, slot][keep],
+                                            sims_h[station, slot][keep]))
+                    req.ticks += 1
+                    self.slot_blocks[slot].pop(0)
+                    if not self.slot_blocks[slot]:
+                        self._complete(slot)
         return len(active)
 
     def _complete(self, slot: int) -> None:
@@ -372,6 +393,13 @@ class ServeDetectEngine:
         self.lat["latency_s"].append(req.latency_s)
         self.telemetry.record_serve_done(req.queue_wait_s, req.service_s,
                                          req.latency_s)
+        # on the tracer's clock, whatever the engine's; a request is served
+        # in every dispatch from its admission on
+        tr = self.telemetry.tracer
+        last = self.dispatches - 1
+        tr.record("serve.request", req.t_traced, tr.clock() - req.t_traced,
+                  rid=req.rid, queue_wait_s=req.queue_wait_s,
+                  first_tick=last - req.ticks + 1, last_tick=last)
 
     def drain(self) -> None:
         """Tick until every admitted request completes."""
@@ -722,6 +750,7 @@ def main(argv=None):
         stats["located"] = located_summary
     if args.metrics_every:
         stats["metrics"] = det.metrics_snapshot()
+    det.telemetry.tracer.flush()        # the serving ticks' spans too
     print("RESULT " + json.dumps(stats))
     return stats
 

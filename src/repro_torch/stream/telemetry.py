@@ -25,7 +25,8 @@ PyTorch-port counterpart of ``repro.stream.telemetry``. One
   through the same registry (``record_serve_*``): admission outcomes
   (``serve_requests_total{outcome=accepted|served|shed}``), per-tick
   queue-depth and slot gauges, and the queue-wait / service / latency
-  histograms; ``serve_view()`` is their summary.
+  histograms; ``serve_view()`` is their summary. The engine's ticks are
+  spans of the hub's tracer.
 * **location tier** — ``record_locate`` counts each migration-stack pass
   (groups in, located detections out, moveout rejections, the stack's
   wall); ``locate_view`` is their summary, all 0 without a location tier.

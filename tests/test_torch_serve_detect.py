@@ -299,6 +299,95 @@ def test_idle_ticks_do_no_host_work(corpus, monkeypatch):
     assert reg.total("serve_dispatches_total") == 0
 
 
+TICK_CHILDREN = ["serve.admit", "serve.assemble", "serve.step",
+                 "serve.fetch", "serve.unpack"]
+
+
+def test_tick_spans_and_request_records(corpus, tmp_path, monkeypatch):
+    """Under a CPU profiler: one ``serve.tick`` a dispatch with its five
+    children in order, one ``serve.request`` record a served request over
+    the dispatches that held it, and the match lists of an engine whose
+    tracer writes no records."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obsv.spans import SpanTracer
+    plain = _requests(corpus, 5)
+    _engine(corpus, n_slots=2).run(plain)
+    eng = _engine(corpus, n_slots=2)
+    eng.telemetry.tracer = SpanTracer(jsonl_path=str(tmp_path / "s.jsonl"))
+    held = []
+    real = tserve._serve_step
+
+    def step(*a):
+        held.append({r.rid for r in eng.slot_req if r is not None})
+        return real(*a)
+
+    monkeypatch.setattr(tserve, "_serve_step", step)
+    reqs = _requests(corpus, 5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run(reqs)
+        assert eng.tick() == 0                      # idle: no span
+    eng.telemetry.tracer.close()
+    assert [r.matches for r in reqs] == [r.matches for r in plain]
+    n = eng.dispatches
+    assert n == len(held) > 1 and eng.ticks == n + 1
+
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    ev = sorted((e for e in json.loads(trace.read_text())["traceEvents"]
+                 if e.get("cat") == "user_annotation"
+                 and e["name"].startswith("serve.")), key=lambda e: e["ts"])
+    ticks = [e for e in ev if e["name"] == "serve.tick"]
+    assert len(ticks) == n
+    for t in ticks:
+        kids = [e["name"] for e in ev if e is not t
+                and t["ts"] <= e["ts"] <= t["ts"] + t["dur"]]
+        assert kids == TICK_CHILDREN
+
+    recs = [json.loads(x) for x in
+            (tmp_path / "s.jsonl").read_text().splitlines()]
+    tick_recs = [r for r in recs if r["name"] == "serve.tick"]
+    assert [(r["tick"], r["slots"]) for r in tick_recs] == \
+        [(i, len(h)) for i, h in enumerate(held)]
+    for r in recs:
+        if r["name"] in TICK_CHILDREN:
+            parent = next(t for t in tick_recs if t["id"] == r["parent"])
+            assert r["path"] == "serve.tick/" + r["name"]
+            assert parent["ts"] <= r["ts"]
+    done = {r["rid"]: r for r in recs if r["name"] == "serve.request"}
+    assert sorted(done) == [r.rid for r in reqs]
+    for req in reqs:
+        rec = done[req.rid]
+        at = [i for i, h in enumerate(held) if req.rid in h]
+        assert (rec["first_tick"], rec["last_tick"]) == (at[0], at[-1])
+        assert at == list(range(at[0], at[-1] + 1))
+        assert rec["dur_s"] == pytest.approx(req.latency_s, abs=1e-3)
+        assert rec["queue_wait_s"] == req.queue_wait_s
+        assert rec["parent"] is None
+
+
+def test_request_records_keep_the_tracers_clock(corpus, tmp_path):
+    """An engine on a clock of its own writes ``serve.request`` on the
+    tracer's clock, where its ``serve.tick`` records lie."""
+    from repro_torch.obsv.spans import SpanTracer
+    fake = iter(range(1, 10**6))
+    eng = _engine(corpus, n_slots=2, clock=lambda: float(next(fake)))
+    eng.telemetry.tracer = SpanTracer(jsonl_path=str(tmp_path / "s.jsonl"))
+    reqs = _requests(corpus, 3)
+    eng.run(reqs)
+    eng.telemetry.tracer.close()
+    recs = [json.loads(x) for x in
+            (tmp_path / "s.jsonl").read_text().splitlines()]
+    ticks = [r for r in recs if r["name"] == "serve.tick"]
+    done = [r for r in recs if r["name"] == "serve.request"]
+    assert len(done) == len(reqs) and ticks
+    for r in done:
+        first = ticks[r["first_tick"]]
+        last = ticks[r["last_tick"]]
+        assert r["ts"] <= first["ts"]
+        assert last["ts"] <= r["ts"] + r["dur_s"] <= \
+            last["ts"] + last["dur_s"]
+
+
 def test_lazy_state_queues_until_first_refresh(corpus):
     eng = tserve.ServeDetectEngine(corpus["cfg"], corpus["scfg"], n_slots=2,
                                    max_queue=8, device="cpu")

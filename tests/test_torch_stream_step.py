@@ -365,23 +365,19 @@ def test_span_tracer_matches_reference(tmp_path):
                 pass
         with tr.span("ingest"):
             pass
-        with tr.profile():              # a no-op without profile_dir
-            pass
         tr.close()
         lines = [json.loads(x) for x in
                  (tmp_path / name).read_text().splitlines()]
-        recs.append(([{k: v for k, v in r.items() if k != "ts"}
-                      for r in lines], tr.summary(), tr.total_s("ingest")))
-    assert recs[0] == recs[1]
+        recs.append((lines, tr.summary(), tr.total_s("ingest")))
+    # the reference's keys but ``ts``, with its values; the port's own
+    # (``id``, ``parent``) are held in tests/test_torch_spans.py
+    (ref, *ref_tot), (port, *port_tot) = recs
+    assert len(port) == len(ref) and port_tot == ref_tot
+    for p, r in zip(port, ref):
+        assert {k: p[k] for k in r if k != "ts"} == \
+            {k: v for k, v in r.items() if k != "ts"}
     assert recs[1][1] == {"ingest": {"count": 2, "total_s": 4.25},
                           "fused_step": {"count": 1, "total_s": 0.5}}
-
-
-def test_span_tracer_profile_writes_a_trace(tmp_path):
-    tr = tspans.SpanTracer(profile_dir=str(tmp_path / "prof"))
-    with tr.profile():
-        torch.ones(8).sum()
-    assert (tmp_path / "prof" / "trace_0.json").exists()
 
 
 def test_telemetry_views_match_reference(rng):
