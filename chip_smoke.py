@@ -83,7 +83,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     fingerprints, ``search`` and ``verify_jaccard`` of the valid pairs, and
     ``partitioned_search`` (4 partitions) on station 0, with launch counters
     zeroed just before and read just after (``minmax_hash`` at least once
-    per search, ``jaccard_popcount`` once per verify): stage wall
+    per search, ``occurrence_filter`` once per ``search``,
+    ``jaccard_popcount`` once per verify): stage wall
     times, fingerprints per second, pairs before and after the filter,
     ``max_bucket``, peak memory, then a synced stage breakdown of station 0.
 12. ``minmax_hash`` against its plain version at station 0's shape (N =
@@ -91,7 +92,11 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     baseline's H = 800, bit-exact, timed and bounded, with a
     ``minmax_hash_rate`` line for each; bit-exact also at the row kernel's
     shapes of the offline path (the offline golden's station, D 1024,
-    H 40; corpus dedup's 24 × 1024 × 64).
+    H 40; corpus dedup's 24 × 1024 × 64). Then ``occurrence_filter`` at
+    station 0's candidate stream (t · cap · N = 17.3 M slots): kernel,
+    flags, sim and excluded mask bit-exact against its plain version,
+    timed beside its bound, the plain version and the four library
+    scatters it replaced (``library_ms``).
 13. The LM kernels against their plain versions on the card, timed and
     bounded: ``flash_attention`` at qwen2.5-14b's prefill shape (B = 1,
     40 / 8 heads, 2048 × 2048, D = 128, bf16, causal), plus Sq < Sk, a
@@ -263,7 +268,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     phase 4's 20-minute trace as one chunk (the CPU's statistics at rate
     1.0): every output equal to the CPU path's, launch counters zeroed
     just before and read just after (``stft_mag``, ``haar2d``,
-    ``minmax_sig_buckets`` once a call), the card's walls.
+    ``minmax_sig_buckets`` and ``occurrence_filter`` once a call), the
+    card's walls.
 30. The station-sharded pool (``StreamingDetector(devices=...)``) over
     logical meshes of the one card, ``[cuda:0] × width``: the shards run
     one after another on the card, so this holds the split to the
@@ -283,7 +289,8 @@ Phases (each fails loudly; the script exits non-zero on any mismatch):
     one-station synthetic month) at the paper widths under a 2-wide mesh,
     ``DETECT_SHARDED_GROUP`` chunks a pooled call, launch counters
     zeroed just before and read just after (``stft_mag``, ``haar2d``,
-    ``minmax_sig_buckets`` once a call): wall, chunks and fingerprints a
+    ``minmax_sig_buckets`` once a call, ``occurrence_filter`` once a
+    chunk): wall, chunks and fingerprints a
     second, ``model_flops`` over the wall beside the fp32 peak, memory;
     eight seeded chunks equal the CPU path's ``detect_step`` on each
     alone, exactly (the kernels' plain versions at this path's shapes).
@@ -379,7 +386,8 @@ It prints a ``{"kernels": [...]}`` line and, last, the device line
 from the path that runs it: the paper streaming service (phase 7) for the
 four kernels of the detection core, each with the batch replay's count
 (phase 5) beside it under ``launches_by_path``; the offline search (phase
-11) for ``minmax_hash``; the LM serve runs (phase 15) for
+11) for ``minmax_hash`` and ``occurrence_filter``; the LM serve runs
+(phase 15) for
 ``flash_attention`` (qwen2.5-14b) and ``mamba_scan`` (falcon-mamba-7b),
 each also with the training run's count under ``launches_by_path``; the
 training runs (phase 26) for ``flash_attention_bwd`` and
@@ -445,6 +453,7 @@ BATCH_KERNELS = ("stft_mag", "haar2d", "minmax_sig_buckets",
 # reports the batch replay's count under launches_by_path)
 KERNEL_PATH = {**{k: ("stream_paper",) for k in BATCH_KERNELS},
                "minmax_hash": ("offline_paper",),
+               "occurrence_filter": ("offline_paper",),
                "flash_attention": ("lm_serve", "qwen2.5-14b"),
                "mamba_scan": ("lm_serve", "falcon-mamba-7b"),
                "flash_attention_bwd": ("lm_train", "qwen2.5-14b"),
@@ -465,7 +474,10 @@ KERNEL_PATHS = {"stft_mag": ("paper", "stream_paper", "serve")
                 "jaccard_popcount": ("paper", "stream_paper", "elastic",
                                      "sharded_stream",
                                      "detect_step_sharded"),
-                "minmax_hash": ("offline_paper", "serve", "serve_locate")}
+                "minmax_hash": ("offline_paper", "serve", "serve_locate"),
+                "occurrence_filter": ("offline_paper", "paper",
+                                      "stream_paper", "detect_step",
+                                      "detect_step_sharded")}
 SERVE_KERNELS = tuple(k for k, p in KERNEL_PATHS.items() if "serve" in p)
 # kernel tolerance, a share of max|plain|: fp32 summation order and the
 # online-softmax rescale; one rounding of a bf16 output, plus P rounded to
@@ -2275,6 +2287,9 @@ def offline_paper_phase(ds, n_fp: int, dev) -> tuple[dict, object]:
     _need(launches["minmax_hash"] >= n_search,
           f"minmax_hash launched {launches['minmax_hash']} times for "
           f"{n_search} searches")
+    _need(launches["occurrence_filter"] == wave.shape[0],
+          f"occurrence_filter launched {launches['occurrence_filter']} "
+          f"times for {wave.shape[0]} filtered searches")
     _need(with_pairs > 0, "the offline search found no pair at any station")
     _need(launches["jaccard_popcount"] >= with_pairs,
           f"jaccard_popcount launched {launches['jaccard_popcount']} times "
@@ -2359,6 +2374,62 @@ def minmax_hash_phase(packed0, dev) -> dict:
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
            "library_ms": None, "baseline_h800": runs["baseline"]}
     print("minmax_hash", json.dumps(out), flush=True)
+    return out
+
+
+def occurrence_filter_phase(packed0, dev) -> dict:
+    """``occurrence_filter`` at the offline search's shape: station 0's
+    candidate stream from ``lsh.candidate_pairs`` (t · cap · N slots,
+    17.3 M at a station-day), the kernel against its plain version bit for
+    bit (flags, sim and the excluded mask), timed beside its bound, the
+    plain version and, as ``library_ms``, the four library scatters the
+    port ran before the kernel (``scatter_add_`` twice and
+    ``scatter_reduce_(amax)`` twice over every slot, the masked ones aimed
+    at fingerprint 0), which the port no longer calls."""
+    import torch
+    from repro_torch import utils
+    from repro_torch.configs import fast_seismic
+    from repro_torch.core import lsh
+    from repro_torch.kernels import ops, ref
+    lcfg = fast_seismic.config().lsh
+    n, words = packed0.shape
+    cand = lsh.candidate_pairs(lsh.signatures(
+        packed0, lsh.hash_mappings(32 * words, lcfg, dev), lcfg), lcfg)
+    cap = max(1, int(lcfg.occurrence_frac * n))
+    args = (cand.idx1, cand.idx2, cand.sim, cand.valid, n, cap)
+    got = ops.occurrence_filter(*args)
+    want = ref.occurrence_filter(*args)
+    torch.cuda.synchronize()
+    _need(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "occurrence_filter differs from its plain version")
+    del want
+    v = cand.valid
+    m, live = v.shape[0], int(v.sum())
+    zero = torch.zeros_like(cand.idx1)
+    i1, i2 = torch.where(v, cand.idx1, zero), torch.where(v, cand.idx2, zero)
+    w = v.to(torch.int32)
+    marks = torch.where(v, got[2][i2.long()].to(torch.int32), zero)
+
+    def library():
+        utils.segment_sum(w, i1, n)
+        utils.segment_sum(w, i2, n)
+        utils.segment_max(marks, i1, n)
+        utils.segment_max(marks, i2, n)
+
+    bound, by = cost.bound_ms(cost.occurrence_filter(m, n, live))
+    out = {"name": "occurrence_filter", "route": "cuda",
+           "source": "src/repro_torch/csrc/occurrence_filter.cu",
+           "replaces": "none (jax.ops.segment_* in "
+                       "src/repro/core/lsh.py:273)",
+           "shape": [m, n], "valid_slots": live, "cap": cap,
+           "excluded": int(got[2].sum()), "kept": int(got[0].sum()),
+           "max_abs_err": 0,
+           "ms": _time_ms(lambda: ops.occurrence_filter(*args)),
+           "plain_ms": _time_ms(lambda: ref.occurrence_filter(*args),
+                                iters=5, warmup=1),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": _time_ms(library, iters=5, warmup=1)}
+    print("occurrence_filter", json.dumps(out), flush=True)
     return out
 
 
@@ -3273,8 +3344,9 @@ def detect_step_phase(dev) -> dict:
     (``station_stats``): the card's outputs equal the CPU path's (all
     integers and masks, so exactly, as phase 4 holds its pairs), launch
     counters zeroed just before and read just after the card's calls
-    (``stft_mag``, ``haar2d`` and ``minmax_sig_buckets`` once a call, no
-    other kernel), the card's walls."""
+    (``stft_mag``, ``haar2d``, ``minmax_sig_buckets`` and
+    ``occurrence_filter`` once a call, no other kernel), the card's
+    walls."""
     import dataclasses
     import torch
     from repro_torch.configs import fast_seismic
@@ -3308,8 +3380,8 @@ def detect_step_phase(dev) -> dict:
            "events": [int(r["ev_valid"].sum()) for r in cpu],
            "equal_cpu": equal, "walls_s": walls, "launches": launches}
     print("detect_step", json.dumps(out), flush=True)
-    want = {k: (n if k in ("stft_mag", "haar2d", "minmax_sig_buckets")
-                else 0) for k in launches}
+    want = {k: (n if k in ("stft_mag", "haar2d", "minmax_sig_buckets",
+                           "occurrence_filter") else 0) for k in launches}
     _need(sum(out["pairs"]) > 0, "detect_step found no pairs on the trace")
     _need(equal, "detect_step: the card's outputs differ from the CPU's")
     _need(launches == want, f"detect_step launches {launches}, want {want}")
@@ -3517,7 +3589,8 @@ def detect_sharded_phase(dev) -> dict:
     _need(all(equal), f"detect_step_sharded: sampled chunks differ from "
           f"the CPU's detect_step: {dict(zip(rows, equal))}")
     want = {k: (calls if k in ("stft_mag", "haar2d", "minmax_sig_buckets")
-                else 0) for k in launches}
+                else n_chunks if k == "occurrence_filter" else 0)
+            for k in launches}
     _need(launches == want, f"detect_step_sharded launches {launches}, "
           f"want {want}")
     return res
@@ -4492,6 +4565,7 @@ def _phases(report: dict, dev, dryrun_procs: list, t_start: float) -> int:
     report["offline_parity"] = offline_parity_phase(dev)
     report["offline_paper"], packed0 = offline_paper_phase(ds, n_fp, dev)
     kernels.append(minmax_hash_phase(packed0, dev))
+    kernels.append(occurrence_filter_phase(packed0, dev))
     del packed0
     kernels += lm_kernel_phase(dev)
     report["lm_parity"] = lm_parity_phase(dev)

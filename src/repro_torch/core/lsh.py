@@ -257,29 +257,16 @@ def finalize_pairs(lo: torch.Tensor, hi: torch.Tensor,
 def occurrence_filter(pairs: Pairs, n_fp: int, frac: float,
                       limit: int | None = None
                       ) -> tuple[Pairs, torch.Tensor]:
-    """Drop fingerprints matching more than ``frac`` of the partition, and
-    their match partners. Ids of valid pairs lie in [0, n_fp). Returns
-    (filtered pairs, excluded mask (n_fp,))."""
-    v = pairs.valid
-    zero = torch.zeros_like(pairs.idx1)
-    i1 = torch.where(v, pairs.idx1, zero)
-    i2 = torch.where(v, pairs.idx2, zero)
-    w = v.to(torch.int32)
-    cnt = (utils.segment_sum(w, i1, n_fp) + utils.segment_sum(w, i2, n_fp))
+    """Drop fingerprints matching more than ``frac`` of the partition (or
+    ``limit`` pairs), and their match partners. Ids of valid pairs lie in
+    [0, n_fp); a masked slot's ids are not used. One
+    ``ops.occurrence_filter`` call (the kernel on the card, its plain
+    version on the CPU). Returns (filtered pairs, excluded mask (n_fp,))."""
     cap = max(1, int(frac * n_fp)) if limit is None else max(1, int(limit))
-    excluded = cnt > cap
-    nb1 = utils.segment_max(
-        torch.where(v, excluded[i2.long()].to(torch.int32),
-                    zero), i1, n_fp)
-    nb2 = utils.segment_max(
-        torch.where(v, excluded[i1.long()].to(torch.int32), zero), i2, n_fp)
-    excluded_full = excluded | (nb1 > 0) | (nb2 > 0)
-    new_valid = v & ~excluded_full[i1.long()] & ~excluded_full[i2.long()]
-    out = Pairs(idx1=pairs.idx1, idx2=pairs.idx2,
-                sim=torch.where(new_valid, pairs.sim,
-                                torch.zeros_like(pairs.sim)),
-                valid=new_valid)
-    return out, excluded_full
+    valid, sim, excluded = ops.occurrence_filter(
+        pairs.idx1, pairs.idx2, pairs.sim, pairs.valid, n_fp, cap)
+    return Pairs(idx1=pairs.idx1, idx2=pairs.idx2, sim=sim,
+                 valid=valid), excluded
 
 
 # ---------------------------------------------------------------------------

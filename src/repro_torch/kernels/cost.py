@@ -1,6 +1,6 @@
 """The work of each hand-written kernel, and its least time on the H100.
 
-One function a kernel (the seven forward kernels and the two backward
+One function a kernel (the eight forward kernels and the two backward
 ones) takes the kernel's input shapes and dtypes and returns its
 ``Work``: the operations it does, on which pipe, the bytes it must move
 (each input read once, each output written once) and its
@@ -153,6 +153,18 @@ def jaccard_popcount(s: int, p: int, m: int, words: int,
                 bytes=rows * words * 4 + s * m * 5 + 8 * live)
 
 
+def occurrence_filter(m: int, n_fp: int, live: int | None = None) -> Work:
+    """An (M,) pair stream over ``n_fp`` fingerprints with ``live`` valid
+    slots (default all): every slot's flag read and its new flag and sim
+    written (6 bytes a slot), the valid slots' ids and sim read and the
+    (n_fp,) excluded flags written; a test of each slot's flag and 6
+    integer operations a valid slot (two counts, two tests against the
+    cap, two of the marks)."""
+    live = m if live is None else live
+    return Work(ops=0, int_ops=m + 6 * live,
+                bytes=6 * m + 12 * live + n_fp)
+
+
 def causal_pairs(sq: int, sk: int, causal: bool = True) -> int:
     """The (query, key) pairs attention computes: query i sees keys up to
     i + sk − sq under the causal mask (the mask's offset for a query
@@ -237,6 +249,7 @@ DEVICE_NAMES = {
     "minmax_hash": ("minmax_hash_kernel", "RawEpilogue"),
     "minmax_sig_buckets": ("minmax_sig_buckets_kernel", "SigEpilogue"),
     "jaccard_popcount": ("jaccard_popcount_kernel",),
+    "occurrence_filter": ("occurrence_filter_",),
     "flash_attention": ("flash_attention_kernel",
                         "flash_attention_mma_kernel"),
     "flash_attention_bwd": ("fa_bwd_", "hop::"),

@@ -30,12 +30,13 @@ from repro_torch.kernels import haar2d as _haar
 from repro_torch.kernels import jaccard_popcount as _jac
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import minmax_hash as _mm
+from repro_torch.kernels import occurrence_filter as _occ
 from repro_torch.kernels import stft_mag as _stft
 from repro_torch.kernels.ref import haar_matrix
 
 LAUNCHES = {"stft_mag": 0, "haar2d": 0, "minmax_hash": 0,
             "minmax_sig_buckets": 0, "jaccard_popcount": 0,
-            "flash_attention": 0, "mamba_scan": 0,
+            "occurrence_filter": 0, "flash_attention": 0, "mamba_scan": 0,
             "flash_attention_bwd": 0, "mamba_scan_bwd": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -225,6 +226,46 @@ def jaccard_popcount(pk: torch.Tensor, i1: torch.Tensor, i2: torch.Tensor,
         _jac.launch(pk, i1, i2, valid, out)
         LAUNCHES[name] += 1
     return out
+
+
+def occurrence_filter(idx1: torch.Tensor, idx2: torch.Tensor,
+                      sim: torch.Tensor, valid: torch.Tensor, n_fp: int,
+                      cap: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The §6.5 filter over a masked pair stream: idx1 / idx2 / sim (M,)
+    int32 and valid (M,) bool, the ids of valid slots in [0, n_fp) (a
+    masked slot's ids may hold anything and are not used) → (valid (M,)
+    bool, sim (M,) int32, excluded (n_fp,) bool). A fingerprint in more
+    than ``cap`` valid pairs is excluded, and so is every partner of one;
+    a pair stays valid where neither end is excluded, its sim zeroed where
+    it does not. On the card: one launch (two memsets and three passes),
+    no host sync, the same bits as the plain version."""
+    name = "occurrence_filter"
+    for t, label, dtype in ((idx1, "idx1", torch.int32),
+                            (idx2, "idx2", torch.int32),
+                            (sim, "sim", torch.int32),
+                            (valid, "valid", torch.bool)):
+        _typed(name, t, dtype, 1, label)
+    _require(idx1.shape == idx2.shape == sim.shape == valid.shape, name,
+             "idx1, idx2, sim and valid must have one length")
+    _require(0 <= n_fp < 2**31 and 1 <= cap < 2**31, name,
+             "need 0 <= n_fp < 2**31 and 1 <= cap < 2**31")
+    route = _route(name, idx1, idx2, sim, valid)
+    if route == "cpu":
+        return _occ.plain(idx1, idx2, sim, valid, n_fp, cap)
+    out_valid, out_sim = torch.empty_like(valid), torch.empty_like(sim)
+    excluded = torch.empty(n_fp, dtype=torch.bool, device=valid.device)
+    if route == "meta":
+        # which slots are valid is data: a meta call counts none, so that
+        # a traced bound stays below what any stream of this length takes
+        cost.record(name, cost.occurrence_filter(valid.shape[0], n_fp,
+                                                 live=0))
+        return out_valid, out_sim, excluded
+    cnt = torch.empty(n_fp, dtype=torch.int32, device=valid.device)
+    _occ.launch(idx1, idx2, sim, valid, n_fp, cap, cnt, excluded, out_valid,
+                out_sim)
+    LAUNCHES[name] += 1
+    return out_valid, out_sim, excluded
 
 
 def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,

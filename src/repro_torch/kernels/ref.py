@@ -29,6 +29,8 @@ from repro_torch.kernels.minmax_hash import \
 from repro_torch.kernels.mamba_scan import plain as mamba_scan  # noqa: F401
 from repro_torch.kernels.mamba_scan import \
     plain_bwd as mamba_scan_bwd  # noqa: F401
+from repro_torch.kernels.occurrence_filter import \
+    plain as occurrence_filter  # noqa: F401
 from repro_torch.kernels.stft_mag import plain as stft_mag  # noqa: F401
 
 

@@ -332,6 +332,65 @@ def test_jaccard_popcount_kernel(cuda, w, m, pattern):
         assert torch.equal(ops.jaccard_popcount(pk, i1, i2), got)
 
 
+# one station-day of the offline search: t · cap · N = 100 · 4 · 43,184
+SEARCH_SLOTS, SEARCH_FP = 100 * 4 * 43_184, 43_184
+
+
+def _occurrence_inputs(m: int, n_fp: int, share: float, hub: int, dev,
+                       offset: int = 0):
+    """An (m,) pair stream over n_fp fingerprints, a ``share`` of its
+    slots valid and the rest INVALID ids; the first ``hub`` slots pair
+    fingerprint 11 with as many partners, side by side as in the sorted
+    search stream. ``offset`` slots are cut off the front, so the views
+    start off the kernel's vector alignment when it is not a multiple of
+    4."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = m + offset
+    i1 = torch.randint(0, n_fp - 1, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    i2 = torch.minimum(i1 + torch.randint(1, 64, (n,), generator=g,
+                                          device=dev, dtype=torch.int32),
+                       torch.tensor(n_fp - 1, device=dev, dtype=torch.int32))
+    valid = torch.rand(n, generator=g, device=dev) < share
+    if hub:
+        i1[offset:offset + hub] = 11
+        i2[offset:offset + hub] = 12 + torch.arange(hub, device=dev) % (
+            n_fp - 12)
+        valid[offset:offset + hub] = True
+    sim = torch.randint(2, 101, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    inv = torch.tensor(2**31 - 1, device=dev, dtype=torch.int32)
+    i1, i2 = torch.where(valid, i1, inv), torch.where(valid, i2, inv)
+    sim = torch.where(valid, sim, 0)
+    return tuple(t[offset:] for t in (i1, i2, sim, valid))
+
+
+@pytest.mark.parametrize("m,n_fp,share,hub,offset", [
+    (SEARCH_SLOTS, SEARCH_FP, 0.005, 1000, 0),   # the search's stream
+    (SEARCH_SLOTS, SEARCH_FP, 0.005, 0, 0),
+    (0, 50, 0.0, 0, 0), (1, 10, 1.0, 0, 0), (7, 10, 1.0, 0, 0),
+    (4097, 300, 0.5, 50, 0),                     # a ragged tail tile
+    (4096, 2000, 1.0, 0, 0),                     # the host tail's streams
+    (10001, 500, 0.3, 40, 1), (10001, 500, 0.3, 40, 3),   # unaligned views
+    (4 * 4096 + 5, 30, 1.0, 0, 0)])              # every id excluded
+def test_occurrence_filter_kernel(cuda, m, n_fp, share, hub, offset):
+    """The kernel against the plain version on the same card tensors,
+    bit for bit, twice (the same bits run to run): one launch a call."""
+    idx1, idx2, sim, valid = _occurrence_inputs(m, n_fp, share, hub, cuda,
+                                                offset)
+    cap = max(1, int(0.01 * n_fp))
+    ops.reset_launches()
+    got = ops.occurrence_filter(idx1, idx2, sim, valid, n_fp, cap)
+    again = ops.occurrence_filter(idx1, idx2, sim, valid, n_fp, cap)
+    assert ops.LAUNCHES["occurrence_filter"] == 2
+    want = ref.occurrence_filter(idx1, idx2, sim, valid, n_fp, cap)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and torch.equal(g, w) and torch.equal(a, w)
+    if hub:
+        assert bool(got[2][11]) and not bool(got[0][:hub].any())
+
+
 @pytest.mark.parametrize("w", [4, 32, 255, 256, 257, 512])
 def test_jaccard_popcount_unaligned_ring_takes_scalar_plan(cuda, w):
     """A ring view off 16 bytes takes the 4-byte plan and gives the
@@ -1485,6 +1544,11 @@ def _work_case(name: str, dev):
         return (lambda to: ops.jaccard_popcount(*to(pk, i1, i2)),
                 cost.jaccard_popcount(4, 4096, 4096, 256, live=4 * 4096,
                                       rows=rows))
+    if name == "occurrence_filter":
+        occ = _occurrence_inputs(SEARCH_SLOTS, SEARCH_FP, 0.005, 1000, dev)
+        return (lambda to: ops.occurrence_filter(*to(*occ), SEARCH_FP, 431),
+                cost.occurrence_filter(SEARCH_SLOTS, SEARCH_FP,
+                                       live=int(occ[3].sum())))
     if name.startswith("flash_attention"):
         bf = torch.bfloat16
         q = torch.randn((1, 8, 1024, 128), generator=g, device=dev).to(bf)
@@ -1515,7 +1579,7 @@ def _work_case(name: str, dev):
 
 @pytest.mark.parametrize("name", ["stft_mag", "haar2d", "minmax_hash",
                                   "minmax_sig_buckets", "jaccard_popcount",
-                                  "flash_attention", "flash_attention_bwd",
+                                  "occurrence_filter", "flash_attention", "flash_attention_bwd",
                                   "mamba_scan", "mamba_scan_bwd"])
 def test_kernel_time_is_at_least_its_cost_bound_and_meta_shapes_match(
         cuda, name):

@@ -355,6 +355,8 @@ def _kernel_cases():
             *t(packed, mp, salts), use_minmax=True, n_buckets=64)),
         ("jaccard_popcount", lambda t: ops.jaccard_popcount(
             *t(pk, i1, i1.flip(-1).contiguous(), valid))),
+        ("occurrence_filter", lambda t: ops.occurrence_filter(
+            *t(i1[0], i1[1], i1[0] + 2, valid[0]), 10, 1)),
         ("flash_attention", lambda t: ops.flash_attention(*t(q, kv, kv))),
         ("flash_attention_bwd", lambda t: ops.flash_attention_bwd(
             *t(q, kv, kv, q, lse, q))),

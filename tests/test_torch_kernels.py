@@ -14,12 +14,15 @@ import torch
 
 import jax.numpy as jnp
 from repro.core.fingerprint import frame
+from repro.core import lsh as jlsh
 from repro.core.lsh import bucket_salts as j_bucket_salts
 from repro.kernels import ops as jops
 from repro.kernels.ref import dft_matrices
 from repro.utils import pack_bits as j_pack_bits
 from repro_torch import utils as tu
+from repro_torch.core import lsh as tlsh
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
@@ -110,6 +113,121 @@ def test_jaccard_popcount_plain_matches_pallas(rng, ring, words, m):
     assert float(got[0, 0]) == 0.0 and float(got[0, 3]) == 1.0
 
 
+INVALID = 2**31 - 1
+
+
+def _occurrence_stream(rng, case: str):
+    """(idx1, idx2, sim, valid) numpy arrays, n_fp, frac and limit of one
+    occurrence-filter case; masked slots hold garbage ids, INVALID among
+    them."""
+    n_fp, m, frac, limit = 100, 600, 0.05, None        # cap 5
+    i1 = rng.integers(0, n_fp - 1, m).astype(np.int32)
+    i2 = np.minimum(i1 + rng.integers(1, 30, m), n_fp - 1).astype(np.int32)
+    sim = rng.integers(2, 9, m).astype(np.int32)
+    valid = rng.random(m) < 0.15
+    if case == "empty":
+        i1, i2, sim, valid = i1[:0], i2[:0], sim[:0], valid[:0]
+    elif case == "all_masked":
+        valid[:] = False
+    elif case == "hub":
+        # fingerprint 7 pairs with 40 partners: it goes, and so do they
+        i1[:40], i2[:40], valid[:40] = 7, np.arange(40, 80), True
+    elif case == "limit":
+        limit = 3
+    elif case == "top_id":
+        i1[:12], i2[:12], valid[:12] = np.arange(60, 72), n_fp - 1, True
+    elif case == "invalid_ids":
+        i1[~valid], i2[~valid] = INVALID, INVALID
+    masked = ~valid
+    i1[masked & (rng.random(valid.shape[0]) < 0.5)] = INVALID
+    sim = np.where(valid, sim, 0).astype(np.int32)
+    return (i1, i2, sim, valid), n_fp, frac, limit
+
+
+def _occurrence_oracle(i1, i2, sim, valid, n_fp: int, cap: int):
+    """The §6.5 filter by loops over the valid pairs (numpy)."""
+    pairs = list(zip(i1[valid].tolist(), i2[valid].tolist()))
+    cnt = np.zeros(n_fp, np.int64)
+    for a, b in pairs:
+        cnt[a] += 1
+        cnt[b] += 1
+    hot = cnt > cap
+    excluded = hot.copy()
+    for a, b in pairs:
+        excluded[a] |= hot[b]
+        excluded[b] |= hot[a]
+    keep = valid.copy()
+    keep[valid] = [not (excluded[a] or excluded[b]) for a, b in pairs]
+    return keep, np.where(keep, sim, 0), excluded
+
+
+@pytest.mark.parametrize("case", ["empty", "all_masked", "hub", "limit",
+                                  "top_id", "invalid_ids"])
+def test_occurrence_filter_plain_matches_reference(rng, case):
+    """``ops.occurrence_filter`` on CPU tensors (the plain version) and
+    ``core.lsh.occurrence_filter`` through it equal a loop over the valid
+    pairs and the JAX package's ``occurrence_filter``, bit for bit."""
+    arrays, n_fp, frac, limit = _occurrence_stream(rng, case)
+    cap = max(1, int(frac * n_fp)) if limit is None else limit
+    want = _occurrence_oracle(*arrays, n_fp, cap)
+    ops.reset_launches()
+    got = ops.occurrence_filter(*map(torch.from_numpy, arrays), n_fp, cap)
+    assert ops.LAUNCHES["occurrence_filter"] == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    jp, jex = jlsh.occurrence_filter(
+        jlsh.Pairs(*map(jnp.asarray, arrays)), n_fp, frac, limit=limit)
+    tp, tex = tlsh.occurrence_filter(
+        tlsh.Pairs(*map(torch.from_numpy, arrays)), n_fp, frac, limit=limit)
+    np.testing.assert_array_equal(tex.numpy(), np.asarray(jex))
+    np.testing.assert_array_equal(tex.numpy(), want[2])
+    for f in ("idx1", "idx2", "sim", "valid"):
+        np.testing.assert_array_equal(getattr(tp, f).numpy(),
+                                      np.asarray(getattr(jp, f)), err_msg=f)
+    if case == "hub":
+        assert want[2][7] and want[2][40:80].all() and not want[0][:40].any()
+    if case == "top_id":
+        assert want[2][n_fp - 1]
+    if case in ("empty", "all_masked"):
+        assert not want[2].any() and not want[0].any()
+
+
+@pytest.mark.parametrize("case", ["dtype", "ndim", "lengths", "contiguity",
+                                  "meta", "plain"])
+def test_occurrence_filter_wrapper(rng, case):
+    """The wrapper refuses a wrong dtype, 2-D input, unequal lengths and a
+    non-contiguous view; on ``meta`` it returns the kernel's shapes and
+    records its work; a plain call launches nothing."""
+    (i1, i2, sim, valid), n_fp, _, _ = _occurrence_stream(rng, "hub")
+    i1, i2, sim, valid = map(torch.from_numpy, (i1, i2, sim, valid))
+    bad = {"dtype": (i1.long(), i2, sim, valid),
+           "ndim": (i1[None], i2[None], sim[None], valid[None]),
+           "lengths": (i1, i2[1:], sim, valid),
+           "contiguity": (i1[::2], i2[::2], sim[::2], valid[::2])}
+    if case in bad:
+        with pytest.raises(ValueError, match="occurrence_filter"):
+            ops.occurrence_filter(*bad[case], n_fp, 5)
+        return
+    ops.reset_launches()
+    if case == "plain":
+        ops.occurrence_filter(i1, i2, sim, valid, n_fp, 5)
+    else:
+        cost.RECORDER = []
+        try:
+            got = ops.occurrence_filter(
+                *(t.to("meta") for t in (i1, i2, sim, valid)), n_fp, 5)
+            recorded = cost.RECORDER
+        finally:
+            cost.RECORDER = None
+        assert [(t.shape, t.dtype, t.is_meta) for t in got] == [
+            ((600,), torch.bool, True), ((600,), torch.int32, True),
+            ((n_fp,), torch.bool, True)]
+        assert recorded == [("occurrence_filter",
+                             cost.occurrence_filter(600, n_fp, live=0))]
+        assert recorded[0][1].bytes == 6 * 600 + n_fp
+    assert ops.LAUNCHES["occurrence_filter"] == 0
+
+
 def _wrapper_inputs(rng):
     wave = torch.from_numpy(rng.standard_normal((2, 400)).astype(np.float32))
     window = torch.from_numpy(np.hanning(40).astype(np.float32))
@@ -130,6 +248,8 @@ def _wrapper_inputs(rng):
     scan = [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
             for shp in ((1, 6, 8), (1, 6, 8), (8, 4), (1, 6, 4), (1, 6, 4))]
     o, lse = ref.flash_attention_with_lse(q, kv, kv)
+    occ, n_fp, _, _ = _occurrence_stream(rng, "hub")
+    occ = tuple(map(torch.from_numpy, occ))
     return {
         "stft_mag": (lambda: ops.stft_mag(wave, window, dr, di, 5),
                      lambda: ref.stft_mag(wave, window, dr, di, 5)),
@@ -147,6 +267,9 @@ def _wrapper_inputs(rng):
         "jaccard_popcount": (lambda: ops.jaccard_popcount(pk, idx, idx.flip(1)),
                              lambda: ref.jaccard_popcount(pk, idx,
                                                           idx.flip(1))),
+        "occurrence_filter": (
+            lambda: ops.occurrence_filter(*occ, n_fp, 5),
+            lambda: ref.occurrence_filter(*occ, n_fp, 5)),
         "flash_attention": (lambda: ops.flash_attention(q, kv, kv),
                             lambda: ref.flash_attention(q, kv, kv)),
         "mamba_scan": (lambda: ops.mamba_scan(*scan),
